@@ -1,0 +1,365 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch port on one NVIDIA GPU and holds it to its plain versions.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (the kernels phase one per case):
+
+1. device       the card's name, count and nvidia-smi name/power limit;
+2. build        nvcc builds every ``src/repro_torch/csrc/*.cu`` for sm_90a;
+3. kernels      each kernel's wrapper against its plain version on the card,
+                with its device time (CUDA-graph replay), its time per call
+                from Python, the plain version's and one PyTorch library
+                call's device times, and the least time the card could take
+                for the work (``bound_ms``);
+4. consistency  stablelm-1.6b at full width in float32: decode logits at every
+                prompt position equal the full forward's, and a reduced model
+                on the card equals the same model on the CPU;
+5. serve        the main path: stablelm-1.6b at full width in bf16 serves a
+                batch through ``ServingEngine.generate``, then ``apply_lm``
+                runs on the same prompts; launch counts prove both kernels ran.
+
+Then a summary line {"kernels": [...]}, the nvidia-smi line, and last
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero before
+the last line. Needs one CUDA device; imports nothing of JAX.
+"""
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # fp32 outside tensor cores
+# bf16: tests/test_kernels.py's tolerance. fp32: sums run in another order
+# than the plain version's, with TF32 off.
+TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# Decode logits against forward logits (tests/test_models.py:84).
+CONSISTENCY_TOL = 2e-2
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 128, 64
+CONSISTENCY_PROMPT = 64
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def call_ms(torch, fn, min_total_ms: float = 30.0) -> float:
+    """Mean time of one fn() call, Python wrapper included: CUDA events around
+    back-to-back calls, after a warm-up. Where the host launches calls more
+    slowly than the card runs them, this is the host's rate."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    iters = 5
+    while True:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        total = start.elapsed_time(end)
+        if total >= min_total_ms or iters >= 2000:
+            return total / iters
+        iters = min(2000, max(iters * 2, int(iters * min_total_ms / max(total, 1e-3))))
+
+
+def device_ms(torch, fn, per_call_ms: float, min_total_ms: float = 30.0) -> float:
+    """Mean device time of one fn() call: n calls captured in a CUDA graph,
+    replayed between CUDA events, so the host's launch rate drops out."""
+    n = max(1, min(500, int(min_total_ms / max(per_call_ms, 1e-3))))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = 3
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * n)
+    del graph
+    return ms
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.nn.functional as F
+    from repro_torch import device as dev
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = torch.device("cuda", 0)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    # 1. device ---------------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = dev.card_line()
+    emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # 2. build ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    lib = build.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_s": lib.build_s, "library": str(lib.path.relative_to(ROOT)),
+          "ptxas": [ln.strip() for ln in lib.log.splitlines()
+                    if "registers" in ln or "spill" in ln]})
+
+    # 3. kernels --------------------------------------------------------------
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=cuda,
+                           dtype=torch.float32).to(dtypes[dtype])
+
+    results = {}
+
+    def check_case(kernel, case, dtype, run, plain, library, nbytes, flops,
+                   **info):
+        out = run()
+        want = plain()
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        tol = TOL[dtype]
+        ok = bool(torch.allclose(out.float(), want.float(), atol=tol, rtol=tol))
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+
+        def timed(fn):
+            per_call = call_ms(torch, fn)
+            return device_ms(torch, fn, per_call), per_call
+
+        kernel_ms, kernel_call_ms = timed(run)
+        plain_ms, _ = timed(plain)
+        library_ms = None if library is None else timed(library)[0]
+        rec = {"phase": "kernels", "kernel": kernel, "case": case,
+               "dtype": dtype, **info, "max_abs_err": err, "tol": tol,
+               "ok": ok, "kernel_ms": kernel_ms, "kernel_call_ms": kernel_call_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(rec)
+        results[(kernel, case)] = rec
+        if not ok:
+            fail(f"{kernel}/{case}: max abs err {err} over tolerance {tol}")
+
+    has_rms_norm = hasattr(F, "rms_norm")
+    sdpa_gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
+    for case, R, D, dtype, sdtype in [
+            ("serve_decode", SERVE_BATCH, 2048, "bfloat16", "bfloat16"),
+            ("serve_forward", SERVE_BATCH * SERVE_PROMPT, 2048, "bfloat16", "bfloat16"),
+            ("consistency_forward", CONSISTENCY_PROMPT, 2048, "float32", "float32"),
+            ("ragged_rows", 1000, 2048, "bfloat16", "bfloat16"),
+            ("wide_mixed_scale", 333, 4096, "bfloat16", "float32"),
+            ("unaligned_dim", 77, 2050, "float32", "bfloat16")]:
+        x = randn(R, D, dtype=dtype)
+        s = 1.0 + 0.1 * randn(D, dtype=sdtype)
+        s_lib = s.to(x.dtype)
+        lib_fn = ((lambda x=x, s=s_lib: F.rms_norm(x, (x.shape[1],), s, 1e-5))
+                  if has_rms_norm else None)
+        check_case("rmsnorm", case, dtype,
+                   lambda x=x, s=s: ops.rmsnorm(x, s),
+                   lambda x=x, s=s: ref.reference_rmsnorm(x, s),
+                   lib_fn,
+                   nbytes=2 * x.numel() * x.element_size() + s.numel() * s.element_size(),
+                   flops=4 * R * D, shape=[R, D])
+
+    def attn_case(case, B, H, KH, Sq, Sk, D, Dv, dtype, causal, model_layout):
+        if model_layout:   # (B,S,heads,hd) transposed, as the model hands it over
+            q = randn(B, Sq, H, D, dtype=dtype).transpose(1, 2)
+            k = randn(B, Sk, KH, D, dtype=dtype).transpose(1, 2)
+            v = randn(B, Sk, KH, Dv, dtype=dtype).transpose(1, 2)
+        else:
+            q = randn(B, H, Sq, D, dtype=dtype)
+            k = randn(B, KH, Sk, D, dtype=dtype)
+            v = randn(B, KH, Sk, Dv, dtype=dtype)
+        pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk)
+        lib_kw = {"is_causal": causal}
+        if KH != H:
+            lib_kw["enable_gqa"] = True
+        library = (None if KH != H and not sdpa_gqa else
+                   lambda: F.scaled_dot_product_attention(q, k, v, **lib_kw))
+        check_case(
+            "flash_attention", case, dtype,
+            lambda: ops.flash_attention(q, k, v, causal=causal),
+            lambda: ops.flash_attention_plain(q, k, v, causal=causal),
+            library,
+            nbytes=(q.numel() + k.numel() + v.numel() + B * H * Sq * Dv) * q.element_size(),
+            flops=2 * B * H * pairs * (D + Dv),
+            shape={"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "D": D,
+                   "Dv": Dv}, causal=causal)
+
+    P = SERVE_PROMPT
+    attn_case("serve_forward", SERVE_BATCH, 32, 32, P, P, 64, 64, "bfloat16", True, True)
+    attn_case("consistency_forward", 1, 32, 32, CONSISTENCY_PROMPT,
+              CONSISTENCY_PROMPT, 64, 64, "float32", True, True)
+    attn_case("s1024", 4, 32, 32, 1024, 1024, 64, 64, "bfloat16", True, False)
+    attn_case("s1024_fp32", 1, 32, 32, 1024, 1024, 64, 64, "float32", True, False)
+    attn_case("ragged_s1000", 4, 32, 32, 1000, 1000, 64, 64, "bfloat16", True, True)
+    attn_case("gqa_32q_8kv_hd128", 2, 32, 8, 512, 512, 128, 128, "bfloat16", True, True)
+    attn_case("dv_ne_d", 2, 16, 16, 256, 256, 192, 128, "bfloat16", True, False)
+    attn_case("non_causal", 2, 32, 32, 512, 512, 64, 64, "bfloat16", False, False)
+
+    # the Pallas kernel's own contract: (BH, S, D)
+    q3, k3, v3 = (randn(8, 256, 64, dtype="float32") for _ in range(3))
+    o3 = ops.flash_attention(q3, k3, v3)
+    err3 = (o3 - ref.reference_attention(q3, k3, v3)).abs().max().item()
+    emit({"phase": "kernels", "kernel": "flash_attention", "case": "bh_s_d_contract",
+          "max_abs_err": err3, "tol": TOL["float32"]})
+    if not err3 <= TOL["float32"]:
+        fail(f"flash_attention (BH,S,D): max abs err {err3}")
+
+    # 4. consistency ----------------------------------------------------------
+    base = get_arch("stablelm-1.6b").model
+    small = reduced(base).replace(param_dtype="float32", compute_dtype="float32",
+                                  num_kv_heads=2)
+    ps_cpu = T.init_lm(small, 1, device="cpu")
+    ps_gpu = T.init_lm(small, 1, device="cpu").to(cuda)
+    cfg32 = base.replace(param_dtype="float32", compute_dtype="float32")
+    params = T.init_lm(cfg32, 0, device=cuda)
+    with torch.inference_mode():
+        toks = torch.randint(0, small.vocab_size, (2, 40),
+                             generator=torch.Generator().manual_seed(2))
+        lg_cpu, _ = T.apply_lm(ps_cpu, small, toks)
+        lg_gpu, _ = T.apply_lm(ps_gpu, small, toks.to(cuda))
+        small_err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+
+        toks = torch.randint(0, cfg32.vocab_size, (1, CONSISTENCY_PROMPT),
+                             generator=torch.Generator().manual_seed(3)).to(cuda)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        full, _ = T.apply_lm(params, cfg32, toks)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        fwd_launches = dict(ops.LAUNCHES)
+        caches = T.init_caches(cfg32, 1, CONSISTENCY_PROMPT, torch.float32, device=cuda)
+        outs = []
+        for i in range(CONSISTENCY_PROMPT):
+            lg, caches = T.apply_lm_decode(params, cfg32, toks[:, i:i + 1], caches, i)
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, dim=1)
+        torch.cuda.synchronize()
+        err = (full - dec).abs().max().item()
+        ok = (bool(torch.isfinite(full).all()) and full.shape == (1, CONSISTENCY_PROMPT, cfg32.padded_vocab)
+              and bool(torch.allclose(full, dec, atol=CONSISTENCY_TOL, rtol=CONSISTENCY_TOL))
+              and small_err <= TOL["float32"])
+        emit({"phase": "consistency", "arch": base.name, "layers": cfg32.num_layers,
+              "d_model": cfg32.d_model, "dtype": "float32",
+              "prompt": CONSISTENCY_PROMPT, "decode_vs_forward_max_abs_err": err,
+              "tol": CONSISTENCY_TOL, "logits_abs_max": full.abs().max().item(),
+              "forward_s": fwd_s, "forward_launches": fwd_launches,
+              "reduced_card_vs_cpu_max_abs_err": small_err, "ok": ok})
+        if not ok:
+            fail("consistency phase failed")
+        expect = {"flash_attention": cfg32.num_layers, "rmsnorm": 2 * cfg32.num_layers + 1}
+        if fwd_launches != expect:
+            fail(f"forward launches {fwd_launches}, expected {expect}")
+        del params, caches, full, dec, outs
+        torch.cuda.empty_cache()
+
+    # 5. serve: the main path -------------------------------------------------
+    cfg = base   # bf16 params and compute, full width
+    params = T.init_lm(cfg, 0, device=cuda)
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator().manual_seed(4))
+    engine = ServingEngine(cfg, params, max_len=SERVE_PROMPT + SERVE_GEN,
+                           device=cuda)
+    engine.generate(prompts[:, :8], gen_len=4)          # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launches()
+    res = engine.generate(prompts, gen_len=SERVE_GEN)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, _ = T.apply_lm(params, cfg, prompts.to(cuda))
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+
+    steps = SERVE_PROMPT + SERVE_GEN - 1
+    per_pass = 2 * cfg.num_layers + 1
+    expect = {"flash_attention": cfg.num_layers, "rmsnorm": per_pass * (steps + 1)}
+    tokens = torch.tensor(res.tokens)
+    first_match = (tokens[:, 0] == logits[:, -1].argmax(-1).cpu()).float().mean().item()
+    ok = (launches == expect and tokens.shape == (SERVE_BATCH, SERVE_GEN)
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.padded_vocab
+          and bool(torch.isfinite(logits).all())
+          and logits.shape == (SERVE_BATCH, SERVE_PROMPT, cfg.padded_vocab))
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
+          "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+          "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+          "tokens_per_s": res.tokens_per_s,
+          "decode_step_ms": 1e3 * res.decode_s / (SERVE_GEN - 1),
+          "apply_lm_s": fwd_s,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches, "expected_launches": expect,
+          "first_token_matches_forward_argmax": first_match, "ok": ok})
+    if not ok:
+        fail(f"serve phase failed: launches {launches}, expected {expect}")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"kernel {name} was never launched on the main path")
+
+    # summary -----------------------------------------------------------------
+    main_case = {"rmsnorm": "serve_decode", "flash_attention": "serve_forward"}
+    meta = {
+        "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:32"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:102"),
+    }
+    summary = []
+    for name, (source, replaces) in meta.items():
+        rec = results[(name, main_case[name])]
+        summary.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "case": main_case[name], "shape": rec["shape"],
+                        "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+                        "call_ms": rec["kernel_call_ms"],
+                        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    emit({"kernels": summary})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,50 @@
+"""Architecture registry of the port: ``get_arch(id)`` / ``reduced(cfg)``.
+
+Only the families the port runs are registered. The dataclasses and the
+two specs are copies of the JAX package's, so the port never imports it.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+from repro_torch.configs.base import (ArchSpec, LM_SHAPES, ModelConfig,
+                                      ShapeConfig, TrainConfig)
+from repro_torch.configs import mistral_nemo_12b, stablelm_1_6b
+
+ARCHS: Dict[str, ArchSpec] = {
+    "stablelm-1.6b": stablelm_1_6b.SPEC,
+    "mistral-nemo-12b": mistral_nemo_12b.SPEC,
+}
+
+ARCH_IDS: List[str] = list(ARCHS)
+PORTED_FAMILIES = ("dense",)
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id not in ARCHS:
+        raise KeyError(f"arch {arch_id!r} is not ported; the port runs family "
+                       f"{'/'.join(PORTED_FAMILIES)}: {ARCH_IDS}")
+    return ARCHS[arch_id]
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """A tiny same-family config for CPU tests (same cut as the JAX package)."""
+    kw = dict(
+        num_layers=min(cfg.num_layers, 2),
+        d_model=64,
+        vocab_size=512,
+        pad_vocab_multiple=16,
+    )
+    if cfg.attention != "none":
+        kw.update(num_heads=4, head_dim=16,
+                  num_kv_heads=min(cfg.num_kv_heads, 4) if cfg.num_kv_heads else 0)
+        if cfg.num_kv_heads == 1:
+            kw["num_kv_heads"] = 1
+    if cfg.d_ff:
+        kw["d_ff"] = 128
+    return cfg.replace(**kw)
+
+
+__all__ = ["ARCHS", "ARCH_IDS", "ArchSpec", "LM_SHAPES", "ModelConfig",
+           "PORTED_FAMILIES", "ShapeConfig", "TrainConfig", "get_arch",
+           "reduced"]

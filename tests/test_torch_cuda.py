@@ -1,0 +1,87 @@
+"""The port's CUDA kernels and model path on the card, against their plain
+versions. These need an NVIDIA GPU and skip elsewhere; on a machine with
+one, run them with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX, so it runs where only PyTorch is installed."""
+import pytest
+import torch
+
+from repro_torch.configs import get_arch, reduced
+from repro_torch.kernels import ops, ref
+from repro_torch.models import transformer as T
+
+pytestmark = pytest.mark.cuda
+
+# bf16: one rounding of the output; fp32: another summation order, TF32 off.
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("R,D", [(4, 2048), (1000, 2048), (77, 2050), (3, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel(cuda, R, D, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(R + D)
+    x = _randn(gen, (R, D), dtype, cuda)
+    s = _randn(gen, (D,), torch.float32, cuda)
+    before = ops.LAUNCHES["rmsnorm"]
+    y = ops.rmsnorm(x, s)
+    assert ops.LAUNCHES["rmsnorm"] == before + 1
+    torch.testing.assert_close(y.float(), ref.reference_rmsnorm(x, s).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,Dv,causal", [
+    (2, 4, 4, 128, 64, 64, True), (1, 8, 2, 200, 128, 128, True),
+    (2, 4, 4, 100, 192, 128, True), (1, 4, 4, 130, 64, 64, False),
+    (1, 2, 1, 1, 64, 64, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(cuda, B, H, KH, S, D, Dv, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    q = _randn(gen, (B, S, H, D), dtype, cuda).transpose(1, 2)
+    k = _randn(gen, (B, S, KH, D), dtype, cuda).transpose(1, 2)
+    v = _randn(gen, (B, S, KH, Dv), dtype, cuda).transpose(1, 2)
+    before = ops.LAUNCHES["flash_attention"]
+    o = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(
+        o.float(), ops.flash_attention_plain(q, k, v, causal=causal).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros(4, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.rmsnorm(x, torch.ones(16, device=cuda, dtype=torch.float16))
+    q = torch.zeros(1, 1, 8, 64, device=cuda)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q[..., :32], q)
+    w = torch.ones(16, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        ops.rmsnorm(torch.zeros(4, 16, device=cuda), w)
+
+
+@pytest.mark.parametrize("kh", [4, 2])
+def test_model_on_card_matches_cpu(cuda, kh):
+    cfg = reduced(get_arch("stablelm-1.6b").model).replace(
+        param_dtype="float32", compute_dtype="float32", num_kv_heads=kh)
+    params = T.init_lm(cfg, 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 70),
+                         generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        want, _ = T.apply_lm(params, cfg, toks)
+        got, _ = T.apply_lm(T.init_lm(cfg, 0, device="cpu").to(cuda), cfg,
+                            toks.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
