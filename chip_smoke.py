@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (the kernels phase one per case):
+Phases, each printing one JSON line (the kernels phase one per case) with
+its seconds:
 
 1. device       the card's name, count and nvidia-smi name/power limit;
 2. build        nvcc builds every ``src/repro_torch/csrc/*.cu`` for sm_90a;
@@ -11,13 +12,18 @@ Phases, each printing one JSON line (the kernels phase one per case):
                 with its device time (CUDA-graph replay), its time per call
                 from Python, the plain version's and one PyTorch library
                 call's device times, and the least time the card could take
-                for the work (``bound_ms``);
-4. consistency  stablelm-1.6b at full width in float32: decode logits at every
-                prompt position equal the full forward's, and a reduced model
-                on the card equals the same model on the CPU;
-5. serve        the main path: stablelm-1.6b at full width in bf16 serves a
-                batch through ``ServingEngine.generate``, then ``apply_lm``
-                runs on the same prompts; launch counts prove both kernels ran.
+                for the work (``bound_ms``); ``ssd_scan`` also against the
+                sequential recurrence ``reference_ssd``;
+4. consistency  stablelm-1.6b and mamba2-370m at full width in float32:
+                decode logits at every prompt position equal the full
+                forward's (mamba2 over two 256-row chunks), and reduced
+                stablelm, mamba2 and zamba2 models on the card equal the same
+                models on the CPU;
+5. serve        the main paths: stablelm-1.6b, mamba2-370m and zamba2-1.2b at
+                full width in bf16 each serve a batch through
+                ``ServingEngine.generate``, then ``apply_lm`` runs on the same
+                model; the launch counts of each path must be exactly the
+                path's, which proves that it went through its kernels.
 
 Then a summary line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero before
@@ -40,6 +46,8 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 CONSISTENCY_TOL = 2e-2
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 128, 64
 CONSISTENCY_PROMPT = 64
+SSM_CONSISTENCY_PROMPT = 512        # two chunks of 256
+SSM_FORWARD_LEN = 1024              # apply_lm after an ssm/hybrid serve run
 
 
 def emit(obj) -> None:
@@ -100,10 +108,22 @@ def device_ms(torch, fn, per_call_ms: float, min_total_ms: float = 30.0) -> floa
     return ms
 
 
-def bound(nbytes: float, flops: float, dtype: str):
+def ssd_ops_s(BH: int, S: int, P: int, N: int, Q: int, bc_dtype: str):
+    """Least time for the operations of one SSD scan, and the form it counts:
+    the smaller of the sequential recurrence's 5*N*P fp32 flops per row and
+    head (state decay and rank-1 update, then C . state) and the chunked
+    form's, whose C B^T term (Q*N per row) may run at B/C's own rate (tensor
+    cores for bf16) and whose rest (Q*P + 4*N*P per row) is fp32."""
+    rows = BH * S
+    recurrence = 5 * rows * N * P / PEAK_FLOPS["float32"]
+    chunked = rows * (Q * N / PEAK_FLOPS[bc_dtype]
+                      + (Q * P + 4 * N * P) / PEAK_FLOPS["float32"])
+    return min((recurrence, "recurrence"), (chunked, "chunked"))
+
+
+def bound(nbytes: float, ops_s: float):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return 1e3 * max(t_bytes, ops_s), ("bytes" if t_bytes >= ops_s else "operations")
 
 
 def main() -> int:
@@ -141,6 +161,7 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]})
 
     # 3. kernels --------------------------------------------------------------
+    t_phase = time.perf_counter()
     gen = torch.Generator(device=cuda).manual_seed(0)
 
     def randn(*shape, dtype):
@@ -149,15 +170,19 @@ def main() -> int:
 
     results = {}
 
-    def check_case(kernel, case, dtype, run, plain, library, nbytes, flops,
-                   **info):
+    def check_case(kernel, case, dtype, run, plain, library, nbytes, flops=None,
+                   ops_s=None, tol=None, extra_ok=True, **info):
+        """``ops_s``: the least time for the operations; by default ``flops``
+        at the peak rate of ``dtype``."""
         out = run()
         want = plain()
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
-        tol = TOL[dtype]
-        ok = bool(torch.allclose(out.float(), want.float(), atol=tol, rtol=tol))
-        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        tol = tol or TOL[dtype]
+        ok = extra_ok and bool(torch.allclose(out.float(), want.float(),
+                                              atol=tol, rtol=tol))
+        bound_ms, bound_by = bound(
+            nbytes, flops / PEAK_FLOPS[dtype] if ops_s is None else ops_s)
 
         def timed(fn):
             per_call = call_ms(torch, fn)
@@ -184,7 +209,14 @@ def main() -> int:
             ("consistency_forward", CONSISTENCY_PROMPT, 2048, "float32", "float32"),
             ("ragged_rows", 1000, 2048, "bfloat16", "bfloat16"),
             ("wide_mixed_scale", 333, 4096, "bfloat16", "float32"),
-            ("unaligned_dim", 77, 2050, "float32", "bfloat16")]:
+            ("unaligned_dim", 77, 2050, "float32", "bfloat16"),
+            ("mamba2_decode", SERVE_BATCH, 1024, "bfloat16", "bfloat16"),
+            ("mamba2_forward", SERVE_BATCH * SSM_FORWARD_LEN, 1024,
+             "bfloat16", "bfloat16"),
+            ("ssm_gate_forward", SERVE_BATCH * SSM_FORWARD_LEN, 2048,
+             "bfloat16", "bfloat16"),
+            ("zamba2_shared_forward", SERVE_BATCH * SSM_FORWARD_LEN, 4096,
+             "bfloat16", "bfloat16")]:
         x = randn(R, D, dtype=dtype)
         s = 1.0 + 0.1 * randn(D, dtype=sdtype)
         s_lib = s.to(x.dtype)
@@ -232,6 +264,8 @@ def main() -> int:
     attn_case("gqa_32q_8kv_hd128", 2, 32, 8, 512, 512, 128, 128, "bfloat16", True, True)
     attn_case("dv_ne_d", 2, 16, 16, 256, 256, 192, 128, "bfloat16", True, False)
     attn_case("non_causal", 2, 32, 32, 512, 512, 64, 64, "bfloat16", False, False)
+    attn_case("zamba2_forward", SERVE_BATCH, 32, 32, SSM_FORWARD_LEN, SSM_FORWARD_LEN,
+              128, 128, "bfloat16", True, True)
 
     # the Pallas kernel's own contract: (BH, S, D)
     q3, k3, v3 = (randn(8, 256, 64, dtype="float32") for _ in range(3))
@@ -242,22 +276,94 @@ def main() -> int:
     if not err3 <= TOL["float32"]:
         fail(f"flash_attention (BH,S,D): max abs err {err3}")
 
-    # 4. consistency ----------------------------------------------------------
-    base = get_arch("stablelm-1.6b").model
-    small = reduced(base).replace(param_dtype="float32", compute_dtype="float32",
-                                  num_kv_heads=2)
-    ps_cpu = T.init_lm(small, 1, device="cpu")
-    ps_gpu = T.init_lm(small, 1, device="cpu").to(cuda)
-    cfg32 = base.replace(param_dtype="float32", compute_dtype="float32")
-    params = T.init_lm(cfg32, 0, device=cuda)
-    with torch.inference_mode():
-        toks = torch.randint(0, small.vocab_size, (2, 40),
-                             generator=torch.Generator().manual_seed(2))
-        lg_cpu, _ = T.apply_lm(ps_cpu, small, toks)
-        lg_gpu, _ = T.apply_lm(ps_gpu, small, toks.to(cuda))
-        small_err = (lg_gpu.cpu() - lg_cpu).abs().max().item()
+    def ssd_case(case, B, S, H, G, Pd, N, chunk, x_dtype, bc_dtype, decay=1.0,
+                 pallas=False):
+        """x dt-scaled, dA = -decay * softplus(.) in fp32, B and C each a
+        contiguous (B,S,G*N) projection viewed as (B,S,G,N), as
+        ``ssm.apply_ssm_full`` hands them over. ``pallas``: the (BH,S,P)
+        contract, H = G = 1 squeezed out. Held to 10x TOL, as
+        tests/test_kernels.py:70-73 holds the Pallas kernel, on y and on the
+        final state."""
+        x = randn(B, S, H, Pd, dtype=x_dtype)
+        dA = -decay * F.softplus(randn(B, S, H, dtype="float32"))
+        Bm, Cm = (0.5 * randn(B, S, G * N, dtype=bc_dtype).reshape(B, S, G, N)
+                  for _ in range(2))
+        args = (x[:, :, 0], dA[:, :, 0], Bm[:, :, 0], Cm[:, :, 0]) if pallas else (x, dA, Bm, Cm)
+        Q = min(chunk, S)
 
-        toks = torch.randint(0, cfg32.vocab_size, (1, CONSISTENCY_PROMPT),
+        def plain():
+            y, st = ops.ssd_scan_plain(x, dA, Bm, Cm, chunk=Q)
+            return (y[:, :, 0], st[:, 0]) if pallas else (y, st)
+
+        _, state = ops.ssd_scan(*args, chunk=chunk, return_state=True)
+        want_state = plain()[1]
+        tol = 10 * TOL[x_dtype]
+        state_err = (state - want_state).abs().max().item()
+        state_ok = bool(torch.allclose(state, want_state, atol=tol, rtol=tol))
+        nbytes = (2 * x.numel() * x.element_size() + dA.numel() * 4
+                  + 2 * Bm.numel() * Bm.element_size())
+        ops_s, ops_form = ssd_ops_s(B * H, S, Pd, N, Q, bc_dtype)
+        check_case("ssd_scan", case, x_dtype,
+                   lambda: ops.ssd_scan(*args, chunk=chunk), lambda: plain()[0], None,
+                   nbytes=nbytes, ops_s=ops_s, tol=tol, extra_ok=state_ok,
+                   bound_ops=ops_form,
+                   shape={"B": B, "S": S, "H": H, "G": G, "P": Pd, "N": N,
+                          "chunk": chunk}, bc_dtype=bc_dtype, decay=decay,
+                   state_max_abs_err=state_err)
+
+    # (the model hands over x dt-scaled in fp32 and B/C in the compute type)
+    ssd_case("mamba2_forward", SERVE_BATCH, SSM_FORWARD_LEN, 32, 1, 64, 128, 256,
+             "float32", "bfloat16")
+    ssd_case("zamba2_forward", SERVE_BATCH, SSM_FORWARD_LEN, 64, 1, 64, 64, 256,
+             "float32", "bfloat16")
+    ssd_case("consistency", 1, SSM_CONSISTENCY_PROMPT, 32, 1, 64, 128, 256,
+             "float32", "float32")
+    ssd_case("slow_decay", 2, SSM_FORWARD_LEN, 32, 1, 64, 128, 256,
+             "float32", "bfloat16", decay=0.01)
+    ssd_case("grouped", 2, 512, 8, 2, 64, 64, 256, "float32", "bfloat16")
+    ssd_case("short", SERVE_BATCH, 128, 32, 1, 64, 128, 256, "float32", "bfloat16")
+    ssd_case("pallas_contract", 8, 512, 1, 1, 64, 128, 64, "bfloat16", "bfloat16",
+             pallas=True)
+
+    # once against the sequential recurrence itself: y and the final state
+    x, dA, Bm, Cm = (randn(4, 256, 64, dtype="float32"),
+                     -0.1 * F.softplus(randn(4, 256, dtype="float32")),
+                     0.5 * randn(4, 256, 128, dtype="float32"),
+                     0.5 * randn(4, 256, 128, dtype="float32"))
+    y, state = ops.ssd_scan(x, dA, Bm, Cm, chunk=64, return_state=True)
+    y_ref, state_ref = ref.reference_ssd(x, dA, Bm, Cm)
+    tol = 10 * TOL["float32"]
+    rec = {"phase": "kernels", "kernel": "ssd_scan", "case": "reference_ssd",
+           "shape": {"BH": 4, "S": 256, "P": 64, "N": 128, "chunk": 64},
+           "max_abs_err": (y - y_ref).abs().max().item(),
+           "state_max_abs_err": (state - state_ref).abs().max().item(), "tol": tol,
+           "ok": bool(torch.allclose(y, y_ref, atol=tol, rtol=tol)
+                      and torch.allclose(state, state_ref, atol=tol, rtol=tol))}
+    emit(rec)
+    if not rec["ok"]:
+        fail("ssd_scan against reference_ssd failed")
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase})
+
+    # 4. consistency ----------------------------------------------------------
+    def reduced_card_vs_cpu(aid, S, **kw):
+        small = reduced(get_arch(aid).model).replace(
+            param_dtype="float32", compute_dtype="float32", **kw)
+        toks = torch.randint(0, small.vocab_size, (2, S),
+                             generator=torch.Generator().manual_seed(2))
+        lg_cpu, _ = T.apply_lm(T.init_lm(small, 1, device="cpu"), small, toks)
+        lg_gpu, _ = T.apply_lm(T.init_lm(small, 1, device="cpu").to(cuda), small,
+                               toks.to(cuda))
+        return (lg_gpu.cpu() - lg_cpu).abs().max().item()
+
+    def decode_vs_forward(aid, prompt, expect):
+        """Full width and depth in float32, batch 1: decode logits at every
+        position against the forward's; the forward's launches must be
+        exactly ``expect``."""
+        t_phase = time.perf_counter()
+        base = get_arch(aid).model
+        cfg32 = base.replace(param_dtype="float32", compute_dtype="float32")
+        params = T.init_lm(cfg32, 0, device=cuda)
+        toks = torch.randint(0, cfg32.vocab_size, (1, prompt),
                              generator=torch.Generator().manual_seed(3)).to(cuda)
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -265,90 +371,142 @@ def main() -> int:
         torch.cuda.synchronize()
         fwd_s = time.perf_counter() - t0
         fwd_launches = dict(ops.LAUNCHES)
-        caches = T.init_caches(cfg32, 1, CONSISTENCY_PROMPT, torch.float32, device=cuda)
+        caches = T.init_caches(cfg32, 1, prompt, torch.float32, device=cuda)
         outs = []
-        for i in range(CONSISTENCY_PROMPT):
+        for i in range(prompt):
             lg, caches = T.apply_lm_decode(params, cfg32, toks[:, i:i + 1], caches, i)
             outs.append(lg[:, 0])
         dec = torch.stack(outs, dim=1)
         torch.cuda.synchronize()
         err = (full - dec).abs().max().item()
-        ok = (bool(torch.isfinite(full).all()) and full.shape == (1, CONSISTENCY_PROMPT, cfg32.padded_vocab)
-              and bool(torch.allclose(full, dec, atol=CONSISTENCY_TOL, rtol=CONSISTENCY_TOL))
-              and small_err <= TOL["float32"])
-        emit({"phase": "consistency", "arch": base.name, "layers": cfg32.num_layers,
-              "d_model": cfg32.d_model, "dtype": "float32",
-              "prompt": CONSISTENCY_PROMPT, "decode_vs_forward_max_abs_err": err,
-              "tol": CONSISTENCY_TOL, "logits_abs_max": full.abs().max().item(),
-              "forward_s": fwd_s, "forward_launches": fwd_launches,
-              "reduced_card_vs_cpu_max_abs_err": small_err, "ok": ok})
-        if not ok:
-            fail("consistency phase failed")
-        expect = {"flash_attention": cfg32.num_layers, "rmsnorm": 2 * cfg32.num_layers + 1}
-        if fwd_launches != expect:
-            fail(f"forward launches {fwd_launches}, expected {expect}")
+        ok = (bool(torch.isfinite(full).all())
+              and full.shape == (1, prompt, cfg32.padded_vocab)
+              and bool(torch.allclose(full, dec, atol=CONSISTENCY_TOL, rtol=CONSISTENCY_TOL)))
+        rec = {"phase": "consistency", "arch": base.name, "layers": cfg32.num_layers,
+               "d_model": cfg32.d_model, "dtype": "float32", "prompt": prompt,
+               "decode_vs_forward_max_abs_err": err, "tol": CONSISTENCY_TOL,
+               "logits_abs_max": full.abs().max().item(), "forward_s": fwd_s,
+               "forward_launches": fwd_launches, "expected_launches": expect}
         del params, caches, full, dec, outs
         torch.cuda.empty_cache()
+        return rec, ok and fwd_launches == expect, t_phase
 
-    # 5. serve: the main path -------------------------------------------------
-    cfg = base   # bf16 params and compute, full width
-    params = T.init_lm(cfg, 0, device=cuda)
-    n_params = sum(p.numel() for p in params.parameters())
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
-                            generator=torch.Generator().manual_seed(4))
-    engine = ServingEngine(cfg, params, max_len=SERVE_PROMPT + SERVE_GEN,
-                           device=cuda)
-    engine.generate(prompts[:, :8], gen_len=4)          # warm-up, not counted
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    ops.reset_launches()
-    res = engine.generate(prompts, gen_len=SERVE_GEN)
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        logits, _ = T.apply_lm(params, cfg, prompts.to(cuda))
-        torch.cuda.synchronize()
-        fwd_s = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+        small_err = reduced_card_vs_cpu("stablelm-1.6b", 40, num_kv_heads=2)
+        n = get_arch("stablelm-1.6b").model.num_layers
+        rec, ok, t_phase = decode_vs_forward(
+            "stablelm-1.6b", CONSISTENCY_PROMPT,
+            {"flash_attention": n, "rmsnorm": 2 * n + 1, "ssd_scan": 0})
+        ok = ok and small_err <= TOL["float32"]
+        emit({**rec, "reduced_card_vs_cpu_max_abs_err": small_err, "ok": ok,
+              "seconds": time.perf_counter() - t_phase})
+        if not ok:
+            fail("stablelm-1.6b consistency phase failed")
 
-    steps = SERVE_PROMPT + SERVE_GEN - 1
-    per_pass = 2 * cfg.num_layers + 1
-    expect = {"flash_attention": cfg.num_layers, "rmsnorm": per_pass * (steps + 1)}
-    tokens = torch.tensor(res.tokens)
-    first_match = (tokens[:, 0] == logits[:, -1].argmax(-1).cpu()).float().mean().item()
-    ok = (launches == expect and tokens.shape == (SERVE_BATCH, SERVE_GEN)
-          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.padded_vocab
-          and bool(torch.isfinite(logits).all())
-          and logits.shape == (SERVE_BATCH, SERVE_PROMPT, cfg.padded_vocab))
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
-          "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
-          "prefill_s": res.prefill_s, "decode_s": res.decode_s,
-          "tokens_per_s": res.tokens_per_s,
-          "decode_step_ms": 1e3 * res.decode_s / (SERVE_GEN - 1),
-          "apply_lm_s": fwd_s,
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches, "expected_launches": expect,
-          "first_token_matches_forward_argmax": first_match, "ok": ok})
-    if not ok:
-        fail(f"serve phase failed: launches {launches}, expected {expect}")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} was never launched on the main path")
+        small_errs = {"mamba2-370m": reduced_card_vs_cpu("mamba2-370m", 48),
+                      "zamba2-1.2b": reduced_card_vs_cpu("zamba2-1.2b", 48, num_layers=5)}
+        n = get_arch("mamba2-370m").model.num_layers
+        rec, ok, t_phase = decode_vs_forward(
+            "mamba2-370m", SSM_CONSISTENCY_PROMPT,
+            {"flash_attention": 0, "rmsnorm": 2 * n + 1, "ssd_scan": n})
+        ok = ok and max(small_errs.values()) <= TOL["float32"]
+        emit({**rec, "reduced_card_vs_cpu_max_abs_err": small_errs, "ok": ok,
+              "seconds": time.perf_counter() - t_phase})
+        if not ok:
+            fail("mamba2-370m consistency phase failed")
+
+    # 5. serve: the main paths ------------------------------------------------
+    def serve(aid, forward_len, per_pass):
+        """bf16 at full width: ``generate`` then ``apply_lm`` on (batch,
+        forward_len) tokens that start with the prompts. Launch counts are
+        reset just before and read just after; they must equal ``per_pass``
+        times the passes (rmsnorm: every decode step and the forward) for
+        rmsnorm and once per forward for the rest."""
+        t_phase = time.perf_counter()
+        cfg = get_arch(aid).model   # bf16 params and compute, full width
+        params = T.init_lm(cfg, 0, device=cuda)
+        n_params = sum(p.numel() for p in params.parameters())
+        toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, forward_len),
+                             generator=torch.Generator().manual_seed(4))
+        prompts = toks[:, :SERVE_PROMPT]
+        engine = ServingEngine(cfg, params, max_len=SERVE_PROMPT + SERVE_GEN,
+                               device=cuda)
+        engine.generate(prompts[:, :8], gen_len=4)          # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        ops.reset_launches()
+        res = engine.generate(prompts, gen_len=SERVE_GEN)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, _ = T.apply_lm(params, cfg, toks.to(cuda))
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+
+        steps = SERVE_PROMPT + SERVE_GEN - 1
+        expect = {k: n * (steps + 1 if k == "rmsnorm" else 1)
+                  for k, n in per_pass.items()}
+        tokens = torch.tensor(res.tokens)
+        first_match = (tokens[:, 0] == logits[:, SERVE_PROMPT - 1].argmax(-1).cpu()
+                       ).float().mean().item()
+        ok = (launches == expect and tokens.shape == (SERVE_BATCH, SERVE_GEN)
+              and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.padded_vocab
+              and bool(torch.isfinite(logits).all())
+              and logits.shape == (SERVE_BATCH, forward_len, cfg.padded_vocab))
+        emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+              "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
+              "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+              "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+              "tokens_per_s": res.tokens_per_s,
+              "decode_step_ms": 1e3 * res.decode_s / (SERVE_GEN - 1),
+              "apply_lm_tokens": [SERVE_BATCH, forward_len], "apply_lm_s": fwd_s,
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "launches": launches, "expected_launches": expect,
+              "first_token_matches_forward_argmax": first_match, "ok": ok,
+              "seconds": time.perf_counter() - t_phase})
+        if not ok:
+            fail(f"{aid} serve phase failed: launches {launches}, expected {expect}")
+        for name, n in per_pass.items():
+            if n and launches[name] == 0:
+                fail(f"kernel {name} was never launched on the {aid} path")
+        del engine, params, logits
+        torch.cuda.empty_cache()
+        return launches
+
+    main_paths = {}
+    n = get_arch("stablelm-1.6b").model.num_layers
+    main_paths["stablelm-1.6b"] = serve(
+        "stablelm-1.6b", SERVE_PROMPT,
+        {"flash_attention": n, "rmsnorm": 2 * n + 1, "ssd_scan": 0})
+    n = get_arch("mamba2-370m").model.num_layers
+    main_paths["mamba2-370m"] = serve(
+        "mamba2-370m", SSM_FORWARD_LEN,
+        {"flash_attention": 0, "rmsnorm": 2 * n + 1, "ssd_scan": n})
+    zcfg = get_arch("zamba2-1.2b").model
+    n, groups = zcfg.num_layers, zcfg.num_layers // zcfg.shared_attn_interval
+    main_paths["zamba2-1.2b"] = serve(
+        "zamba2-1.2b", SSM_FORWARD_LEN,
+        {"flash_attention": groups, "rmsnorm": 2 * n + 2 * groups + 1, "ssd_scan": n})
 
     # summary -----------------------------------------------------------------
-    main_case = {"rmsnorm": "serve_decode", "flash_attention": "serve_forward"}
+    main_case = {"rmsnorm": "serve_decode", "flash_attention": "serve_forward",
+                 "ssd_scan": "mamba2_forward"}
     meta = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:32"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:102"),
+        "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:76"),
     }
     summary = []
     for name, (source, replaces) in meta.items():
         rec = results[(name, main_case[name])]
+        by_path = {aid: counts[name] for aid, counts in main_paths.items()}
         summary.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "case": main_case[name], "shape": rec["shape"],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
                         "call_ms": rec["kernel_call_ms"],

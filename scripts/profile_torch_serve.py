@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Where a decode step of the PyTorch port's serving path spends its time.
 
-    PYTHONPATH=src python scripts/profile_torch_serve.py [--steps 16]
+    PYTHONPATH=src python scripts/profile_torch_serve.py [--arch mamba2-370m] [--steps 16]
 
-Full-width stablelm-1.6b in bf16 on seeded random weights, batch 4: the
-prompt (128 tokens) is prefilled through the decode path as
-``ServingEngine.generate`` does, then ``--steps`` decode steps run under
-``torch.profiler``. Prints one JSON object: host wall time per step, the
-card's busy share over that window (union of kernel intervals over wall
+A ported arch (default stablelm-1.6b) at full width in bf16 on seeded random
+weights, batch 4: the prompt (128 tokens) is prefilled through the decode
+path as ``ServingEngine.generate`` does, then ``--steps`` decode steps run
+under ``torch.profiler``. Prints one JSON object: host wall time per step,
+the card's busy share over that window (union of kernel intervals over wall
 time), and device time by kernel name. Needs a CUDA device.
 """
 import argparse
@@ -31,6 +31,7 @@ def _busy_us(intervals):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--steps", type=int, default=16)
     args = ap.parse_args(argv)
 
@@ -41,7 +42,7 @@ def main(argv=None) -> int:
     from repro_torch.models import transformer as T
 
     cuda = dev.resolve("cuda")
-    cfg = get_arch("stablelm-1.6b").model
+    cfg = get_arch(args.arch).model
     B, P = 4, 128
     params = T.init_lm(cfg, 0, device=cuda)
     prompts = torch.randint(0, cfg.vocab_size, (B, P),

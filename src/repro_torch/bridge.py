@@ -5,19 +5,25 @@ np.asarray, params)``) and returns the port's parameter module;
 ``params_to_numpy`` gives the reverse, in the JAX layout. Leaves are keyed
 by ``/``-joined paths, the convention of the JAX package's checkpoints
 (``training/checkpoint.py::_path_str``). The JAX tree stacks the layers on
-a leading axis; the port keeps one module per layer, so ``layers/*`` leaves
-are unstacked and restacked. bfloat16 leaves pass through float32, which is
-exact, because ``torch.from_numpy`` rejects numpy's bfloat16 extension type.
+leading axes; the port keeps one module per layer, so stacked leaves are
+unstacked and restacked: ``layers/*`` (dense, ssm) and ``leftover/*``
+(hybrid) on one axis, hybrid's ``groups/*`` on two (group, layer in group).
+``shared/*`` and the other leaves pass as they are. bfloat16 leaves pass
+through float32, which is exact, because ``torch.from_numpy`` rejects
+numpy's bfloat16 extension type.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import itertools
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch import device as dev
+from repro_torch.models.ssm import FP32_PARAMS
+from repro_torch.models.transformer import hybrid_split
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, Any]:
@@ -42,10 +48,35 @@ def _to_torch(a, device, dtype) -> torch.Tensor:
 
 
 def _module(tree) -> nn.Module:
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                                 for k, v in tree.items()})
+    """A dict holding tensors becomes a ParameterDict (its sub-dicts nested in
+    it, as ``ssm/gate_norm``), a dict of dicts a ModuleDict."""
+    if any(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict({
+            k: nn.Parameter(v, requires_grad=False) if isinstance(v, torch.Tensor)
+            else _module(v) for k, v in tree.items()})
     return nn.ModuleDict({k: _module(v) for k, v in tree.items()})
+
+
+def _stacks(cfg) -> Dict[str, Tuple[int, ...]]:
+    """The stacked subtrees of the JAX tree and their leading axes."""
+    if cfg.family in ("dense", "ssm"):
+        return {"layers": (cfg.num_layers,)}
+    if cfg.family == "hybrid":
+        n_groups, leftover = hybrid_split(cfg)
+        out = {"groups": (n_groups, cfg.shared_attn_interval)}
+        if leftover:
+            out["leftover"] = (leftover,)
+        return out
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+
+def _module_list(per_index: Dict[tuple, dict], shape: Tuple[int, ...]) -> nn.ModuleList:
+    """{(i, j, ...): layer tree} -> nested ModuleLists, one level per axis."""
+    if len(shape) == 1:
+        return nn.ModuleList([_module(per_index[(i,)]) for i in range(shape[0])])
+    return nn.ModuleList([
+        _module_list({k[1:]: v for k, v in per_index.items() if k[0] == i}, shape[1:])
+        for i in range(shape[0])])
 
 
 def _insert(tree: dict, path, leaf) -> None:
@@ -58,30 +89,37 @@ def params_from_jax(np_tree, cfg, device: dev.DeviceLike = "cuda",
                     dtype: Optional[torch.dtype] = None) -> nn.ModuleDict:
     """JAX parameter tree (numpy leaves) -> the port's parameter module.
 
-    ``dtype=None`` keeps each leaf's type (bfloat16 stays bfloat16).
+    ``dtype=None`` keeps each leaf's type (bfloat16 stays bfloat16). A
+    ``dtype`` plays the part of the param type: it casts every leaf but the
+    ssm blocks' ``FP32_PARAMS``, which stay float32 under any param type.
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    stacks = _stacks(cfg)
     d = dev.resolve(device)
     top: dict = {}
-    layers = [dict() for _ in range(cfg.num_layers)]
+    layers = {name: {idx: {} for idx in itertools.product(*map(range, shape))}
+              for name, shape in stacks.items()}
     for path, leaf in flatten(np_tree).items():
         parts = path.split("/")
-        t = _to_torch(leaf, d, dtype)
-        if parts[0] == "layers":
-            if t.shape[0] != cfg.num_layers:
-                raise ValueError(f"{path}: {t.shape[0]} stacked layers, "
-                                 f"config has {cfg.num_layers}")
-            for i in range(cfg.num_layers):
-                _insert(layers[i], parts[1:], t[i].clone())
+        t = _to_torch(leaf, d, None if parts[-1] in FP32_PARAMS else dtype)
+        if parts[0] in stacks:
+            shape = stacks[parts[0]]
+            if tuple(t.shape[:len(shape)]) != shape:
+                raise ValueError(f"{path}: {tuple(t.shape[:len(shape)])} stacked "
+                                 f"layers, config has {shape}")
+            for idx, tree in layers[parts[0]].items():
+                _insert(tree, parts[1:], t[idx].clone())
         else:
             _insert(top, parts, t)
+    missing = [name for name, trees in layers.items() if not trees[(0,) * len(stacks[name])]]
+    if missing:
+        raise ValueError(f"the config stacks {missing}, the JAX tree has none")
     table = top["embed"]["table"]
     if tuple(table.shape) != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"embed/table {tuple(table.shape)} does not fit the "
                          f"config's ({cfg.padded_vocab}, {cfg.d_model})")
     params = _module(top)
-    params["layers"] = nn.ModuleList([_module(lp) for lp in layers])
+    for name, shape in stacks.items():
+        params[name] = _module_list(layers[name], shape)
     return params
 
 
@@ -93,16 +131,24 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_to_numpy(params: nn.Module) -> Dict[str, Any]:
     """The port's parameters -> the JAX tree layout, with numpy leaves.
 
-    bfloat16 tensors come back as float32 arrays holding the same values.
+    Layer lists are restacked on as many leading axes as they are nested
+    deep. bfloat16 tensors come back as float32 arrays holding the same values.
     """
     out: Dict[str, Any] = {}
-    stacked: Dict[str, list] = {}
+    stacked: Dict[tuple, Dict[tuple, np.ndarray]] = {}
     for name, p in params.named_parameters():
         parts = name.split(".")
-        if parts[0] == "layers":          # layers.<i>.<path>; i ascends
-            stacked.setdefault("/".join(parts[2:]), []).append(_to_numpy(p))
-        else:
+        depth = 1
+        while depth < len(parts) and parts[depth].isdigit():
+            depth += 1
+        if depth == 1:
             _insert(out, parts, _to_numpy(p))
-    for path, per_layer in stacked.items():
-        _insert(out, ["layers"] + path.split("/"), np.stack(per_layer))
+        else:                             # <list>.<i>[.<j>].<path>
+            key = (parts[0], "/".join(parts[depth:]))
+            idx = tuple(int(i) for i in parts[1:depth])
+            stacked.setdefault(key, {})[idx] = _to_numpy(p)
+    for (top, path), per_index in stacked.items():
+        shape = tuple(max(ix) + 1 for ix in zip(*per_index))
+        arr = np.stack([per_index[ix] for ix in itertools.product(*map(range, shape))])
+        _insert(out, [top] + path.split("/"), arr.reshape(shape + arr.shape[1:]))
     return out

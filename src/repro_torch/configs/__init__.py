@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get_arch(id)`` / ``reduced(cfg)``.
 
 Only the families the port runs are registered. The dataclasses and the
-two specs are copies of the JAX package's, so the port never imports it.
+specs are copies of the JAX package's, so the port never imports it.
 """
 from __future__ import annotations
 
@@ -9,15 +9,18 @@ from typing import Dict, List
 
 from repro_torch.configs.base import (ArchSpec, LM_SHAPES, ModelConfig,
                                       ShapeConfig, TrainConfig)
-from repro_torch.configs import mistral_nemo_12b, stablelm_1_6b
+from repro_torch.configs import (mamba2_370m, mistral_nemo_12b,
+                                 stablelm_1_6b, zamba2_1_2b)
 
 ARCHS: Dict[str, ArchSpec] = {
+    "mamba2-370m": mamba2_370m.SPEC,
     "stablelm-1.6b": stablelm_1_6b.SPEC,
     "mistral-nemo-12b": mistral_nemo_12b.SPEC,
+    "zamba2-1.2b": zamba2_1_2b.SPEC,
 }
 
 ARCH_IDS: List[str] = list(ARCHS)
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -42,6 +45,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
             kw["num_kv_heads"] = 1
     if cfg.d_ff:
         kw["d_ff"] = 128
+    if cfg.ssm_state:
+        kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)  # d_inner=128 -> 8 heads
+    if cfg.shared_attn_interval:
+        kw.update(shared_attn_interval=2, num_layers=4)
     return cfg.replace(**kw)
 
 

@@ -2,7 +2,8 @@
 
 Torch copies of ``repro/kernels/ref.py``. The CPU path of every wrapper in
 ``ops.py`` runs these, and ``chip_smoke.py`` holds each CUDA kernel against
-them on the card. ``reference_ssd`` comes with the ssm slice.
+them on the card. ``reference_ssd`` is the sequential recurrence, independent
+of both the chunked plain version (``ops.ssd_scan_plain``) and the kernel.
 """
 from __future__ import annotations
 
@@ -19,6 +20,26 @@ def reference_attention(q, k, v, *, causal: bool = True, scale=None):
         s = torch.where(mask[None], s, torch.full_like(s, -1e30))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+
+
+def reference_ssd(x, dA, Bm, Cm):
+    """Sequential SSD recurrence.
+
+    x: (BH, S, P) inputs (already dt-scaled); dA: (BH, S) log-decays (<=0);
+    Bm, Cm: (BH, S, N). Returns (y (BH,S,P), final_state (BH,N,P) fp32).
+
+        h_t = exp(dA_t) * h_{t-1} + B_t (x) x_t ;   y_t = C_t . h_t
+    """
+    BH, S, P = x.shape
+    N = Bm.shape[-1]
+    x32, dA32, B32, C32 = x.float(), dA.float(), Bm.float(), Cm.float()
+    h = torch.zeros((BH, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(dA32[:, t])[:, None, None] + torch.einsum(
+            "bn,bp->bnp", B32[:, t], x32[:, t])
+        ys.append(torch.einsum("bn,bnp->bp", C32[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
 
 
 def reference_rmsnorm(x, scale, eps: float = 1e-5):

@@ -10,7 +10,7 @@ import argparse
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--arch", default="mamba2-370m")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--gen-len", type=int, default=16)

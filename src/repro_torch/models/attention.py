@@ -11,6 +11,8 @@ own scale) with the moe slice.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -21,9 +23,11 @@ KV_BLOCK = 1024
 NEG = -1e30
 
 
-def init_attention(gen: torch.Generator, cfg,
+def init_attention(gen: torch.Generator, cfg, d_in: Optional[int] = None,
                    dtype=torch.float32) -> nn.ParameterDict:
-    d_in, hd, H, KH = cfg.d_model, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    """Projections from ``d_in`` (default d_model) wide inputs back to d_model."""
+    d_in = d_in or cfg.d_model
+    hd, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     p = {"wq": L.dense_init(gen, d_in, H * hd, dtype),
          "wk": L.dense_init(gen, d_in, KH * hd, dtype),
          "wv": L.dense_init(gen, d_in, KH * hd, dtype),

@@ -61,6 +61,49 @@ def test_flash_attention_kernel(cuda, B, H, KH, S, D, Dv, causal, dtype):
         atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def _ssd_inputs(gen, B, S, H, G, P, N, x_dtype, bc_dtype, device, decay=1.0):
+    """x (B,S,H,P) dt-scaled, dA <= 0 (fp32), B and C (B,S,G,N) as
+    ``ssm.apply_ssm_full`` hands them over: each a contiguous (B,S,G*N)
+    projection viewed per group."""
+    x = _randn(gen, (B, S, H, P), x_dtype, device)
+    dA = -decay * torch.nn.functional.softplus(_randn(gen, (B, S, H), torch.float32, device))
+    Bm, Cm = (0.5 * _randn(gen, (B, S, G * N), bc_dtype, device).reshape(B, S, G, N)
+              for _ in range(2))
+    return x, dA, Bm, Cm
+
+
+@pytest.mark.parametrize("B,S,H,G,P,N,chunk,decay", [
+    (2, 512, 8, 1, 64, 128, 256, 1.0), (1, 256, 8, 2, 64, 64, 256, 0.01),
+    (2, 128, 4, 1, 64, 128, 256, 1.0), (1, 192, 3, 3, 48, 40, 64, 0.1),
+    (1, 64, 2, 1, 16, 8, 16, 1.0)])
+@pytest.mark.parametrize("x_dtype,bc_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16)])
+def test_ssd_scan_kernel(cuda, B, S, H, G, P, N, chunk, decay, x_dtype, bc_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(S + H + N)
+    x, dA, Bm, Cm = _ssd_inputs(gen, B, S, H, G, P, N, x_dtype, bc_dtype, cuda, decay)
+    before = ops.LAUNCHES["ssd_scan"]
+    y, state = ops.ssd_scan(x, dA, Bm, Cm, chunk=chunk, return_state=True)
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    want_y, want_state = ops.ssd_scan_plain(x, dA, Bm, Cm, chunk=min(chunk, S))
+    # the Pallas kernel's own tolerance against its oracle: 10x (tests/test_kernels.py)
+    tol = 10 * TOL[x_dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, want_state, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_kernel_matches_the_recurrence(cuda):
+    """The Pallas contract (BH, S, P) against the sequential oracle: y and
+    the final state."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, dA, Bm, Cm = (t[:, :, 0] for t in _ssd_inputs(
+        gen, 4, 128, 1, 1, 32, 16, torch.float32, torch.float32, cuda, 0.1))
+    y, state = ops.ssd_scan(x, dA, Bm, Cm, chunk=32, return_state=True)
+    want_y, want_state = ref.reference_ssd(x, dA, Bm, Cm)
+    torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(state, want_state, atol=1e-3, rtol=1e-3)
+
+
 def test_kernel_refuses_what_it_cannot_take(cuda):
     x = torch.zeros(4, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -71,14 +114,23 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     w = torch.ones(16, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError):
         ops.rmsnorm(torch.zeros(4, 16, device=cuda), w)
+    x = torch.zeros(1, 64, 2, 16, device=cuda)
+    dA = torch.zeros(1, 64, 2, device=cuda)
+    bc = torch.zeros(1, 64, 1, 256, device=cuda)
+    with pytest.raises(ValueError):                 # N 256 > 128
+        ops.ssd_scan(x, dA, bc, bc)
+    with pytest.raises(TypeError):                  # dA must be fp32
+        ops.ssd_scan(x, dA.bfloat16(), bc[..., :16], bc[..., :16])
 
 
-@pytest.mark.parametrize("kh", [4, 2])
-def test_model_on_card_matches_cpu(cuda, kh):
-    cfg = reduced(get_arch("stablelm-1.6b").model).replace(
-        param_dtype="float32", compute_dtype="float32", num_kv_heads=kh)
+@pytest.mark.parametrize("aid,kw,S", [
+    ("stablelm-1.6b", {"num_kv_heads": 4}, 70), ("stablelm-1.6b", {"num_kv_heads": 2}, 70),
+    ("mamba2-370m", {}, 64), ("zamba2-1.2b", {"num_layers": 5}, 64)])
+def test_model_on_card_matches_cpu(cuda, aid, kw, S):
+    cfg = reduced(get_arch(aid).model).replace(
+        param_dtype="float32", compute_dtype="float32", **kw)
     params = T.init_lm(cfg, 0, device="cpu")
-    toks = torch.randint(0, cfg.vocab_size, (2, 70),
+    toks = torch.randint(0, cfg.vocab_size, (2, S),
                          generator=torch.Generator().manual_seed(0))
     with torch.inference_mode():
         want, _ = T.apply_lm(params, cfg, toks)

@@ -39,7 +39,8 @@ def _close(tx, jx, tol=TOL):
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("aid", ["stablelm-1.6b", "mistral-nemo-12b"])
+@pytest.mark.parametrize("aid", ["stablelm-1.6b", "mistral-nemo-12b",
+                                 "mamba2-370m", "zamba2-1.2b"])
 def test_configs_are_copies(aid):
     port, ref = configs.get_arch(aid), jcfg.get_arch(aid)
     assert dataclasses.asdict(port.model) == dataclasses.asdict(ref.model)
@@ -51,10 +52,10 @@ def test_configs_are_copies(aid):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(KeyError, match="dense"):
-        configs.get_arch("mamba2-370m")
-    cfg = configs.get_arch("stablelm-1.6b").model.replace(family="ssm")
-    with pytest.raises(NotImplementedError, match="ssm"):
+    with pytest.raises(KeyError, match="dense/ssm/hybrid"):
+        configs.get_arch("olmoe-1b-7b")
+    cfg = configs.get_arch("stablelm-1.6b").model.replace(family="moe")
+    with pytest.raises(NotImplementedError, match="moe"):
         T.init_lm(cfg, device="cpu")
 
 

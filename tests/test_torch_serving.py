@@ -17,15 +17,18 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.engine import ServingEngine
 
 
-def _cfgs(**kw):
+def _cfgs(aid="stablelm-1.6b", **kw):
     f32 = dict(param_dtype="float32", compute_dtype="float32", **kw)
-    return (reduced(get_arch("stablelm-1.6b").model).replace(**f32),
-            jreduced(jget_arch("stablelm-1.6b").model).replace(**f32))
+    return (reduced(get_arch(aid).model).replace(**f32),
+            jreduced(jget_arch(aid).model).replace(**f32))
 
 
-@pytest.mark.parametrize("kh", [4, 2])
-def test_greedy_tokens_equal_jax(kh):
-    cfg, jc = _cfgs(num_kv_heads=kh)
+@pytest.mark.parametrize("aid,kw", [
+    ("stablelm-1.6b", {"num_kv_heads": 4}), ("stablelm-1.6b", {"num_kv_heads": 2}),
+    ("mamba2-370m", {}), ("zamba2-1.2b", {"num_layers": 5})],
+    ids=["stablelm_kh4", "stablelm_kh2", "mamba2", "zamba2_leftover"])
+def test_greedy_tokens_equal_jax(aid, kw):
+    cfg, jc = _cfgs(aid, **kw)
     jp = JT.init_lm(jax.random.PRNGKey(0), jc)
     tp = bridge.params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
     prompts = np.random.default_rng(1).integers(0, 100, (2, 6)).astype(np.int32)
@@ -60,8 +63,10 @@ def test_generate_rejects_overlong_request():
         eng.generate(torch.ones((1, 4), dtype=torch.int32), gen_len=5)
 
 
-def test_serve_launcher_on_cpu(capsys):
+@pytest.mark.parametrize("arch", [None, "stablelm-1.6b"])
+def test_serve_launcher_on_cpu(capsys, arch):
+    """The default arch is the JAX launcher's, mamba2-370m."""
     serve.main(["--device", "cpu", "--batch", "2", "--prompt-len", "4",
-                "--gen-len", "3"])
+                "--gen-len", "3"] + (["--arch", arch] if arch else []))
     out = capsys.readouterr().out
-    assert "arch=stablelm-1.6b" in out and "first request tokens:" in out
+    assert f"arch={arch or 'mamba2-370m'}" in out and "first request tokens:" in out
