@@ -12,7 +12,9 @@ its seconds:
                 with its device time (CUDA-graph replay), its time per call
                 from Python, the plain version's and one PyTorch library
                 call's device times, and the least time the card could take
-                for the work (``bound_ms``); ``ssd_scan`` also against the
+                for the work (``bound_ms``); each flash case also names the
+                route that ran and fails on the other (bf16 on the tensor
+                cores, fp32 on the CUDA cores); ``ssd_scan`` also against the
                 sequential recurrence ``reference_ssd``;
 4. consistency  stablelm-1.6b and mamba2-370m at full width in float32:
                 decode logits at every prompt position equal the full
@@ -137,6 +139,7 @@ def main() -> int:
     from repro_torch import device as dev
     from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServingEngine
 
@@ -171,10 +174,14 @@ def main() -> int:
     results = {}
 
     def check_case(kernel, case, dtype, run, plain, library, nbytes, flops=None,
-                   ops_s=None, tol=None, extra_ok=True, **info):
+                   ops_s=None, tol=None, extra_ok=True, route=None, **info):
         """``ops_s``: the least time for the operations; by default ``flops``
-        at the peak rate of ``dtype``."""
+        at the peak rate of ``dtype``. ``route``: (read, expected) for a
+        kernel with more than one route; read just after the checked run."""
         out = run()
+        if route is not None:
+            info["route"] = route[0]()
+            extra_ok = extra_ok and info["route"] == route[1]
         want = plain()
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
@@ -199,7 +206,8 @@ def main() -> int:
         emit(rec)
         results[(kernel, case)] = rec
         if not ok:
-            fail(f"{kernel}/{case}: max abs err {err} over tolerance {tol}")
+            fail(f"{kernel}/{case}: max abs err {err} (tolerance {tol}), "
+                 f"route {info.get('route')}")
 
     has_rms_norm = hasattr(F, "rms_norm")
     sdpa_gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
@@ -248,7 +256,7 @@ def main() -> int:
             "flash_attention", case, dtype,
             lambda: ops.flash_attention(q, k, v, causal=causal),
             lambda: ops.flash_attention_plain(q, k, v, causal=causal),
-            library,
+            library, route=(lambda: fa.ROUTE, fa.ROUTES[dtypes[dtype]]),
             nbytes=(q.numel() + k.numel() + v.numel() + B * H * Sq * Dv) * q.element_size(),
             flops=2 * B * H * pairs * (D + Dv),
             shape={"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "D": D,
@@ -266,6 +274,10 @@ def main() -> int:
     attn_case("non_causal", 2, 32, 32, 512, 512, 64, 64, "bfloat16", False, False)
     attn_case("zamba2_forward", SERVE_BATCH, 32, 32, SSM_FORWARD_LEN, SSM_FORWARD_LEN,
               128, 128, "bfloat16", True, True)
+    attn_case("hd256", 2, 16, 16, 1024, 1024, 256, 256, "bfloat16", True, True)
+    # a decoder's cross-attention over a longer encoder output
+    attn_case("sq_ne_sk_cross", SERVE_BATCH, 32, 32, SERVE_PROMPT, SSM_FORWARD_LEN,
+              64, 64, "bfloat16", False, True)
 
     # the Pallas kernel's own contract: (BH, S, D)
     q3, k3, v3 = (randn(8, 256, 64, dtype="float32") for _ in range(3))
@@ -504,7 +516,9 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         rec = results[(name, main_case[name])]
         by_path = {aid: counts[name] for aid, counts in main_paths.items()}
-        summary.append({"name": name, "route": "cuda", "source": source,
+        # which of the kernel's routes its main-path case ran
+        extra = {"kernel_route": rec["route"]} if "route" in rec else {}
+        summary.append({"name": name, "route": "cuda", **extra, "source": source,
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
                         "case": main_case[name], "shape": rec["shape"],

@@ -318,7 +318,10 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
     const cudaError_t e = cudaFuncSetAttribute(
         ssd_scan_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess) {
+      cudaGetLastError();   // clear it, so that the next launch's check reports that launch
+      return e;
+    }
     smem_set = smem;
   }
   const dim3 grid(p.H, B);

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch, reduced
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as T
 
@@ -43,19 +44,29 @@ def test_rmsnorm_kernel(cuda, R, D, dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
-@pytest.mark.parametrize("B,H,KH,S,D,Dv,causal", [
-    (2, 4, 4, 128, 64, 64, True), (1, 8, 2, 200, 128, 128, True),
-    (2, 4, 4, 100, 192, 128, True), (1, 4, 4, 130, 64, 64, False),
-    (1, 2, 1, 1, 64, 64, True)])
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv,causal", [
+    (2, 4, 4, 128, 128, 64, 64, True), (1, 8, 2, 200, 200, 128, 128, True),
+    (2, 4, 4, 100, 100, 192, 128, True), (1, 4, 4, 130, 130, 64, 64, False),
+    (1, 2, 1, 1, 1, 64, 64, True),
+    (2, 4, 2, 70, 70, 16, 16, True),          # the reduced configs' head dim
+    (1, 4, 4, 300, 300, 256, 256, True),      # D 256
+    (1, 4, 4, 100, 260, 64, 64, False),       # Sq < Sk, cross-attention
+    (1, 4, 4, 260, 100, 64, 64, True),        # Sq > Sk
+    (2, 4, 2, 64, 1000, 128, 128, True),
+    (1, 4, 4, 1000, 1000, 64, 64, True),      # ragged at 64 and at 128
+    (1, 32, 8, 256, 256, 128, 128, True),     # GQA 32/8 at hd 128
+    (1, 8, 2, 200, 330, 128, 128, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_kernel(cuda, B, H, KH, S, D, Dv, causal, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(S + D)
-    q = _randn(gen, (B, S, H, D), dtype, cuda).transpose(1, 2)
-    k = _randn(gen, (B, S, KH, D), dtype, cuda).transpose(1, 2)
-    v = _randn(gen, (B, S, KH, Dv), dtype, cuda).transpose(1, 2)
+def test_flash_attention_kernel(cuda, B, H, KH, Sq, Sk, D, Dv, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
+    q = _randn(gen, (B, Sq, H, D), dtype, cuda).transpose(1, 2)
+    k = _randn(gen, (B, Sk, KH, D), dtype, cuda).transpose(1, 2)
+    v = _randn(gen, (B, Sk, KH, Dv), dtype, cuda).transpose(1, 2)
     before = ops.LAUNCHES["flash_attention"]
     o = ops.flash_attention(q, k, v, causal=causal)
     assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert fa.ROUTE == fa.ROUTES[dtype]
+    assert o.shape == (B, H, Sq, Dv) and o.is_contiguous()
     torch.testing.assert_close(
         o.float(), ops.flash_attention_plain(q, k, v, causal=causal).float(),
         atol=TOL[dtype], rtol=TOL[dtype])
@@ -111,6 +122,12 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     q = torch.zeros(1, 1, 8, 64, device=cuda)
     with pytest.raises(ValueError):
         ops.flash_attention(q, q[..., :32], q)
+    qb = torch.zeros(1, 1, 8, 40, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):  # bf16 D 40
+        ops.flash_attention(qb, qb, qb)
+    qb = torch.zeros(1, 1, 8, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):          # row stride 68
+        ops.flash_attention(qb, qb, qb)
     w = torch.ones(16, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError):
         ops.rmsnorm(torch.zeros(4, 16, device=cuda), w)

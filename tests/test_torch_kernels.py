@@ -10,6 +10,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import blockwise_attention as jax_blockwise
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.models.attention import blockwise_attention
 
@@ -82,6 +83,51 @@ def test_flash_attention_gqa_ragged_model_layout(causal):
                                      jv.reshape(B * H, S, D), causal=causal)
     _close(o_ref.reshape(B, H, S, D), o, 3e-5)
 
+
+
+@pytest.mark.parametrize("D,Dv,tile", [
+    (16, 16, (64, 64)), (64, 64, (64, 64)), (64, 128, (128, 128)),
+    (128, 128, (128, 128)), (80, 48, (128, 128)), (192, 128, (192, 128)),
+    (192, 192, (256, 256)), (256, 256, (256, 256))])
+def test_flash_bf16_tile_choice(D, Dv, tile):
+    """The smallest instantiated tile pair that holds D and Dv."""
+    assert fa.bf16_tile(D, Dv) == tile
+
+
+@pytest.mark.parametrize("D,Dv", [(40, 40), (64, 40), (8, 8), (272, 256)])
+def test_flash_bf16_tile_refuses(D, Dv):
+    with pytest.raises(ValueError):
+        fa.bf16_tile(D, Dv)
+
+
+def test_flash_plan_routes_by_dtype():
+    """The launcher's checks are pure Python and run on any device: bf16 goes
+    to the tensor cores with its tile, fp32 to the CUDA cores, and what the
+    chosen kernel cannot take raises before anything launches."""
+    q = torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16)
+    assert fa.plan(q, q, q) == ("tensor_cores", (64, 64))
+    assert fa.plan(q.float(), q.float(), q.float()) == ("cuda_cores", None)
+    qm = torch.zeros(2, 8, 4, 16, dtype=torch.bfloat16).transpose(1, 2)
+    assert fa.plan(qm, qm, qm) == ("tensor_cores", (64, 64))   # model layout, hd 16
+    k, v = torch.zeros(2, 2, 300, 192, dtype=torch.bfloat16), torch.zeros(2, 2, 300, 128, dtype=torch.bfloat16)
+    assert fa.plan(torch.zeros(2, 4, 8, 192, dtype=torch.bfloat16), k, v) == \
+        ("tensor_cores", (192, 128))                             # GQA, Sq != Sk, Dv != D
+    odd = torch.zeros(3, 1, 8, 64, dtype=torch.bfloat16).as_strided((1, 1, 8, 64), (7, 3, 64, 1))
+    assert fa.plan(odd, odd, odd)[0] == "tensor_cores"           # size-1 dims: any stride
+    assert fa._strides(odd) == [0, 0, 64]
+    with pytest.raises(TypeError):
+        fa.plan(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="multiples of 16"):
+        q40 = torch.zeros(1, 1, 8, 40, dtype=torch.bfloat16)
+        fa.plan(q40, q40, q40)
+    with pytest.raises(ValueError, match="16-byte"):             # row stride 68
+        q68 = torch.zeros(1, 1, 8, 68, dtype=torch.bfloat16)[..., :64]
+        fa.plan(q68, q68, q68)
+    with pytest.raises(ValueError, match="16-byte"):             # starts 8 bytes in
+        q4 = torch.zeros(1, 1, 8, 72, dtype=torch.bfloat16)[..., 4:68]
+        fa.plan(q4, q4, q4)
+    q40 = torch.zeros(1, 1, 8, 40)
+    assert fa.plan(q40, q40, q40) == ("cuda_cores", None)       # fp32 takes any D
 
 def test_blockwise_attention_ragged_matches_jax():
     """The plain model-level version at S = 200 with 64-key blocks (the last
