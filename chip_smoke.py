@@ -14,8 +14,10 @@ its seconds:
                 call's device times, and the least time the card could take
                 for the work (``bound_ms``); each flash case also names the
                 route that ran and fails on the other (bf16 on the tensor
-                cores, fp32 on the CUDA cores); ``ssd_scan`` also against the
-                sequential recurrence ``reference_ssd``;
+                cores, fp32 on the CUDA cores), each rmsnorm case the path
+                and launch shape of ``rmsnorm.plan`` and fails on another
+                path; ``ssd_scan`` also against the sequential recurrence
+                ``reference_ssd``;
 4. consistency  stablelm-1.6b and mamba2-370m at full width in float32:
                 decode logits at every prompt position equal the full
                 forward's (mamba2 over two 256-row chunks), and reduced
@@ -110,15 +112,17 @@ def device_ms(torch, fn, per_call_ms: float, min_total_ms: float = 30.0) -> floa
     return ms
 
 
-def ssd_ops_s(BH: int, S: int, P: int, N: int, Q: int, bc_dtype: str):
+def ssd_ops_s(BH: int, S: int, P: int, N: int, Q: int, bc_dtype: str,
+              heads_per_group: int = 1):
     """Least time for the operations of one SSD scan, and the form it counts:
     the smaller of the sequential recurrence's 5*N*P fp32 flops per row and
     head (state decay and rank-1 update, then C . state) and the chunked
-    form's, whose C B^T term (Q*N per row) may run at B/C's own rate (tensor
-    cores for bf16) and whose rest (Q*P + 4*N*P per row) is fp32."""
+    form's, whose C B^T term (Q*N per row, once per group of heads) may run
+    at B/C's own rate (tensor cores for bf16) and whose rest (Q*P + 4*N*P
+    per row and head) is fp32."""
     rows = BH * S
     recurrence = 5 * rows * N * P / PEAK_FLOPS["float32"]
-    chunked = rows * (Q * N / PEAK_FLOPS[bc_dtype]
+    chunked = rows * (Q * N / heads_per_group / PEAK_FLOPS[bc_dtype]
                       + (Q * P + 4 * N * P) / PEAK_FLOPS["float32"])
     return min((recurrence, "recurrence"), (chunked, "chunked"))
 
@@ -140,6 +144,8 @@ def main() -> int:
     from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServingEngine
 
@@ -174,14 +180,18 @@ def main() -> int:
     results = {}
 
     def check_case(kernel, case, dtype, run, plain, library, nbytes, flops=None,
-                   ops_s=None, tol=None, extra_ok=True, route=None, **info):
+                   ops_s=None, tol=None, extra_ok=True, route=None, record=None,
+                   **info):
         """``ops_s``: the least time for the operations; by default ``flops``
         at the peak rate of ``dtype``. ``route``: (read, expected) for a
-        kernel with more than one route; read just after the checked run."""
+        kernel with more than one route or path; ``record``: more fields of
+        the launch; both read just after the checked run."""
         out = run()
         if route is not None:
             info["route"] = route[0]()
             extra_ok = extra_ok and info["route"] == route[1]
+        if record is not None:
+            info.update(record())
         want = plain()
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
@@ -211,20 +221,21 @@ def main() -> int:
 
     has_rms_norm = hasattr(F, "rms_norm")
     sdpa_gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
-    for case, R, D, dtype, sdtype in [
-            ("serve_decode", SERVE_BATCH, 2048, "bfloat16", "bfloat16"),
-            ("serve_forward", SERVE_BATCH * SERVE_PROMPT, 2048, "bfloat16", "bfloat16"),
-            ("consistency_forward", CONSISTENCY_PROMPT, 2048, "float32", "float32"),
-            ("ragged_rows", 1000, 2048, "bfloat16", "bfloat16"),
-            ("wide_mixed_scale", 333, 4096, "bfloat16", "float32"),
-            ("unaligned_dim", 77, 2050, "float32", "bfloat16"),
-            ("mamba2_decode", SERVE_BATCH, 1024, "bfloat16", "bfloat16"),
+    warp, block = "warp_per_row", "block_per_row"
+    for case, R, D, dtype, sdtype, path in [
+            ("serve_decode", SERVE_BATCH, 2048, "bfloat16", "bfloat16", block),
+            ("serve_forward", SERVE_BATCH * SERVE_PROMPT, 2048, "bfloat16", "bfloat16", warp),
+            ("consistency_forward", CONSISTENCY_PROMPT, 2048, "float32", "float32", block),
+            ("ragged_rows", 1000, 2048, "bfloat16", "bfloat16", warp),
+            ("wide_mixed_scale", 333, 4096, "bfloat16", "float32", block),
+            ("unaligned_dim", 77, 2050, "float32", "bfloat16", "scalar"),
+            ("mamba2_decode", SERVE_BATCH, 1024, "bfloat16", "bfloat16", block),
             ("mamba2_forward", SERVE_BATCH * SSM_FORWARD_LEN, 1024,
-             "bfloat16", "bfloat16"),
+             "bfloat16", "bfloat16", warp),
             ("ssm_gate_forward", SERVE_BATCH * SSM_FORWARD_LEN, 2048,
-             "bfloat16", "bfloat16"),
+             "bfloat16", "bfloat16", warp),
             ("zamba2_shared_forward", SERVE_BATCH * SSM_FORWARD_LEN, 4096,
-             "bfloat16", "bfloat16")]:
+             "bfloat16", "bfloat16", warp)]:
         x = randn(R, D, dtype=dtype)
         s = 1.0 + 0.1 * randn(D, dtype=sdtype)
         s_lib = s.to(x.dtype)
@@ -235,7 +246,11 @@ def main() -> int:
                    lambda x=x, s=s: ref.reference_rmsnorm(x, s),
                    lib_fn,
                    nbytes=2 * x.numel() * x.element_size() + s.numel() * s.element_size(),
-                   flops=4 * R * D, shape=[R, D])
+                   flops=4 * R * D, route=(lambda: rn.PLAN.path, path),
+                   record=lambda: {"plan": {"grid": rn.PLAN.grid,
+                                            "threads": rn.PLAN.threads,
+                                            "vectors": rn.PLAN.vectors}},
+                   shape=[R, D])
 
     def attn_case(case, B, H, KH, Sq, Sk, D, Dv, dtype, causal, model_layout):
         if model_layout:   # (B,S,heads,hd) transposed, as the model hands it over
@@ -314,11 +329,11 @@ def main() -> int:
         state_ok = bool(torch.allclose(state, want_state, atol=tol, rtol=tol))
         nbytes = (2 * x.numel() * x.element_size() + dA.numel() * 4
                   + 2 * Bm.numel() * Bm.element_size())
-        ops_s, ops_form = ssd_ops_s(B * H, S, Pd, N, Q, bc_dtype)
+        ops_s, ops_form = ssd_ops_s(B * H, S, Pd, N, Q, bc_dtype, H // G)
         check_case("ssd_scan", case, x_dtype,
                    lambda: ops.ssd_scan(*args, chunk=chunk), lambda: plain()[0], None,
                    nbytes=nbytes, ops_s=ops_s, tol=tol, extra_ok=state_ok,
-                   bound_ops=ops_form,
+                   bound_ops=ops_form, cuda_launches_per_call=ssd.CUDA_LAUNCHES,
                    shape={"B": B, "S": S, "H": H, "G": G, "P": Pd, "N": N,
                           "chunk": chunk}, bc_dtype=bc_dtype, decay=decay,
                    state_max_abs_err=state_err)

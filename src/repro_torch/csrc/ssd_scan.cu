@@ -2,43 +2,54 @@
 //
 // Replaces: src/repro/kernels/ssd_scan.py::ssd_scan (body _ssd_kernel,
 // pallas_call at ssd_scan.py:76) and, on the model path, the chunk loop of
-// src/repro/models/ssm.py::ssd_chunked. For each (batch, head) the sequence
-// runs chunk by chunk, Q rows at a time. Per chunk, with cum = cumsum(dA):
-//     y     = ((C B^T) o tril(exp(cum_t - cum_s))) x  +  (C o exp(cum)) state
-//     state = state * exp(cum_last) + (B o exp(cum_last - cum))^T x
-// The (N, P) state is fp32 and stays in shared memory from chunk to chunk.
+// src/repro/models/ssm.py::ssd_chunked. Per chunk of Q rows, with
+// cum = cumsum(dA) inside the chunk:
+//     y_c     = ((C B^T) o tril(exp(cum_t - cum_s))) x  +  (C o exp(cum)) state_c
+//     S_c     = (B o exp(cum_last - cum))^T x
+//     state_{c+1} = state_c * exp(cum_last) + S_c
+// The (N, P) states are fp32.
 //
-// Layout: x (Bsz, S, H, P), already dt-scaled; dA (Bsz, S, H) in fp32; B and
-// C (Bsz, S, G, N). Head h reads group h / (H / G), so B and C are never
-// repeated per head. Each is read through its batch/sequence/head strides
-// with a unit last stride. x is fp32, as the model hands it over (the wrapper
-// casts any other x); B and C are fp32 or bf16; all arithmetic is fp32. y is
-// a contiguous fp32 (Bsz, S, H, P); the final state, when asked for, a
-// contiguous fp32 (Bsz, H, N, P). The Pallas contract (BH, S, P) is the case
-// H = G = 1.
+// Layout: x (Bsz, S, H, P), already dt-scaled, fp32; dA (Bsz, S, H) fp32; B
+// and C (Bsz, S, G, N), fp32 or bf16. Head h reads group h / (H / G), so B and
+// C are never repeated per head. Each is read through its batch/sequence/head
+// strides with a unit last stride. y is a contiguous fp32 (Bsz, S, H, P); the
+// final state, when asked for, a contiguous fp32 (Bsz, H, N, P). The Pallas
+// contract (BH, S, P) is the case H = G = 1.
 //
 // What bounds it: operations. The least work is the recurrence's, about
-// 5*N*P flops per row and head (decay and rank-1 update of the state, then
-// C . state), against 2P + 2N + 1 elements moved per row and head. The
-// chunked form this kernel runs does about Q*(N+P) + 4*N*P per row and head,
-// at Q 256, N 128, P 64 twice the recurrence's. This first version runs the
-// products on CUDA cores in fp32 FMAs; tensor cores, C B^T shared across the
-// heads of a group, and a chunk-parallel scan are later steps.
+// 5*N*P flops per row and head. The chunked form this kernel runs does
+// Q*P + 4*N*P fp32 flops per row and head, and C B^T's Q*N per row once per
+// group, not per head.
 //
-// Design: one block of 256 threads per (head, batch); the chunk loop runs
-// inside the block, in place of the TPU grid's sequential chunk axis. A chunk
-// of 256 rows with N = 128 does not fit in shared memory whole (B and C alone
-// are 256 KB in fp32), so it is cut into 64-row tiles: for each row tile the
-// C tile is staged, the cross-chunk term is read from the resident state,
-// and then the column tiles s <= t of B and x are staged in turn. The decay
-// exp(cum_t - cum_s) is evaluated only where s <= t: cum falls along the
-// chunk, so there it is at most 1, while above the diagonal it can overflow
-// and a product with a zero mask would give NaN. The state update is a pass
-// of its own over the chunk's B and x tiles, after every row tile has read
-// the old state. Each thread owns a 4 x ceil(P/16) patch of a y tile (rows
-// ty*4.., columns tx + 16*j), a 4x4 patch of the score tile and a
-// ceil(N/16) x ceil(P/16) patch of the state update; rows of C and B are
-// padded by one float so that 16 threads reading 16 rows hit 16 banks.
+// Design: three launches, each parallel over chunks, so that the card fills
+// at batch 1 too.
+//  1. chunk_state, one block per (batch, chunk, head, 64 x 64 tile of the
+//     state): the chunk's cum in fp64 (written to `cum`, (Bsz, H, S)), then
+//     S_c = (B o w)^T x with w = exp(cum_last - cum), written to `states`
+//     (Bsz, H, nc, N, P).
+//  2. state_pass, one thread per (batch, head, n, p): walks the chunks in
+//     order and overwrites S_c with the state that enters chunk c; writes the
+//     final state when it is asked for.
+//  3. chunk_out, one block per (batch, chunk, 64-row tile, 64-column tile of
+//     P, group, pair of heads of the group), the longest row tiles first:
+//     the cross-chunk term (C o exp(cum_t)) state_c, then the within-chunk
+//     term over the 64-row column slabs s0 <= t0. C B^T
+//     is computed once per slab and kept in registers for every head of the
+//     block: on the tensor cores (mma.sync m16n8k16, bf16 products exact,
+//     fp32 sums) when B and C are bf16, in fp32 FMAs when they are fp32.
+//     Each head then only masks and decays it, L = CB * exp(cum_t - cum_s)
+//     for s <= t (above the diagonal the exponent can overflow, so it is
+//     never evaluated there), and runs L x, while cp.async brings the next
+//     (slab, head) x tile into a second buffer.
+// Every product with x, a decay or a state is an fp32 FMA on the CUDA cores,
+// in 64 x 64 tiles from shared memory with each thread holding a 4 x 4 patch.
+// cum is summed in fp64 and each tile's decays are taken from differences to
+// its first row, so that a 4096-row chunk, whose cum reaches thousands, keeps
+// fp32-grade decays.
+//
+// Two heads per block (not more) keep chunk_out at 128 registers, two blocks
+// an SM, without spills; on the H100 (NVIDIA H100 80GB HBM3, 700 W) four
+// heads per block spilled and were no faster (scripts/flash_variants.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,22 +58,23 @@
 
 namespace {
 
-constexpr int kTile = 64;           // rows of a y tile and of a B/x tile
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;            // rows and columns of every output tile
+constexpr int kSlab1 = 32;           // rows of B and x per step of chunk_state
+constexpr int kHB = 2;               // heads per chunk_out block (see above)
+constexpr int kLdL = kTile + 4;      // row stride of the L tile
 constexpr int kMaxN = 128;
 constexpr int kMaxP = 128;
 constexpr int kMaxChunk = 4096;
-constexpr int kNT = kMaxN / 16;     // state-update rows per thread, at most
-constexpr int kPT = kMaxP / 16;     // y and state columns per thread, at most
-static_assert(kThreads == 16 * 16 && kTile == 4 * 16,
-              "a 16 x 16 thread grid covers a 64 x 64 tile in 4x4 patches");
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 struct Params {
   const float* x;
@@ -71,47 +83,37 @@ struct Params {
   const void* c;
   float* y;
   float* state;       // null: the final state is not wanted
-  int S, H, rep, P, N, Q;   // rep = H / G heads per group
+  double* cum;        // (Bsz, H, S) scratch
+  float* states;      // (Bsz, H, nc, N, P) scratch
+  int S, H, G, rep, P, N, Q, nc;   // rep = H / G heads per group
+  bool x_vec;         // x and P allow float4 rows: 16-byte base, strides and P in 4s
   int64_t x_sb, x_ss, x_sh, a_sb, a_ss, a_sh, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg;
 };
 
-// Stages rows [row0, row0 + kTile) of a (rows, width) matrix with row stride
-// `ld_src` into shared memory with row stride `ld_dst`; rows at or past
-// `row_end` (the end of the chunk) are zero-filled.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld_dst, const T* src,
-                                          int64_t ld_src, int row0, int row_end,
-                                          int width) {
-  for (int idx = threadIdx.x; idx < kTile * width; idx += kThreads) {
-    const int r = idx / width;
-    const int c = idx - r * width;
-    const int gr = row0 + r;
-    dst[r * ld_dst + c] = gr < row_end ? to_f(src[gr * ld_src + c]) : 0.f;
-  }
-}
-
 // cum[r] = dA[r0] + ... + dA[r0 + r] for r < Q: a block-wide inclusive scan,
-// kThreads rows at a time, with warp shuffles and the warps' totals.
-__device__ __forceinline__ void chunk_cumsum(float* cum, float* warp_tot,
+// kThreads rows at a time, with warp shuffles and the warps' totals. In fp64:
+// over a chunk of 4096 rows cum reaches thousands, where fp32 sums would
+// leave errors of 1e-2 in the differences cum_t - cum_s that the decays take.
+__device__ __forceinline__ void chunk_cumsum(double* cum, double* warp_tot,
                                              const float* da, int64_t ld,
                                              int r0, int Q) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float carry = 0.f;
+  double carry = 0.0;
   for (int base = 0; base < Q; base += kThreads) {
     const int r = base + threadIdx.x;
-    float v = r < Q ? da[static_cast<int64_t>(r0 + r) * ld] : 0.f;
+    double v = r < Q ? da[static_cast<int64_t>(r0 + r) * ld] : 0.0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, v, o);
+      const double u = __shfl_up_sync(0xffffffffu, v, o);
       if (lane >= o) v += u;
     }
     if (lane == 31) warp_tot[warp] = v;
     __syncthreads();
-    float before = carry, total = 0.f;
+    double before = carry, total = 0.0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float t = warp_tot[w];
+      const double t = warp_tot[w];
       if (w < warp) before += t;
       total += t;
     }
@@ -121,229 +123,509 @@ __device__ __forceinline__ void chunk_cumsum(float* cum, float* warp_tot,
   }
 }
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// acc[i][j] += sum_{k < K} A[k][ty*4 + i] * Bm[k][tx*4 + j]: both operands
+// k-major, one float4 of each per k.
+__device__ __forceinline__ void mm_kk(float (&acc)[4][4], const float* A, int lda,
+                                      const float* Bm, int ldb, int K) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float4 a = ld4(A + k * lda + ty * 4);
+    const float4 b = ld4(Bm + k * ldb + tx * 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(comp(a, i), comp(b, j), acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum_{k < K} A[ty*4 + i][k] * Bm[k][tx*4 + j]: A row-major,
+// Bm k-major; K a multiple of 4 (operands zero-padded to it).
+__device__ __forceinline__ void mm_rk(float (&acc)[4][4], const float* A, int lda,
+                                      const float* Bm, int ldb, int K) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int k = 0; k < K; k += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = ld4(A + (ty * 4 + i) * lda + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b = ld4(Bm + (k + kk) * ldb + tx * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float av = comp(a[i], kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av, comp(b, j), acc[i][j]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 1. chunk_state
+// ---------------------------------------------------------------------------
 template <typename TB>
-__global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const Params p) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads) chunk_state_kernel(const Params p) {
+  extern __shared__ double cum[];         // Q of cum, then Q floats of w
+  __shared__ __align__(16) float Bs[kSlab1][kTile];
+  __shared__ __align__(16) float Xs[kSlab1][kTile];
+  __shared__ double warp_tot[kWarps];
+
   const int N = p.N, P = p.P, Q = p.Q;
-  const int ldn = N + 1;                  // padded rows of C and B
-  constexpr int ldt = kTile + 1;          // padded rows of the score tile
-  float* St = smem;                       // N x P, the carried state
-  float* Cs = St + N * P;                 // kTile x ldn
-  float* Bs = Cs + kTile * ldn;           // kTile x ldn
-  float* Xs = Bs + kTile * ldn;           // kTile x P
-  float* Ts = Xs + kTile * P;             // kTile x ldt, masked scores
-  float* cum = Ts + kTile * ldt;          // Q
-  float* warp_tot = cum + Q;              // kWarps
+  const int nN = (N + kTile - 1) / kTile, nP = (P + kTile - 1) / kTile;
+  const int c = blockIdx.x / (nN * nP);
+  const int nt = (blockIdx.x / nP) % nN;
+  const int pt = blockIdx.x % nP;
+  const int n0 = nt * kTile, p0 = pt * kTile;
+  const int h = blockIdx.y, b = blockIdx.z, g = h / p.rep;
+  const int r0 = c * Q;
+  const float* xb = p.x + b * p.x_sb + h * p.x_sh + r0 * p.x_ss;
+  const TB* bb = static_cast<const TB*>(p.b) + b * p.b_sb + g * p.b_sg + r0 * p.b_ss;
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int g = h / p.rep;
-  const float* xb = p.x + b * p.x_sb + h * p.x_sh;
-  const float* ab = p.dA + b * p.a_sb + h * p.a_sh;
-  const TB* bb = static_cast<const TB*>(p.b) + b * p.b_sb + g * p.b_sg;
-  const TB* cb = static_cast<const TB*>(p.c) + b * p.c_sb + g * p.c_sg;
-  const int64_t y_ss = static_cast<int64_t>(p.H) * P;
-  float* yb = p.y + static_cast<int64_t>(b) * p.S * y_ss + static_cast<int64_t>(h) * P;
+  float* w = reinterpret_cast<float*>(cum + Q);   // exp(cum_last - cum)
+  chunk_cumsum(cum, warp_tot, p.dA + b * p.a_sb + h * p.a_sh, p.a_ss, r0, Q);
+  const double cum_last = cum[Q - 1];
+  if (nt == 0 && pt == 0) {
+    double* cg = p.cum + (static_cast<int64_t>(b) * p.H + h) * p.S + r0;
+    for (int r = threadIdx.x; r < Q; r += kThreads) cg[r] = cum[r];
+  }
+  for (int r = threadIdx.x; r < Q; r += kThreads)
+    w[r] = expf(static_cast<float>(cum_last - cum[r]));
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  float acc[4][4] = {};
+  for (int s0 = 0; s0 < Q; s0 += kSlab1) {
+    __syncthreads();                      // w is written; the last slab is consumed
+    for (int idx = threadIdx.x; idx < kSlab1 * kTile; idx += kThreads) {
+      const int r = idx / kTile, col = idx % kTile, s = s0 + r;
+      const bool row_ok = s < Q;
+      const int n = n0 + col, pp = p0 + col;
+      Bs[r][col] = row_ok && n < N ? to_f(bb[s * p.b_ss + n]) : 0.f;
+      Xs[r][col] = row_ok && pp < P ? xb[s * p.x_ss + pp] * w[s] : 0.f;
+    }
+    __syncthreads();
+    mm_kk(acc, &Bs[0][0], kTile, &Xs[0][0], kTile, min(kSlab1, Q - s0));
+  }
 
-  for (int i = threadIdx.x; i < N * P; i += kThreads) St[i] = 0.f;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* st = p.states + ((static_cast<int64_t>(b) * p.H + h) * p.nc + c) * N * P;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int pp = p0 + tx * 4 + j;
+      if (n < N && pp < P) st[n * P + pp] = acc[i][j];
+    }
+  }
+}
 
-  for (int r0 = 0; r0 < p.S; r0 += Q) {
-    const int r_end = r0 + Q;
-    __syncthreads();                      // the last chunk's state is written
-    chunk_cumsum(cum, warp_tot, ab, p.a_ss, r0, Q);
-    const float cum_last = cum[Q - 1];
+// ---------------------------------------------------------------------------
+// 2. state_pass
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads) state_pass_kernel(const Params p) {
+  const int NP = p.N * p.P;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= NP) return;
+  const int64_t bh = static_cast<int64_t>(blockIdx.z) * p.H + blockIdx.y;
+  float* st = p.states + bh * p.nc * NP + i;
+  const double* cum_last = p.cum + bh * p.S + p.Q - 1;
+  // Eight chunks' loads go out before the first store, so that their
+  // latencies overlap.
+  constexpr int kBatch = 8;
+  float run = 0.f;
+  for (int c0 = 0; c0 < p.nc; c0 += kBatch) {
+    float own[kBatch], decay[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (c0 + k < p.nc) {
+        own[k] = st[static_cast<int64_t>(c0 + k) * NP];
+        decay[k] = expf(static_cast<float>(cum_last[static_cast<int64_t>(c0 + k) * p.Q]));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (c0 + k < p.nc) {
+        st[static_cast<int64_t>(c0 + k) * NP] = run;   // the state entering chunk c0 + k
+        run = fmaf(run, decay[k], own[k]);
+      }
+    }
+  }
+  if (p.state != nullptr) p.state[bh * NP + i] = run;
+}
 
-    for (int t0 = 0; t0 < Q; t0 += kTile) {
-      __syncthreads();                    // the last row tile's Cs is consumed
-      load_rows(Cs, ldn, cb, p.c_ss, r0 + t0, r_end, N);
-      __syncthreads();
+// ---------------------------------------------------------------------------
+// 3. chunk_out
+// ---------------------------------------------------------------------------
 
-      // Cross-chunk term: acc = exp(cum_t) * (C_t . state).
-      float acc[4][kPT];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));   // 0 bytes read: zero-fill
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// C B^T of one 64 x 64 (t, s) tile, in registers, from the tile's fp32 C rows
+// `Cr` and the slab's B rows `Bs`; t_of and s_of name the (t, s) of value r
+// of group q.
+template <typename TB> struct CBTile;
+
+// fp32 B and C: FMAs; thread (ty, tx) holds t = ty*4 + r, s = tx + 16*q.
+template <> struct CBTile<float> {
+  float v[4][4];     // [r][q]
+  __device__ __forceinline__ void compute(const float* Cr, int ldc, const void* Bs,
+                                          int ldb, int K) {
+    const float* Br = static_cast<const float*>(Bs);
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
+    for (int k = 0; k < K; k += 4) {
+      float4 a[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ld4(Cr + (ty * 4 + i) * ldc + k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = ld4(Br + (tx + 16 * j) * ldb + k);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < kPT; ++j) acc[i][j] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty * 4 + i) * ldn + n];
-#pragma unroll
-        for (int j = 0; j < kPT; ++j) {
-          const int col = tx + 16 * j;
-          if (col < P) {
-            const float sv = St[n * P + col];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(cv[i], sv, acc[i][j]);
-          }
+        for (int j = 0; j < 4; ++j) {
+          v[i][j] = fmaf(a[i].x, bv[j].x, v[i][j]);
+          v[i][j] = fmaf(a[i].y, bv[j].y, v[i][j]);
+          v[i][j] = fmaf(a[i].z, bv[j].z, v[i][j]);
+          v[i][j] = fmaf(a[i].w, bv[j].w, v[i][j]);
         }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = t0 + ty * 4 + i;
-        float d = 0.f;                    // cum holds Q values: guard, not select
-        if (t < Q) d = expf(cum[t]);
-#pragma unroll
-        for (int j = 0; j < kPT; ++j) acc[i][j] *= d;
-      }
+    }
+  }
+  __device__ __forceinline__ float at(int r, int q) const { return v[r][q]; }
+  __device__ __forceinline__ int t_of(int r, int) const { return (threadIdx.x >> 4) * 4 + r; }
+  __device__ __forceinline__ int s_of(int, int q) const { return (threadIdx.x & 15) + 16 * q; }
+};
 
-      // Within-chunk term over the column tiles s0 <= t0.
-      for (int s0 = 0; s0 <= t0; s0 += kTile) {
-        __syncthreads();                  // the last column tile is consumed
-        load_rows(Bs, ldn, bb, p.b_ss, r0 + s0, r_end, N);
-        load_rows(Xs, P, xb, p.x_ss, r0 + s0, r_end, P);
-        __syncthreads();
-
-        float sc[4][4];
+// bf16 B and C: mma.sync m16n8k16 (bf16 x bf16 -> fp32). Warp w holds rows
+// 16*(w % 4) .. +16 and columns 32*(w / 4) .. +32 as four 16 x 8 tiles q;
+// value r of tile q sits at t = 16*(w%4) + lane/4 + 8*(r/2),
+// s = 32*(w/4) + 8*q + 2*(lane%4) + r%2. The A fragments are the fp32 C rows
+// packed back to bf16, which is exact: C arrived in bf16.
+template <> struct CBTile<__nv_bfloat16> {
+  float v[4][4];     // [q][r]
+  __device__ __forceinline__ void compute(const float* Cr, int ldc, const void* Bs,
+                                          int ldb, int K16) {
+    const __nv_bfloat16* Bb = static_cast<const __nv_bfloat16*>(Bs);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q4 = lane & 3;
+    const int mt = (warp & 3) * 16, nb = (warp >> 2) * 32;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < 4; ++q)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
+      for (int r = 0; r < 4; ++r) v[q][r] = 0.f;
+    auto pack = [](const float* f) {
+      const float2 v2 = *reinterpret_cast<const float2*>(f);
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v2.x, v2.y);
+      return *reinterpret_cast<const uint32_t*>(&h);
+    };
+    for (int k0 = 0; k0 < K16; k0 += 16) {
+      const float* ar = Cr + (mt + g) * ldc + k0 + 2 * q4;
+      const uint32_t a0 = pack(ar), a1 = pack(ar + 8 * ldc);
+      const uint32_t a2 = pack(ar + 8), a3 = pack(ar + 8 * ldc + 8);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty * 4 + i) * ldn + n];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * ldn + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(cv[i], bv[j], sc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int t = t0 + ty * 4 + i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int s = s0 + tx + 16 * j;
-            float v = 0.f;
-            if (s <= t && t < Q) v = sc[i][j] * expf(cum[t] - cum[s]);
-            Ts[(ty * 4 + i) * ldt + tx + 16 * j] = v;
-          }
-        }
-        __syncthreads();
-
-        const int kn = min(kTile, Q - s0);
-        for (int k = 0; k < kn; ++k) {
-          float pv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) pv[i] = Ts[(ty * 4 + i) * ldt + k];
-#pragma unroll
-          for (int j = 0; j < kPT; ++j) {
-            const int col = tx + 16 * j;
-            if (col < P) {
-              const float xv = Xs[k * P + col];
-#pragma unroll
-              for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], xv, acc[i][j]);
-            }
-          }
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = t0 + ty * 4 + i;
-        if (t >= Q) continue;
-        float* yr = yb + static_cast<int64_t>(r0 + t) * y_ss;
-#pragma unroll
-        for (int j = 0; j < kPT; ++j) {
-          const int col = tx + 16 * j;
-          if (col < P) yr[col] = acc[i][j];
-        }
+      for (int q = 0; q < 4; ++q) {
+        const __nv_bfloat16* br = Bb + (nb + 8 * q + g) * ldb + k0 + 2 * q4;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(br);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(br + 8);
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(v[q][0]), "+f"(v[q][1]), "+f"(v[q][2]), "+f"(v[q][3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
       }
     }
+  }
+  __device__ __forceinline__ float at(int r, int q) const { return v[q][r]; }
+  __device__ __forceinline__ int t_of(int r, int) const {
+    return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + 8 * (r >> 1);
+  }
+  __device__ __forceinline__ int s_of(int r, int q) const {
+    return (threadIdx.x >> 7) * 32 + 8 * q + 2 * (threadIdx.x & 3) + (r & 1);
+  }
+};
 
-    // State update, after every row tile has read the old state:
-    // state = state * exp(cum_last) + sum_s exp(cum_last - cum_s) B_s^T x_s.
-    float st[kNT][kPT];
+// Shared memory of chunk_out, in bytes, and its parts' offsets.
+struct OutSmem {
+  int kw, np4, ldc, ldb;
+  size_t cr, u, bs, ct, et, cs, total;
+  __host__ __device__ OutSmem(int N, bool bf16) {
+    np4 = round_up(N, 4);
+    kw = bf16 ? round_up(N, 16) : np4;    // C B^T's depth: mma steps of 16
+    ldc = kw + 4;                         // fp32 rows of C (and B): 16-byte aligned
+    ldb = round_up(N, 16) + 8;            // bf16 rows of B: conflict-free fragments
+    const size_t f = sizeof(float);
+    const size_t ss = static_cast<size_t>(np4) * kTile;
+    const size_t xl = 2 * kTile * kTile + kTile * kLdL;
+    cr = 0;
+    u = cr + kTile * ldc * f;
+    bs = u + f * (ss > xl ? ss : xl);
+    ct = bs + (bf16 ? kTile * ldb * sizeof(__nv_bfloat16) : kTile * ldc * f);
+    et = ct + kHB * kTile * f;
+    cs = et + kHB * kTile * f;
+    total = cs + kHB * kTile * f;
+  }
+};
+
+template <typename TB>
+__global__ void __launch_bounds__(kThreads, 2) chunk_out_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kBf16 = sizeof(TB) == 2;
+  const int N = p.N, P = p.P, Q = p.Q;
+  const OutSmem L(N, kBf16);
+  float* Cr = reinterpret_cast<float*>(smem + L.cr);     // 64 x ldc, C rows
+  float* Ss = reinterpret_cast<float*>(smem + L.u);      // np4 x 64, a state tile
+  float* Xs = Ss;                                        // 2 x 64 x 64, x rows
+  float* Ls = Ss + 2 * kTile * kTile;                    // 64 x kLdL, L tile
+  void* Bs = smem + L.bs;                                // 64 rows of B
+  // Per head: cum at the tile's rows t and at a slab's rows s, each less cum
+  // at row t0 (so that their differences keep fp32 precision), and exp(cum_t).
+  float* ct = reinterpret_cast<float*>(smem + L.ct);     // kHB x 64
+  float* et = reinterpret_cast<float*>(smem + L.et);     // kHB x 64
+  float* cs = reinterpret_cast<float*>(smem + L.cs);     // kHB x 64
+
+  const int nT = (Q + kTile - 1) / kTile, nP = (P + kTile - 1) / kTile;
+  const int c = blockIdx.x / (nT * nP);
+  const int t0 = (nT - 1 - (blockIdx.x / nP) % nT) * kTile;   // the longest tiles first
+  const int p0 = (blockIdx.x % nP) * kTile;
+  const int nHB = (p.rep + kHB - 1) / kHB;
+  const int g = blockIdx.y / nHB;
+  const int hb0 = (blockIdx.y % nHB) * kHB;
+  const int nh = min(kHB, p.rep - hb0);
+  const int h0 = g * p.rep + hb0;
+  const int b = blockIdx.z;
+  const int r0 = c * Q;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const TB* cbase = static_cast<const TB*>(p.c) + b * p.c_sb + g * p.c_sg + r0 * p.c_ss;
+  const TB* bbase = static_cast<const TB*>(p.b) + b * p.b_sb + g * p.b_sg + r0 * p.b_ss;
+  const double* cumb = p.cum + (static_cast<int64_t>(b) * p.H + h0) * p.S + r0;
+
+  // The C tile (rows t0 .. t0+63 of the chunk, a warp per row, zero past the
+  // chunk and past N) and the decays at those rows.
+  for (int t = warp; t < kTile; t += kWarps) {
+    const bool row_ok = t0 + t < Q;
+    const TB* src = cbase + (t0 + t) * p.c_ss;
+    for (int n = lane; n < L.kw; n += 32)
+      Cr[t * L.ldc + n] = row_ok && n < N ? to_f(src[n]) : 0.f;
+  }
+  for (int idx = threadIdx.x; idx < kHB * kTile; idx += kThreads) {
+    const int hh = idx / kTile, t = idx % kTile;
+    const double* cum_h = cumb + static_cast<int64_t>(hh) * p.S;
+    const bool ok = hh < nh && t0 + t < Q;
+    ct[idx] = ok ? static_cast<float>(cum_h[t0 + t] - cum_h[t0]) : 0.f;
+    et[idx] = ok ? __expf(static_cast<float>(cum_h[t0 + t])) : 0.f;
+  }
+  __syncthreads();
+
+  float acc[kHB][4][4];
 #pragma unroll
-    for (int i = 0; i < kNT; ++i)
+  for (int hh = 0; hh < kHB; ++hh)
 #pragma unroll
-      for (int j = 0; j < kPT; ++j) st[i][j] = 0.f;
-    for (int s0 = 0; s0 < Q; s0 += kTile) {
-      __syncthreads();                    // Bs and Xs are consumed
-      load_rows(Bs, ldn, bb, p.b_ss, r0 + s0, r_end, N);
-      load_rows(Xs, P, xb, p.x_ss, r0 + s0, r_end, P);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[hh][i][j] = 0.f;
+
+  // Cross-chunk term: (C o exp(cum_t)) state_c; the state entering chunk 0 is 0.
+  if (c > 0) {
+#pragma unroll
+    for (int hh = 0; hh < kHB; ++hh) {
+      if (hh >= nh) break;
+      const float* st = p.states +
+          ((static_cast<int64_t>(b) * p.H + h0 + hh) * p.nc + c) * N * P;
+      if (P % 4 == 0) {                   // float4 rows
+        for (int idx = threadIdx.x; idx < L.np4 * kTile / 4; idx += kThreads) {
+          const int n = idx / (kTile / 4), pp = p0 + 4 * (idx % (kTile / 4));
+          *reinterpret_cast<float4*>(Ss + 4 * idx) =
+              n < N && pp < P ? ld4(st + n * P + pp) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      } else {
+        for (int idx = threadIdx.x; idx < L.np4 * kTile; idx += kThreads) {
+          const int n = idx / kTile, pp = p0 + idx % kTile;
+          Ss[idx] = n < N && pp < P ? st[n * P + pp] : 0.f;
+        }
+      }
       __syncthreads();
-      const int kn = min(kTile, Q - s0);
-      for (int k = 0; k < kn; ++k) {
-        const float w = expf(cum_last - cum[s0 + k]);
-        float bv[kNT];
+      mm_rk(acc[hh], Cr, L.ldc, Ss, kTile, L.np4);
+      __syncthreads();
 #pragma unroll
-        for (int i = 0; i < kNT; ++i) {
-          const int n = ty + 16 * i;
-          bv[i] = n < N ? Bs[k * ldn + n] * w : 0.f;
-        }
+      for (int i = 0; i < 4; ++i) {
+        const float d = et[hh * kTile + ty * 4 + i];
 #pragma unroll
-        for (int j = 0; j < kPT; ++j) {
-          const int col = tx + 16 * j;
-          if (col < P) {
-            const float xv = Xs[k * P + col];
-#pragma unroll
-            for (int i = 0; i < kNT; ++i) st[i][j] = fmaf(bv[i], xv, st[i][j]);
-          }
-        }
-      }
-    }
-    const float decay = expf(cum_last);
-#pragma unroll
-    for (int i = 0; i < kNT; ++i) {
-      const int n = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < kPT; ++j) {
-        const int col = tx + 16 * j;
-        if (n < N && col < P) St[n * P + col] = St[n * P + col] * decay + st[i][j];
+        for (int j = 0; j < 4; ++j) acc[hh][i][j] *= d;
       }
     }
   }
 
-  if (p.state != nullptr) {
+  // Within-chunk term, over the pairs (column slab s0 <= t0, head): the x
+  // tile of the next pair is copied asynchronously (cp.async) into the other
+  // of two buffers while the current pair is multiplied.
+  auto stage_x = [&](float* dst, int s0, int hh) {
+    const float* xh = p.x + b * p.x_sb + (h0 + hh) * p.x_sh + (r0 + s0) * p.x_ss;
+    if (p.x_vec) {
+      for (int idx = threadIdx.x; idx < kTile * kTile / 4; idx += kThreads) {
+        const int s = idx / (kTile / 4), pp = p0 + 4 * (idx % (kTile / 4));
+        const bool ok = s0 + s < Q && pp < P;
+        cp_async16(dst + 4 * idx, ok ? xh + s * p.x_ss + pp : xh, ok);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < kTile * kTile; idx += kThreads) {
+        const int s = idx / kTile, pp = p0 + idx % kTile;
+        dst[idx] = s0 + s < Q && pp < P ? xh[s * p.x_ss + pp] : 0.f;
+      }
+    }
+    cp_async_commit();
+  };
+  const int npairs = (t0 / kTile + 1) * nh;
+  CBTile<TB> cb;
+  stage_x(Xs, 0, 0);
+  for (int j = 0; j < npairs; ++j) {
+    const int s0 = (j / nh) * kTile, hh = j % nh;
+    if (hh == 0) {                        // a new slab: its B rows and cum
+      for (int s = warp; s < kTile; s += kWarps) {
+        const bool row_ok = s0 + s < Q;
+        const TB* src = bbase + (s0 + s) * p.b_ss;
+        for (int n = lane; n < L.kw; n += 32) {
+          const TB v = row_ok && n < N ? src[n] : TB(0.f);
+          if constexpr (kBf16) {
+            static_cast<__nv_bfloat16*>(Bs)[s * L.ldb + n] = v;
+          } else {
+            static_cast<float*>(Bs)[s * L.ldc + n] = v;
+          }
+        }
+      }
+      for (int idx = threadIdx.x; idx < kHB * kTile; idx += kThreads) {
+        const int h = idx / kTile, s = idx % kTile;
+        const double* cum_h = cumb + static_cast<int64_t>(h) * p.S;
+        cs[idx] = h < nh && s0 + s < Q ? static_cast<float>(cum_h[s0 + s] - cum_h[t0]) : 0.f;
+      }
+    }
+    if (j + 1 < npairs) {
+      stage_x(Xs + ((j + 1) & 1) * kTile * kTile, ((j + 1) / nh) * kTile, (j + 1) % nh);
+    } else {
+      cp_async_commit();                  // an empty group keeps the count
+    }
+    if (hh == 0) {
+      __syncthreads();
+      cb.compute(Cr, L.ldc, Bs, kBf16 ? L.ldb : L.ldc, L.kw);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = cb.t_of(r, q), s = cb.s_of(r, q);
+        float v = 0.f;
+        if (s0 + s <= t0 + t && t0 + t < Q)
+          v = cb.at(r, q) * __expf(ct[hh * kTile + t] - cs[hh * kTile + s]);
+        Ls[t * kLdL + s] = v;
+      }
+    cp_async_wait_all_but_newest();       // this pair's x tile has landed
     __syncthreads();
-    float* sb = p.state + (static_cast<int64_t>(b) * p.H + h) * N * P;
-    for (int i = threadIdx.x; i < N * P; i += kThreads) sb[i] = St[i];
+    const float* xs = Xs + (j & 1) * kTile * kTile;
+    const int kn = round_up(min(kTile, Q - s0), 4);
+#pragma unroll
+    for (int k = 0; k < kHB; ++k)
+      if (k == hh) mm_rk(acc[k], Ls, kLdL, xs, kTile, kn);
+    __syncthreads();
   }
+
+#pragma unroll
+  for (int hh = 0; hh < kHB; ++hh) {
+    if (hh >= nh) break;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = t0 + ty * 4 + i;
+      if (t >= Q) continue;
+      float* yr = p.y + ((static_cast<int64_t>(b) * p.S + r0 + t) * p.H + h0 + hh) * P;
+      const int pp = p0 + tx * 4;
+      if (P % 4 == 0 && pp + 3 < P) {
+        *reinterpret_cast<float4*>(yr + pp) =
+            make_float4(acc[hh][i][0], acc[hh][i][1], acc[hh][i][2], acc[hh][i][3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (pp + j < P) yr[pp + j] = acc[hh][i][j];
+      }
+    }
+  }
+}
+
+// Raises a kernel's dynamic shared memory limit once it needs more than 48 KB.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // clear it, so that the next launch's check reports that launch
+    return e;
+  }
+  allowed = bytes;
+  return cudaSuccess;
 }
 
 template <typename TB>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(p.N) * p.P + 2 * static_cast<size_t>(kTile) * (p.N + 1) +
-       static_cast<size_t>(kTile) * p.P + static_cast<size_t>(kTile) * (kTile + 1) +
-       p.Q + kWarps);
-  static size_t smem_set = 48 * 1024;     // per instantiation: the most allowed so far
-  if (smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_scan_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      cudaGetLastError();   // clear it, so that the next launch's check reports that launch
-      return e;
-    }
-    smem_set = smem;
-  }
-  const dim3 grid(p.H, B);
-  ssd_scan_kernel<TB><<<grid, kThreads, smem, stream>>>(p);
+  const int nN = (p.N + kTile - 1) / kTile, nP = (p.P + kTile - 1) / kTile;
+  const int nT = (p.Q + kTile - 1) / kTile;
+  const size_t smem1 = p.Q * (sizeof(double) + sizeof(float));
+  static size_t allowed1 = 0;             // per instantiation: the most allowed so far
+  cudaError_t e = allow_smem(chunk_state_kernel<TB>, smem1, allowed1);
+  if (e != cudaSuccess) return e;
+  chunk_state_kernel<TB><<<dim3(p.nc * nN * nP, p.H, B), kThreads, smem1, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  state_pass_kernel<<<dim3((p.N * p.P + kThreads - 1) / kThreads, p.H, B),
+                      kThreads, 0, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const OutSmem L(p.N, sizeof(TB) == 2);
+  static size_t allowed = 48 * 1024;      // per instantiation: the most allowed so far
+  e = allow_smem(chunk_out_kernel<TB>, L.total, allowed);
+  if (e != cudaSuccess) return e;
+  const int nHB = (p.rep + kHB - 1) / kHB;
+  chunk_out_kernel<TB><<<dim3(p.nc * nT * nP, p.G * nHB, B), kThreads, L.total,
+                         stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // bc_dtype: 0 = float32, 1 = bfloat16. x, dA, y and state are float32.
-// Strides are in elements. `state` may be null. Returns a cudaError_t as int.
+// Strides are in elements. `state` may be null. `cum` ((B, H, S) doubles) and
+// `states` ((B, H, S / Q, N, P) floats) are scratch the caller allocates.
+// Makes three launches. Returns a cudaError_t as int.
 extern "C" int ssd_scan_fwd(
     const void* x, const void* dA, const void* b, const void* c, void* y,
-    void* state, int B, int S, int H, int G, int P, int N, int Q,
+    void* state, void* cum, void* states, int B, int S, int H, int G, int P,
+    int N, int Q,
     long long x_sb, long long x_ss, long long x_sh,
     long long a_sb, long long a_ss, long long a_sh,
     long long b_sb, long long b_ss, long long b_sg,
     long long c_sb, long long c_ss, long long c_sg,
     int bc_dtype, void* stream) {
-  if (B < 0 || B > 65535 || S < 1 || H < 1 || G < 1 || H % G != 0 ||
+  if (B < 0 || B > 65535 || S < 1 || H < 1 || H > 65535 || G < 1 || H % G != 0 ||
       P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 || Q > kMaxChunk ||
-      S % Q != 0 || bc_dtype < 0 || bc_dtype > 1) {
+      S % Q != 0 || bc_dtype < 0 || bc_dtype > 1 || cum == nullptr ||
+      states == nullptr) {
     return cudaErrorInvalidValue;
   }
   if (B == 0) return cudaSuccess;
@@ -351,11 +633,14 @@ extern "C" int ssd_scan_fwd(
   p.x = static_cast<const float*>(x); p.dA = static_cast<const float*>(dA);
   p.b = b; p.c = c; p.y = static_cast<float*>(y);
   p.state = static_cast<float*>(state);
-  p.S = S; p.H = H; p.rep = H / G; p.P = P; p.N = N; p.Q = Q;
+  p.cum = static_cast<double*>(cum); p.states = static_cast<float*>(states);
+  p.S = S; p.H = H; p.G = G; p.rep = H / G; p.P = P; p.N = N; p.Q = Q; p.nc = S / Q;
   p.x_sb = x_sb; p.x_ss = x_ss; p.x_sh = x_sh;
   p.a_sb = a_sb; p.a_ss = a_ss; p.a_sh = a_sh;
   p.b_sb = b_sb; p.b_ss = b_ss; p.b_sg = b_sg;
   p.c_sb = c_sb; p.c_ss = c_ss; p.c_sg = c_sg;
+  p.x_vec = P % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+            x_sb % 4 == 0 && x_ss % 4 == 0 && x_sh % 4 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bc_dtype == 0) return launch<float>(p, B, s);
   return launch<__nv_bfloat16>(p, B, s);

@@ -36,15 +36,16 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    # x, scale, out, rows, dim, eps, x_dtype, scale_dtype, stream
-    "rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # x, scale, out, rows, dim, eps, x_dtype, scale_dtype, path, grid,
+    # vectors per thread, stream
+    "rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, B, H, KH, Sq, Sk, D, Dv, 9 strides, scale, causal, stream
     "flash_attention_fwd_f32": [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F, _I, _P],
     # the same, then the (D, Dv) tile widths, before the stream
     "flash_attention_fwd_bf16": [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F, _I, _I, _I, _P],
-    # x, dA, B, C, y, state, Bsz, S, H, G, P, N, chunk, 12 strides,
-    # bc_dtype, stream
-    "ssd_scan_fwd": [_P] * 6 + [_I] * 7 + [_L] * 12 + [_I, _P],
+    # x, dA, B, C, y, state, cum, states, Bsz, S, H, G, P, N, chunk,
+    # 12 strides, bc_dtype, stream
+    "ssd_scan_fwd": [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _P],
 }
 
 

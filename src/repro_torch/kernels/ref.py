@@ -46,3 +46,44 @@ def reference_rmsnorm(x, scale, eps: float = 1e-5):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_chunk_passes(x, dA, Bm, Cm, *, chunk: int):
+    """The CUDA ``ssd_scan``'s three-pass decomposition in plain PyTorch, for
+    the tests only (no path of the port runs it).
+
+    Model layout: x (Bsz,S,H,P), dA (Bsz,S,H), B/C (Bsz,S,G,N), ``chunk``
+    dividing S. Every chunk at once:
+      1. the chunks' own states S_c = (B o exp(cum_last - cum))^T x;
+      2. the states entering each chunk, state_{c+1} = state_c exp(cum_last_c) + S_c;
+      3. y = ((C B^T) o tril(exp(cum_t - cum_s))) x + (C o exp(cum)) state_c,
+         with C B^T once per group.
+    Returns (y (Bsz,S,H,P) in x.dtype, final state (Bsz,H,N,P) fp32).
+    """
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    R, Q = H // G, chunk
+    nc = S // Q
+    x32 = x.float().reshape(Bsz, nc, Q, G, R, P)
+    cum = dA.float().reshape(Bsz, nc, Q, G, R).cumsum(dim=2)
+    B32 = Bm.float().reshape(Bsz, nc, Q, G, N)
+    C32 = Cm.float().reshape(Bsz, nc, Q, G, N)
+
+    w = (cum[:, :, -1:] - cum).exp()
+    own = torch.einsum("bcsgn,bcsgr,bcsgrp->bcgrnp", B32, w, x32)
+
+    decay = cum[:, :, -1].exp()[..., None, None]                # (Bsz,nc,G,R,1,1)
+    run = torch.zeros_like(own[:, 0])
+    entering = []
+    for c in range(nc):
+        entering.append(run)
+        run = run * decay[:, c] + own[:, c]
+    entering = torch.stack(entering, dim=1)                     # (Bsz,nc,G,R,N,P)
+
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    seg = cum[:, :, :, None] - cum[:, :, None]                  # (Bsz,nc,Qt,Qs,G,R)
+    Lmat = torch.where(tri[:, :, None, None], seg.exp(), 0.0)
+    CB = torch.einsum("bctgn,bcsgn->bcgts", C32, B32)
+    y = torch.einsum("bcgts,bctsgr,bcsgrp->bctgrp", CB, Lmat, x32)
+    y = y + torch.einsum("bctgn,bctgr,bcgrnp->bctgrp", C32, cum.exp(), entering)
+    return y.reshape(Bsz, S, H, P).to(x.dtype), run.reshape(Bsz, H, N, P)

@@ -6,6 +6,12 @@ the model layout directly: x (Bsz, S, H, P), dA (Bsz, S, H), B and C
 (Bsz, S, G, N), each through its strides with a unit last stride. Head h
 reads group h // (H // G), so B and C are never repeated per head. The
 plain version is ``ops.ssd_scan_plain``; ``ops.ssd_scan`` picks between them.
+
+One call makes ``CUDA_LAUNCHES`` kernel launches, each parallel over
+chunks: the chunks' own states, a short scan of the states over the chunks,
+then the outputs. It allocates two scratch tensors for them: the chunks'
+cumulative log-decays, (Bsz, H, S) in fp64, and their states, (Bsz, H,
+S / chunk, N, P) in fp32.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from repro_torch.kernels import build
 MAX_N = 128
 MAX_P = 128
 MAX_CHUNK = 4096
+CUDA_LAUNCHES = 3
 
 
 def ssd_scan_cuda(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
@@ -52,11 +59,14 @@ def ssd_scan_cuda(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
     state = (torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
              if return_state else None)
+    cum = torch.empty((Bsz, H, S), dtype=torch.float64, device=x.device)
+    states = torch.empty((Bsz, H, S // chunk, N, P), dtype=torch.float32,
+                         device=x.device)
     with torch.cuda.device(x.device):
         code = build.library().lib.ssd_scan_fwd(
             x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             y.data_ptr(), None if state is None else state.data_ptr(),
-            Bsz, S, H, G, P, N, chunk,
+            cum.data_ptr(), states.data_ptr(), Bsz, S, H, G, P, N, chunk,
             x.stride(0), x.stride(1), x.stride(2),
             dA.stride(0), dA.stride(1), dA.stride(2),
             Bm.stride(0), Bm.stride(1), Bm.stride(2),

@@ -11,6 +11,7 @@ import torch
 from repro_torch.configs import get_arch, reduced
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
@@ -42,6 +43,30 @@ def test_rmsnorm_kernel(cuda, R, D, dtype):
     assert ops.LAUNCHES["rmsnorm"] == before + 1
     torch.testing.assert_close(y.float(), ref.reference_rmsnorm(x, s).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("R,D,x_dtype,s_dtype,path", [
+    (4096, 1024, torch.bfloat16, torch.bfloat16, "warp_per_row"),   # mamba2 pre-norms
+    (4096, 2048, torch.bfloat16, torch.bfloat16, "warp_per_row"),   # gate_norm
+    (4096, 4096, torch.bfloat16, torch.bfloat16, "warp_per_row"),   # zamba2 shared block
+    (4, 1024, torch.bfloat16, torch.bfloat16, "block_per_row"),     # mamba2 decode
+    (64, 2048, torch.float32, torch.float32, "block_per_row"),
+    (1000, 2048, torch.float32, torch.float32, "warp_per_row"),
+    (333, 4096, torch.bfloat16, torch.float32, "block_per_row"),
+    (5, 8192, torch.bfloat16, torch.bfloat16, "block_per_row"),
+    (77, 2050, torch.float32, torch.bfloat16, "scalar")])
+def test_rmsnorm_kernel_paths(cuda, R, D, x_dtype, s_dtype, path):
+    """The main-path shapes and one of each other path: the path that ran
+    is the one ``plan`` names, and the result is the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(R + D)
+    x = _randn(gen, (R, D), x_dtype, cuda)
+    s = 1.0 + 0.1 * _randn(gen, (D,), s_dtype, cuda)
+    y = ops.rmsnorm(x, s)
+    assert rn.PLAN.path == path
+    assert rn.PLAN == rn.plan(R, D, x_dtype, s_dtype,
+                              sms=torch.cuda.get_device_properties(cuda).multi_processor_count)
+    torch.testing.assert_close(y.float(), ref.reference_rmsnorm(x, s).float(),
+                               atol=TOL[x_dtype], rtol=TOL[x_dtype])
 
 
 @pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv,causal", [
@@ -86,7 +111,13 @@ def _ssd_inputs(gen, B, S, H, G, P, N, x_dtype, bc_dtype, device, decay=1.0):
 @pytest.mark.parametrize("B,S,H,G,P,N,chunk,decay", [
     (2, 512, 8, 1, 64, 128, 256, 1.0), (1, 256, 8, 2, 64, 64, 256, 0.01),
     (2, 128, 4, 1, 64, 128, 256, 1.0), (1, 192, 3, 3, 48, 40, 64, 0.1),
-    (1, 64, 2, 1, 16, 8, 16, 1.0)])
+    (1, 64, 2, 1, 16, 8, 16, 1.0),
+    (1, 4096, 4, 1, 64, 128, 256, 0.01),    # the state carried over 16 chunks
+    (1, 4096, 2, 1, 64, 64, 4096, 1.0),     # chunk = S = 4096
+    (1, 256, 8, 1, 64, 128, 256, 1.0),      # batch 1, a single chunk
+    (2, 512, 8, 2, 64, 64, 256, 1.0),       # G 2, four heads per group
+    (1, 300, 6, 2, 128, 128, 100, 0.1),     # P = N = 128, ragged 64-row tiles
+    (1, 128, 2, 1, 30, 20, 64, 1.0)])       # P not a multiple of 4: scalar copies
 @pytest.mark.parametrize("x_dtype,bc_dtype", [
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
     (torch.bfloat16, torch.bfloat16)])

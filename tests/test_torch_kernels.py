@@ -12,6 +12,7 @@ from repro.kernels import ref as jref
 from repro.models.attention import blockwise_attention as jax_blockwise
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models.attention import blockwise_attention
 
 # The JAX kernel tests' tolerances (tests/test_kernels.py): fp32 differs only
@@ -128,6 +129,45 @@ def test_flash_plan_routes_by_dtype():
         fa.plan(q4, q4, q4)
     q40 = torch.zeros(1, 1, 8, 40)
     assert fa.plan(q40, q40, q40) == ("cuda_cores", None)       # fp32 takes any D
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("R,D,xd,sd,want", [
+    # the main paths' shapes: decode (few rows: 256 threads a row) and the
+    # forwards of stablelm, mamba2, zamba2 (a warp a row)
+    (4, 2048, BF, BF, ("block_per_row", 4, 256, 1)),
+    (4, 1024, BF, BF, ("block_per_row", 4, 256, 1)),
+    (512, 2048, BF, BF, ("warp_per_row", 128, 128, 8)),
+    (4096, 1024, BF, BF, ("warp_per_row", 264, 128, 4)),
+    (4096, 2048, BF, BF, ("warp_per_row", 264, 128, 8)),
+    (4096, 4096, BF, BF, ("warp_per_row", 528, 128, 16)),
+    (1000, 2048, BF, BF, ("warp_per_row", 250, 128, 8)),
+    (64, 2048, F32, F32, ("block_per_row", 64, 256, 2)),
+    (264, 2048, F32, F32, ("warp_per_row", 66, 128, 16)),
+    # wider rows than a warp holds: 256 threads a row
+    (333, 4096, BF, F32, ("block_per_row", 333, 256, 2)),
+    (3, 8192, F32, F32, ("block_per_row", 3, 256, 8)),
+    (4096, 8192, BF, BF, ("block_per_row", 528, 256, 4)),
+    (4, 4096, F32, F32, ("block_per_row", 4, 256, 4)),
+    # no 16-byte accesses: D not a multiple of the vector
+    (77, 2050, F32, BF, ("scalar", 77, 256, 0)),
+    (5, 4100, BF, BF, ("scalar", 5, 256, 0))])
+def test_rmsnorm_plan(R, D, xd, sd, want):
+    """The path and launch shape the wrapper hands the kernel, on any
+    device: (path, grid, threads per block, 16-byte vectors per thread)."""
+    p = rn.plan(R, D, xd, sd)
+    assert (p.path, p.grid, p.threads, p.vectors) == want
+
+
+def test_rmsnorm_plan_unaligned_and_refusals():
+    assert rn.plan(4096, 1024, BF, BF, aligned=False).path == "scalar"
+    assert rn.plan(10 ** 6, 1024, BF, BF, sms=100).grid == 200   # 100 SMs x 2
+    with pytest.raises(TypeError):
+        rn.plan(4, 64, torch.float16, BF)
+    with pytest.raises(ValueError):
+        rn.plan(4, 8193, BF, BF)
+
 
 def test_blockwise_attention_ragged_matches_jax():
     """The plain model-level version at S = 200 with 64-key blocks (the last

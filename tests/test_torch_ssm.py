@@ -207,3 +207,49 @@ def test_bf16_forward_and_decode_close_to_jax(aid):
         jlg, jcaches = jdecode(jp, jnp.asarray(toks[:, i:i + 1]), jcaches,
                                jnp.int32(i))
         _close(lg, jlg, 5e-2)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_chunk_passes_match_jax_ssd_chunked(G):
+    """The CUDA kernel's three passes (chunk states, the scan over chunks,
+    the outputs), as plain PyTorch, against JAX's ``ssd_chunked``: y and the
+    final state, over three chunks."""
+    arrs = _chunked_inputs(20 + G, 2, 48, 4, G, 8, 16)
+    xh, dt, a_log, Bm, Cm = map(torch.from_numpy, arrs)
+    dA = dt * -torch.exp(a_log)[None, None, :]
+    y, state = ref.ssd_chunk_passes(xh * dt[..., None], dA, Bm, Cm, chunk=16)
+    jy, jstate = JS.ssd_chunked(*map(jnp.asarray, arrs), chunk=16)
+    _close(y, jy)
+    _close(state.transpose(-1, -2), jstate)
+
+
+@pytest.mark.parametrize("G,chunk", [(1, 32), (2, 16), (1, 128)])
+def test_chunk_passes_match_pallas_and_the_recurrence(G, chunk):
+    """The three passes against the Pallas kernel in interpret mode (per
+    head, its (BH, S, P) contract) and against the sequential recurrence,
+    y and the final state, at the Pallas tests' 10x tolerance."""
+    B, S_, H, P, N = 2, 128, 4, 16, 8
+    rng = np.random.default_rng(30 + G + chunk)
+    x = rng.standard_normal((B, S_, H, P)).astype(np.float32)
+    dA = -np.log1p(np.exp(rng.standard_normal((B, S_, H)))).astype(np.float32)
+    Bm = 0.5 * rng.standard_normal((B, S_, G, N)).astype(np.float32)
+    Cm = 0.5 * rng.standard_normal((B, S_, G, N)).astype(np.float32)
+    y, state = ref.ssd_chunk_passes(*map(torch.from_numpy, (x, dA, Bm, Cm)),
+                                    chunk=chunk)
+    # per head: (B*H, S, ...) with each head's group of B and C
+    grp = np.arange(H) // (H // G)
+    xh = x.transpose(0, 2, 1, 3).reshape(B * H, S_, P)
+    ah = dA.transpose(0, 2, 1).reshape(B * H, S_)
+    Bh = Bm[:, :, grp].transpose(0, 2, 1, 3).reshape(B * H, S_, N)
+    Ch = Cm[:, :, grp].transpose(0, 2, 1, 3).reshape(B * H, S_, N)
+    jin = [jnp.asarray(a) for a in (xh, ah, Bh, Ch)]
+    y_bh = y.permute(0, 2, 1, 3).reshape(B * H, S_, P)
+    tol = 10 * KTOL["float32"]
+    _close(y_bh, jops.ssd_scan(*jin, chunk=chunk), tol)
+    y_rec, h_rec = ref.reference_ssd(*map(torch.from_numpy, (xh, ah, Bh, Ch)))
+    _close(y_bh, y_rec.numpy(), tol)
+    _close(state.reshape(B * H, N, P), h_rec.numpy(), tol)
+    y_plain, state_plain = ops.ssd_scan_plain(*map(torch.from_numpy, (x, dA, Bm, Cm)),
+                                              chunk=chunk)
+    _close(y, y_plain.numpy(), TOL)
+    _close(state, state_plain.numpy(), TOL)
