@@ -18,22 +18,35 @@ its seconds:
                 and launch shape of ``rmsnorm.plan`` and fails on another
                 path; ``ssd_scan`` also against the sequential recurrence
                 ``reference_ssd``;
+                The backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``)
+                against the plain backward versions of ``kernels/ref.py`` on
+                the same inputs, with ``library_ms`` the backward through
+                ``F.rms_norm`` and ``F.scaled_dot_product_attention`` under
+                autograd (forward and backward, less the forward alone);
 4. consistency  stablelm-1.6b and mamba2-370m at full width in float32:
                 decode logits at every prompt position equal the full
                 forward's (mamba2 over two 256-row chunks), and reduced
                 stablelm, mamba2 and zamba2 models on the card equal the same
-                models on the CPU;
-5. serve        the main paths: stablelm-1.6b, mamba2-370m and zamba2-1.2b at
-                full width in bf16 each serve a batch through
+                models on the CPU; a reduced stablelm (fp32, remat full)
+                trains 3 steps on the card and on the CPU from one init, with
+                equal losses and grad norms;
+5. serve        the serving paths: stablelm-1.6b, mamba2-370m and zamba2-1.2b
+                at full width in bf16 each serve a batch through
                 ``ServingEngine.generate``, then ``apply_lm`` runs on the same
                 model; the launch counts of each path must be exactly the
-                path's, which proves that it went through its kernels.
+                path's, which proves that it went through its kernels;
+6. train        the training path: full-width bf16 stablelm-1.6b with its own
+                TrainConfig (AdamW, remat full) at seq 4096, batch 2 (the
+                train_4k global batch of 256 cut to what one card holds),
+                through ``launch/train.py``'s loop: one warm-up step, then 4
+                steps on one fixed batch, each with exactly its launches.
 
 Then a summary line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero before
 the last line. Needs one CUDA device; imports nothing of JAX.
 """
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -50,6 +63,20 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 CONSISTENCY_TOL = 2e-2
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 128, 64
 CONSISTENCY_PROMPT = 64
+# The train phase: train_4k's sequence (configs/base.py), its global batch of
+# 256 cut to 2 sequences, what one 80 GB card holds with fp32 AdamW moments.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 4
+TRAIN_CUT = "train_4k global batch 256 cut to 2 per card (one H100)"
+# Loss and grad norm of the card's train steps against the CPU's (fp32).
+TRAIN_TOL = 1e-4
+# The forward's lse (fp32 sums of the same exact products) against the plain
+# one: (atol, rtol), as tests/test_torch_cuda.py holds it.
+LSE_TOL = (1e-3, 1e-4)
+# ||got - want|| / ||want|| of each flash gradient. A sound bf16 kernel reads
+# about 3e-3 (bf16 P^T, dS^T and outputs); the same gradients from inputs
+# rounded to fp8 e4m3, the control, about 5e-2; the case fails unless the
+# kernel is under the limit and the control over it.
+GRAD_NORM_TOL = 1e-2
 SSM_CONSISTENCY_PROMPT = 512        # two chunks of 256
 SSM_FORWARD_LEN = 1024              # apply_lm after an ssm/hybrid serve run
 
@@ -127,6 +154,23 @@ def ssd_ops_s(BH: int, S: int, P: int, N: int, Q: int, bc_dtype: str,
     return min((recurrence, "recurrence"), (chunked, "chunked"))
 
 
+def timed_grads(torch, fwd, inputs, grad_out):
+    """Device time of the backward through ``fwd`` under autograd: forward
+    and backward together, less the forward alone, each by CUDA-graph
+    replay."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+
+    def both():
+        return torch.autograd.grad(fwd(*leaves), leaves, grad_out)
+
+    def forward():
+        with torch.no_grad():
+            return fwd(*leaves)
+
+    return (device_ms(torch, both, call_ms(torch, both))
+            - device_ms(torch, forward, call_ms(torch, forward)))
+
+
 def bound(nbytes: float, ops_s: float):
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_bytes, ops_s), ("bytes" if t_bytes >= ops_s else "operations")
@@ -146,8 +190,12 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch import bridge
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training import train as TR
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -181,11 +229,15 @@ def main() -> int:
 
     def check_case(kernel, case, dtype, run, plain, library, nbytes, flops=None,
                    ops_s=None, tol=None, extra_ok=True, route=None, record=None,
-                   **info):
+                   tols=None, judge=None, library_timer=None, **info):
         """``ops_s``: the least time for the operations; by default ``flops``
         at the peak rate of ``dtype``. ``route``: (read, expected) for a
         kernel with more than one route or path; ``record``: more fields of
-        the launch; both read just after the checked run."""
+        the launch; both read just after the checked run. Each output (a
+        backward's gradients, a forward's o and lse) is held to atol and
+        rtol ``tol``, or to the (atol, rtol) of its entry of ``tols``;
+        ``judge(outs, wants)`` returns more fields and an "ok" of its own;
+        ``library_timer`` times the library call (``timed_grads``)."""
         out = run()
         if route is not None:
             info["route"] = route[0]()
@@ -194,10 +246,22 @@ def main() -> int:
             info.update(record())
         want = plain()
         torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs().max().item()
+        outs, wants = ((out, want) if isinstance(out, tuple) else ((out,), (want,)))
         tol = tol or TOL[dtype]
-        ok = extra_ok and bool(torch.allclose(out.float(), want.float(),
-                                              atol=tol, rtol=tol))
+        tols = tols or [(tol, tol)] * len(outs)
+        errs = [(o.float() - w.float()).abs().max().item() for o, w in zip(outs, wants)]
+        err = max(errs)
+        ok = extra_ok and all(
+            bool(torch.allclose(o.float(), w.float(), atol=at, rtol=rt))
+            for o, w, (at, rt) in zip(outs, wants, tols))
+        if len(outs) > 1:
+            info["max_abs_err_each"] = errs
+            info["tol_each"] = tols
+        if judge is not None:
+            judged = judge(outs, wants)
+            ok = ok and judged.pop("ok")
+            info.update(judged)
+        del outs, wants, out, want
         bound_ms, bound_by = bound(
             nbytes, flops / PEAK_FLOPS[dtype] if ops_s is None else ops_s)
 
@@ -207,7 +271,10 @@ def main() -> int:
 
         kernel_ms, kernel_call_ms = timed(run)
         plain_ms, _ = timed(plain)
-        library_ms = None if library is None else timed(library)[0]
+        if library_timer is not None:
+            library_ms = library_timer()
+        else:
+            library_ms = None if library is None else timed(library)[0]
         rec = {"phase": "kernels", "kernel": kernel, "case": case,
                "dtype": dtype, **info, "max_abs_err": err, "tol": tol,
                "ok": ok, "kernel_ms": kernel_ms, "kernel_call_ms": kernel_call_ms,
@@ -216,8 +283,8 @@ def main() -> int:
         emit(rec)
         results[(kernel, case)] = rec
         if not ok:
-            fail(f"{kernel}/{case}: max abs err {err} (tolerance {tol}), "
-                 f"route {info.get('route')}")
+            fail(f"{kernel}/{case}: max abs err {err} (tolerance {tols}), "
+                 f"route {info.get('route')}, {info}")
 
     has_rms_norm = hasattr(F, "rms_norm")
     sdpa_gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
@@ -235,7 +302,8 @@ def main() -> int:
             ("ssm_gate_forward", SERVE_BATCH * SSM_FORWARD_LEN, 2048,
              "bfloat16", "bfloat16", warp),
             ("zamba2_shared_forward", SERVE_BATCH * SSM_FORWARD_LEN, 4096,
-             "bfloat16", "bfloat16", warp)]:
+             "bfloat16", "bfloat16", warp),
+            ("train_forward", TRAIN_BATCH * TRAIN_SEQ, 2048, "bfloat16", "bfloat16", warp)]:
         x = randn(R, D, dtype=dtype)
         s = 1.0 + 0.1 * randn(D, dtype=sdtype)
         s_lib = s.to(x.dtype)
@@ -252,7 +320,10 @@ def main() -> int:
                                             "vectors": rn.PLAN.vectors}},
                    shape=[R, D])
 
-    def attn_case(case, B, H, KH, Sq, Sk, D, Dv, dtype, causal, model_layout):
+    def attn_case(case, B, H, KH, Sq, Sk, D, Dv, dtype, causal, model_layout,
+                  lse=False):
+        """``lse``: the train path's forward, which also writes the rows'
+        logsumexp; o and lse are each held to the plain version's."""
         if model_layout:   # (B,S,heads,hd) transposed, as the model hands it over
             q = randn(B, Sq, H, D, dtype=dtype).transpose(1, 2)
             k = randn(B, Sk, KH, D, dtype=dtype).transpose(1, 2)
@@ -267,12 +338,17 @@ def main() -> int:
             lib_kw["enable_gqa"] = True
         library = (None if KH != H and not sdpa_gqa else
                    lambda: F.scaled_dot_product_attention(q, k, v, **lib_kw))
+        if lse:
+            run = lambda: fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+            tols = [(TOL[dtype], TOL[dtype]), LSE_TOL]
+        else:
+            run, tols = lambda: ops.flash_attention(q, k, v, causal=causal), None
         check_case(
-            "flash_attention", case, dtype,
-            lambda: ops.flash_attention(q, k, v, causal=causal),
-            lambda: ops.flash_attention_plain(q, k, v, causal=causal),
-            library, route=(lambda: fa.ROUTE, fa.ROUTES[dtypes[dtype]]),
-            nbytes=(q.numel() + k.numel() + v.numel() + B * H * Sq * Dv) * q.element_size(),
+            "flash_attention", case, dtype, run,
+            lambda: ops.flash_attention_plain(q, k, v, causal=causal, return_lse=lse),
+            library, route=(lambda: fa.ROUTE, fa.ROUTES[dtypes[dtype]]), tols=tols,
+            nbytes=((q.numel() + k.numel() + v.numel() + B * H * Sq * Dv) * q.element_size()
+                    + (4 * B * H * Sq if lse else 0)),
             flops=2 * B * H * pairs * (D + Dv),
             shape={"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "D": D,
                    "Dv": Dv}, causal=causal)
@@ -293,6 +369,8 @@ def main() -> int:
     # a decoder's cross-attention over a longer encoder output
     attn_case("sq_ne_sk_cross", SERVE_BATCH, 32, 32, SERVE_PROMPT, SSM_FORWARD_LEN,
               64, 64, "bfloat16", False, True)
+    attn_case("train_forward", TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 64, 64,
+              "bfloat16", True, True, lse=True)
 
     # the Pallas kernel's own contract: (BH, S, D)
     q3, k3, v3 = (randn(8, 256, 64, dtype="float32") for _ in range(3))
@@ -369,6 +447,85 @@ def main() -> int:
     emit(rec)
     if not rec["ok"]:
         fail("ssd_scan against reference_ssd failed")
+
+    # the backward kernels, against the plain backward versions
+    for case, R, D, dtype, sdtype in [
+            ("train_bwd", TRAIN_BATCH * TRAIN_SEQ, 2048, "bfloat16", "bfloat16"),
+            ("train_bwd_fp32", TRAIN_BATCH * TRAIN_SEQ, 2048, "float32", "float32"),
+            ("unaligned_dim_bwd", 77, 2050, "float32", "bfloat16")]:
+        x = randn(R, D, dtype=dtype)
+        s = 1.0 + 0.1 * randn(D, dtype=sdtype)
+        dy = randn(R, D, dtype=dtype)
+        s_lib = s.to(x.dtype)
+        library_timer = ((lambda x=x, s=s_lib, dy=dy: timed_grads(
+            torch, lambda a, b: F.rms_norm(a, (a.shape[1],), b, 1e-5), (x, s), dy))
+            if has_rms_norm else None)
+        check_case("rmsnorm_bwd", case, dtype,
+                   lambda x=x, s=s, dy=dy: rn.rmsnorm_bwd_cuda(x, s, dy),
+                   lambda x=x, s=s, dy=dy: ref.reference_rmsnorm_bwd(x, s, dy),
+                   None, library_timer=library_timer,
+                   # dscale sums R rows: its atol scales with sqrt(R)
+                   tols=[(TOL[dtype], TOL[dtype]), (TOL[dtype] * R ** 0.5, TOL[dtype])],
+                   nbytes=3 * x.numel() * x.element_size() + 2 * s.numel() * s.element_size(),
+                   ops_s=9 * R * D / PEAK_FLOPS["float32"], shape=[R, D],
+                   scale_dtype=sdtype, grid=rn.bwd_grid(R, torch.cuda.get_device_properties(
+                       cuda).multi_processor_count))
+
+    def attn_bwd_case(case, B, H, KH, S, D, dtype, causal):
+        """The model's layout: q, k, v transposed views of (B,S,heads,hd), do
+        a transposed view of the (B,S,H*hd) gradient. The kernel takes o and
+        lse from the kernel's forward, as in training; the plain backward
+        takes the plain forward's, so a wrong o or lse shows. Each gradient
+        is also held to ``GRAD_NORM_TOL`` by norm, against a control: the
+        plain gradients from q, k, v, do rounded to fp8. Bound: the five
+        products (2 Sq Sk D each, over the causal pairs) at the peak rate of
+        the inputs' type, or the bytes of q, k, v, o, do, lse read and dq,
+        dk, dv written."""
+        q = randn(B, S, H, D, dtype=dtype).transpose(1, 2)
+        k = randn(B, S, KH, D, dtype=dtype).transpose(1, 2)
+        v = randn(B, S, KH, D, dtype=dtype).transpose(1, 2)
+        do = randn(B, S, H * D, dtype=dtype).view(B, S, H, D).transpose(1, 2)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+
+        def plain_grads(q, k, v, do):
+            o_p, lse_p = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+            return ref.reference_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal)
+
+        def rel(got, want):
+            return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+        def judge(outs, wants):
+            fp8 = [t.to(torch.float8_e4m3fn).to(t.dtype) for t in (q, k, v, do)]
+            control = [rel(c, w) for c, w in zip(plain_grads(*fp8), wants)]
+            kernel = [rel(g, w) for g, w in zip(outs, wants)]
+            return {"want_median_abs": [w.float().abs().median().item() for w in wants],
+                    "rel_norm_err": kernel, "fp8_control_rel_norm_err": control,
+                    "rel_norm_tol": GRAD_NORM_TOL,
+                    "ok": (max(kernel) <= GRAD_NORM_TOL < min(control))}
+
+        o_p, lse_p = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        pairs = (S * (S + 1) // 2) if causal else S * S
+        lib_kw = {"is_causal": causal}
+        if KH != H:
+            lib_kw["enable_gqa"] = True
+        library_timer = (None if KH != H and not sdpa_gqa else lambda: timed_grads(
+            torch, lambda a, b, c: F.scaled_dot_product_attention(a, b, c, **lib_kw),
+            (q, k, v), do))
+        check_case(
+            "flash_attention_bwd", case, dtype,
+            lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal),
+            lambda: ref.reference_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal),
+            None, library_timer=library_timer, judge=judge,
+            nbytes=(2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel()
+                    + do.numel()) * q.element_size() + 4 * lse.numel(),
+            flops=5 * 2 * B * H * pairs * D,
+            shape={"B": B, "H": H, "KH": KH, "Sq": S, "Sk": S, "D": D, "Dv": D},
+            causal=causal)
+
+    attn_bwd_case("train_bwd", TRAIN_BATCH, 32, 32, TRAIN_SEQ, 64, "bfloat16", True)
+    attn_bwd_case("gqa_32q_8kv_hd128_bwd", 2, 32, 8, 1024, 128, "bfloat16", True)
+    attn_bwd_case("fp32_bwd", 1, 32, 32, 1024, 64, "float32", True)
+    attn_bwd_case("non_causal_ragged_bwd", 2, 8, 8, 1000, 64, "bfloat16", False)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase})
 
     # 4. consistency ----------------------------------------------------------
@@ -381,6 +538,11 @@ def main() -> int:
         lg_gpu, _ = T.apply_lm(T.init_lm(small, 1, device="cpu").to(cuda), small,
                                toks.to(cuda))
         return (lg_gpu.cpu() - lg_cpu).abs().max().item()
+
+    def every_kernel(counts):
+        """``counts`` with every kernel of ``ops.LAUNCHES`` that it does not
+        name at 0: a serving path launches no backward kernel."""
+        return {**{name: 0 for name in ops.LAUNCHES}, **counts}
 
     def decode_vs_forward(aid, prompt, expect):
         """Full width and depth in float32, batch 1: decode logits at every
@@ -416,7 +578,7 @@ def main() -> int:
                "forward_launches": fwd_launches, "expected_launches": expect}
         del params, caches, full, dec, outs
         torch.cuda.empty_cache()
-        return rec, ok and fwd_launches == expect, t_phase
+        return rec, ok and fwd_launches == every_kernel(expect), t_phase
 
     with torch.inference_mode():
         small_err = reduced_card_vs_cpu("stablelm-1.6b", 40, num_kv_heads=2)
@@ -441,6 +603,43 @@ def main() -> int:
               "seconds": time.perf_counter() - t_phase})
         if not ok:
             fail("mamba2-370m consistency phase failed")
+
+    def train_launches(n_layers):
+        """A train step's launches under remat "full": each layer's forward
+        kernels run again in the recompute; the final norm is outside it."""
+        return {"flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers,
+                "rmsnorm": 4 * n_layers + 1, "rmsnorm_bwd": 2 * n_layers + 1,
+                "ssd_scan": 0}
+
+    # a reduced stablelm trains on the card (kernels) as on the CPU (plain)
+    t_phase = time.perf_counter()
+    spec = get_arch("stablelm-1.6b")
+    small = reduced(spec.model).replace(num_layers=3, num_kv_heads=2,
+                                        param_dtype="float32", compute_dtype="float32")
+    cpu_state = TR.init_train_state(small, spec.train, 1, device="cpu")
+    card_state = bridge.state_from_jax(
+        bridge.unflatten(bridge.state_to_flat(cpu_state)), small, cuda)
+    step_fn = TR.make_train_step(small, spec.train)
+    rows, ok = [], True
+    for batch in synthetic_batches(2, 64, small.vocab_size, seed=1, n=3):
+        ops.reset_launches()
+        card_state, m_card = step_fn(card_state, TR.to_device(batch, cuda))
+        launches = dict(ops.LAUNCHES)
+        cpu_state, m_cpu = step_fn(cpu_state, TR.to_device(batch, "cpu"))
+        row = {k: [float(m_card[k]), float(m_cpu[k])] for k in ("loss", "grad_norm")}
+        row["launches"] = launches
+        ok = (ok and launches == train_launches(small.num_layers)
+              and all(abs(a - b) <= TRAIN_TOL * (1 + abs(b)) for a, b in
+                      (row["loss"], row["grad_norm"])))
+        rows.append(row)
+    emit({"phase": "consistency", "arch": "stablelm-1.6b (reduced: 3 layers, d_model 64, "
+          "4 heads on 2 KV heads)", "what": "train steps, card vs cpu", "dtype": "float32",
+          "remat": spec.train.remat, "steps": rows, "tol": TRAIN_TOL,
+          "expected_launches": train_launches(small.num_layers), "ok": ok,
+          "seconds": time.perf_counter() - t_phase})
+    if not ok:
+        fail("reduced stablelm train steps on the card differ from the CPU's")
+    del cpu_state, card_state
 
     # 5. serve: the main paths ------------------------------------------------
     def serve(aid, forward_len, per_pass):
@@ -472,8 +671,8 @@ def main() -> int:
         launches = dict(ops.LAUNCHES)
 
         steps = SERVE_PROMPT + SERVE_GEN - 1
-        expect = {k: n * (steps + 1 if k == "rmsnorm" else 1)
-                  for k, n in per_pass.items()}
+        expect = every_kernel({k: n * (steps + 1 if k == "rmsnorm" else 1)
+                               for k, n in per_pass.items()})
         tokens = torch.tensor(res.tokens)
         first_match = (tokens[:, 0] == logits[:, SERVE_PROMPT - 1].argmax(-1).cpu()
                        ).float().mean().item()
@@ -516,9 +715,62 @@ def main() -> int:
         "zamba2-1.2b", SSM_FORWARD_LEN,
         {"flash_attention": groups, "rmsnorm": 2 * n + 2 * groups + 1, "ssd_scan": n})
 
+    # 6. train: the training path --------------------------------------------
+    t_phase = time.perf_counter()
+    cfg, tcfg = launch_train.configs("stablelm-1.6b", full=True)
+    state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    batch = next(synthetic_batches(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, seed=0, n=1))
+    steps = []            # (host time after the step, its metrics, its launches)
+
+    def on_step(step, m):
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter(), float(m["loss"]), float(m["grad_norm"]),
+                      dict(ops.LAUNCHES)))
+        ops.reset_launches()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    launch_train.train_loop(state, TR.make_train_step(cfg, tcfg),
+                            iter([batch] * (1 + TRAIN_STEPS)), steps=1 + TRAIN_STEPS,
+                            device=cuda, log_every=0, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    timed_steps = steps[1:]                  # after the warm-up step
+    step_s = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
+    losses = [st[1] for st in timed_steps]
+    gnorms = [st[2] for st in timed_steps]
+    per_step = [st[3] for st in timed_steps]
+    expect = train_launches(cfg.num_layers)
+    train_total = {k: sum(ls[k] for ls in per_step) for k in expect}
+    finite = all(map(math.isfinite, losses + gnorms + [steps[0][1], steps[0][2]]))
+    ok = (finite and all(ls == expect for ls in per_step) and losses[-1] < losses[0]
+          and len(timed_steps) == TRAIN_STEPS)
+    emit({"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
+          "optimizer": tcfg.optimizer, "learning_rate": tcfg.learning_rate,
+          "remat": tcfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "reduced": TRAIN_CUT, "warmup_step": {"loss": steps[0][1],
+                                                "grad_norm": steps[0][2],
+                                                "launches": steps[0][3]},
+          "step_s": step_s, "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / t for t in step_s],
+          "max_memory_allocated_bytes": peak, "losses": losses, "grad_norms": gnorms,
+          "launches_per_step": per_step, "expected_launches_per_step": expect,
+          "ok": ok, "seconds": time.perf_counter() - t_phase})
+    if not ok:
+        fail(f"stablelm-1.6b train phase failed: losses {losses}, launches {per_step}, "
+             f"expected {expect} per step")
+    for name, n in expect.items():
+        if n and train_total[name] == 0:
+            fail(f"kernel {name} was never launched on the train path")
+    main_paths["stablelm-1.6b/train"] = train_total
+    del state
+    torch.cuda.empty_cache()
+
     # summary -----------------------------------------------------------------
     main_case = {"rmsnorm": "serve_decode", "flash_attention": "serve_forward",
-                 "ssd_scan": "mamba2_forward"}
+                 "ssd_scan": "mamba2_forward", "rmsnorm_bwd": "train_bwd",
+                 "flash_attention_bwd": "train_bwd"}
     meta = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:32"),
@@ -526,11 +778,17 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:102"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:76"),
+        # no TPU kernel: the JAX package differentiates its jnp model code
+        "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                        "src/repro/models/layers.py:51 (jax.grad of apply_rmsnorm)"),
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/models/attention.py:72 (jax.grad of "
+                                "blockwise_attention)"),
     }
     summary = []
     for name, (source, replaces) in meta.items():
         rec = results[(name, main_case[name])]
-        by_path = {aid: counts[name] for aid, counts in main_paths.items()}
+        by_path = {aid: counts.get(name, 0) for aid, counts in main_paths.items()}
         # which of the kernel's routes its main-path case ran
         extra = {"kernel_route": rec["route"]} if "route" in rec else {}
         summary.append({"name": name, "route": "cuda", **extra, "source": source,

@@ -10,7 +10,8 @@ Each variant is a CUDA source with the kernel's C entry point
 with ``-D`` flags, built by nvcc with the port's flags into
 ``build/variants/``. ``--legacy`` names the variants whose source has the
 earlier entry points: ``rmsnorm_fwd`` without the path, grid and vector
-arguments, ``ssd_scan_fwd`` without the two scratch tensors. An earlier
+arguments, ``ssd_scan_fwd`` without the two scratch tensors,
+``flash_attention_fwd_bf16`` without the lse pointer. An earlier
 source comes from git, e.g. ``git show <rev>:src/repro_torch/csrc/ssd_scan.cu
 > build/old/ssd_scan.cu``, made before the run where the card has no git.
 
@@ -18,8 +19,10 @@ The variants then run in ``--order`` (default: each once, then in reverse, so
 that drift on the card falls on both sides) at the main-path shapes:
 
 - flash: the stablelm serve forward (4,32,128,64), S 1024 at hd 64, the
-  zamba2 shared block (4,32,1024,128) and hd 256, causal, bf16, in the
-  model's transposed layout;
+  zamba2 shared block (4,32,1024,128), hd 256 and the stablelm train
+  forward (2,32,4096,64), causal, bf16, in the model's transposed layout,
+  without the lse output as serving runs them; and the train forward with
+  the lse output (``train_forward_lse``, not for a ``--legacy`` source);
 - rmsnorm: the decode and forward rows of ``chip_smoke.py``'s bf16 cases,
   with ``F.rms_norm``'s time on the same inputs in each turn;
 - ssd_scan: ``chip_smoke.py``'s cases (x fp32; B and C bf16, or fp32 for
@@ -40,8 +43,12 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 ENTRY = {"flash": "flash_attention_fwd_bf16", "rmsnorm": "rmsnorm_fwd",
          "ssd_scan": "ssd_scan_fwd"}
-FLASH_SHAPES = {"serve_forward": (4, 32, 128, 64), "s1024": (4, 32, 1024, 64),
-                "zamba2_forward": (4, 32, 1024, 128), "hd256": (2, 16, 1024, 256)}
+# (B, H, S, hd, lse written)
+FLASH_SHAPES = {"serve_forward": (4, 32, 128, 64, False), "s1024": (4, 32, 1024, 64, False),
+                "zamba2_forward": (4, 32, 1024, 128, False),
+                "hd256": (2, 16, 1024, 256, False),
+                "train_forward": (2, 32, 4096, 64, False),
+                "train_forward_lse": (2, 32, 4096, 64, True)}
 RMSNORM_SHAPES = {"serve_decode": (4, 2048), "serve_forward": (512, 2048),
                   "ragged_rows": (1000, 2048), "mamba2_decode": (4, 1024),
                   "mamba2_forward": (4096, 1024), "ssm_gate_forward": (4096, 2048),
@@ -56,21 +63,27 @@ SSD_SHAPES = {"mamba2_forward": (4, 1024, 32, 1, 64, 128, 256, "bfloat16", 1.0),
               "pallas_contract": (8, 512, 1, 1, 64, 128, 64, "bfloat16", 1.0)}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 LEGACY_SIGNATURES = {"rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
-                     "ssd_scan_fwd": [_P] * 6 + [_I] * 7 + [_L] * 12 + [_I, _P]}
+                     "ssd_scan_fwd": [_P] * 6 + [_I] * 7 + [_L] * 12 + [_I, _P],
+                     "flash_attention_fwd_bf16": [_P] * 4 + [_I] * 7 + [_L] * 9
+                     + [_F, _I, _I, _I, _P]}
 
 
 def flash_cases(torch, gen, cuda):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     cases = {}
-    for case, (B, H, S, D) in FLASH_SHAPES.items():
+    for case, (B, H, S, D, with_lse) in FLASH_SHAPES.items():
         q, k, v = (torch.randn((B, S, H, D), generator=gen, device=cuda).bfloat16()
                    .transpose(1, 2) for _ in range(3))
         o = torch.empty((B, H, S, D), dtype=q.dtype, device=cuda)
+        lse = torch.empty((B, H, S), device=cuda) if with_lse else None
 
-        def make(fn, legacy, q=q, k=k, v=v, o=o, B=B, H=H, S=S, D=D):
+        def make(fn, legacy, q=q, k=k, v=v, o=o, lse=lse, B=B, H=H, S=S, D=D):
+            if legacy and lse is not None:
+                return None                      # the earlier source writes no lse
+            out = () if legacy else (None if lse is None else lse.data_ptr(),)
             return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                              B, H, H, S, S, D, D, *fa._strides(q), *fa._strides(k),
+                              *out, B, H, H, S, S, D, D, *fa._strides(q), *fa._strides(k),
                               *fa._strides(v), D ** -0.5, 1, *fa.bf16_tile(D, D),
                               torch.cuda.current_stream().cuda_stream)
 
@@ -186,6 +199,9 @@ def main(argv=None) -> int:
         row = {"turn": turn, "variant": name}
         for case, (make, result, plain, library) in cases.items():
             run = make(fn, name in legacy)
+            if run is None:
+                row[case] = "n/a: not in this source's entry point"
+                continue
             code = run()
             torch.cuda.synchronize()
             if code:

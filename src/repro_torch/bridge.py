@@ -11,11 +11,19 @@ unstacked and restacked: ``layers/*`` (dense, ssm) and ``leftover/*``
 ``shared/*`` and the other leaves pass as they are. bfloat16 leaves pass
 through float32, which is exact, because ``torch.from_numpy`` rejects
 numpy's bfloat16 extension type.
+
+Train states: ``state_from_jax`` takes the JAX ``init_train_state`` tree
+(``params``, ``opt/mu``, ``opt/nu``, ``opt/count``, ``step``) as numpy and
+returns the port's (``training/train.py``), its params requiring grad and
+its moments keyed by parameter name; ``state_to_numpy`` gives the reverse.
+``state_to_flat`` and ``load_flat`` serve the checkpoints: ``{JAX path:
+CPU tensor}`` in the stacked layout with each dtype kept, and back into a
+state in place.
 """
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +47,8 @@ def flatten(tree, prefix: str = "") -> Dict[str, Any]:
 
 
 def _to_torch(a, device, dtype) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device=device, dtype=dtype or a.dtype, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -128,27 +138,112 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _jax_key(name: str) -> Tuple[str, Tuple[int, ...]]:
+    """A port parameter name -> (its JAX path, its index on the stacked
+    axes): ``layers.3.attn.wq`` -> (``layers/attn/wq``, (3,))."""
+    parts = name.split(".")
+    depth = 1
+    while depth < len(parts) and parts[depth].isdigit():
+        depth += 1
+    if depth == 1:
+        return "/".join(parts), ()
+    return ("/".join([parts[0]] + parts[depth:]),
+            tuple(int(i) for i in parts[1:depth]))
+
+
+def _stacked(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """(port name, tensor) pairs -> {JAX path: CPU tensor}, the layer lists
+    restacked on as many leading axes as they are nested deep, dtype kept."""
+    out: Dict[str, torch.Tensor] = {}
+    stacked: Dict[str, Dict[tuple, torch.Tensor]] = {}
+    for name, t in named:
+        path, idx = _jax_key(name)
+        t = t.detach().to("cpu", copy=True)
+        if idx:
+            stacked.setdefault(path, {})[idx] = t
+        else:
+            out[path] = t
+    for path, per_index in stacked.items():
+        shape = tuple(max(ix) + 1 for ix in zip(*per_index))
+        t = torch.stack([per_index[ix] for ix in itertools.product(*map(range, shape))])
+        out[path] = t.reshape(shape + tuple(t.shape[1:]))
+    return out
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{"a/b/c": leaf} -> nested dicts, the inverse of ``flatten``."""
+    out: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        _insert(out, path.split("/"), leaf)
+    return out
+
+
 def params_to_numpy(params: nn.Module) -> Dict[str, Any]:
     """The port's parameters -> the JAX tree layout, with numpy leaves.
 
     Layer lists are restacked on as many leading axes as they are nested
     deep. bfloat16 tensors come back as float32 arrays holding the same values.
     """
-    out: Dict[str, Any] = {}
-    stacked: Dict[tuple, Dict[tuple, np.ndarray]] = {}
-    for name, p in params.named_parameters():
-        parts = name.split(".")
-        depth = 1
-        while depth < len(parts) and parts[depth].isdigit():
-            depth += 1
-        if depth == 1:
-            _insert(out, parts, _to_numpy(p))
-        else:                             # <list>.<i>[.<j>].<path>
-            key = (parts[0], "/".join(parts[depth:]))
-            idx = tuple(int(i) for i in parts[1:depth])
-            stacked.setdefault(key, {})[idx] = _to_numpy(p)
-    for (top, path), per_index in stacked.items():
-        shape = tuple(max(ix) + 1 for ix in zip(*per_index))
-        arr = np.stack([per_index[ix] for ix in itertools.product(*map(range, shape))])
-        _insert(out, [top] + path.split("/"), arr.reshape(shape + arr.shape[1:]))
-    return out
+    return unflatten({k: _to_numpy(t)
+                      for k, t in _stacked(params.named_parameters()).items()})
+
+
+def state_to_flat(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A port train state -> {JAX path: CPU tensor} in the JAX tree's stacked
+    layout, each leaf copied and its dtype kept."""
+    flat = {f"params/{k}": t
+            for k, t in _stacked(state["params"].named_parameters()).items()}
+    for moment in ("mu", "nu"):
+        flat.update({f"opt/{moment}/{k}": t
+                     for k, t in _stacked(state["opt"][moment].items()).items()})
+    flat["opt/count"] = state["opt"]["count"].detach().to("cpu", copy=True)
+    flat["step"] = state["step"].detach().to("cpu", copy=True)
+    return flat
+
+
+def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A port train state -> the JAX train-state tree with numpy leaves
+    (bfloat16 as float32 holding the same values)."""
+    return unflatten({k: _to_numpy(t) for k, t in state_to_flat(state).items()})
+
+
+def state_from_jax(np_state, cfg, device: dev.DeviceLike = "cuda",
+                   dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The JAX train-state tree (numpy or torch leaves) -> the port's train
+    state on ``device``: params as ``params_from_jax`` makes them (``dtype``
+    as there), requiring grad; fp32 moments keyed by parameter name; int32
+    count and step."""
+    d = dev.resolve(device)
+    params = params_from_jax(np_state["params"], cfg, d, dtype)
+    params.requires_grad_(True)
+    opt = {m: {k: p.detach() for k, p in
+               params_from_jax(np_state["opt"][m], cfg, d).named_parameters()}
+           for m in ("mu", "nu")}
+    opt["count"] = _to_torch(np_state["opt"]["count"], d, torch.int32)
+    return {"params": params, "opt": opt,
+            "step": _to_torch(np_state["step"], d, torch.int32)}
+
+
+@torch.no_grad()
+def load_flat(state: Dict[str, Any], flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Copies {JAX path: leaf} (the stacked layout of ``state_to_flat``) into
+    ``state``'s tensors in place; returns ``state``."""
+    def put(dst: torch.Tensor, key: str, idx: tuple) -> None:
+        if key not in flat:
+            raise KeyError(f"{key} is not in the checkpoint")
+        src = torch.as_tensor(flat[key])[idx] if idx else torch.as_tensor(flat[key])
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{key}{list(idx)}: {tuple(src.shape)} does not fit "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src)
+
+    for name, p in state["params"].named_parameters():
+        path, idx = _jax_key(name)
+        put(p, f"params/{path}", idx)
+    for moment in ("mu", "nu"):
+        for name, t in state["opt"][moment].items():
+            path, idx = _jax_key(name)
+            put(t, f"opt/{moment}/{path}", idx)
+    put(state["opt"]["count"], "opt/count", ())
+    put(state["step"], "step", ())
+    return state

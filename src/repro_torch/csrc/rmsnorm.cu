@@ -30,6 +30,25 @@
 //   warps' sums added through shared memory.
 // - scalar (D or a pointer does not allow 16-byte accesses): one block per
 //   row, element by element, the row staged in shared memory as fp32.
+//
+// Backward (rmsnorm_bwd): the JAX package differentiates the jnp model code
+// (src/repro/models/layers.py::apply_rmsnorm) and has no backward kernel;
+// this one is the port's own, for training. With g = dy * scale, rstd
+// recomputed from x (the forward saves nothing), and x_hat = x * rstd:
+//     dx     = rstd * (g - x_hat * mean(x_hat * g))
+//            = rstd * g - x * (rstd^3 * sum(x * g) / D)
+//     dscale = sum over rows of dy * x_hat
+// Bound by bytes like the forward: x and dy read, dx written (6*R*D bytes
+// in bf16). Two launches, no atomics, so dscale is the same run to run:
+//  1. rows: a block of 256 threads per row, a grid-stride loop over rows
+//     with the grid sized to the SMs (kernels/rmsnorm.py::bwd_grid). One
+//     pass over the row sums x^2 and x*g (reduced by warp shuffles and
+//     shared memory), a second writes dx (its reads hit L1/L2). Each block
+//     adds dy * x_hat into an fp32 dscale partial in shared memory, each
+//     thread its own columns, and writes it to `partials` (grid x D).
+//  2. scale: a block of 32 columns x 8 slices sums the partials over the
+//     blocks in a fixed order and writes dscale in scale's type.
+// Plain scalar accesses; a vector path is left for a later PR.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -269,7 +288,122 @@ cudaError_t launch(const void* x, const void* scale, void* out, int rows,
   return dispatch_vpt<TX, TS, kRowBlock>(xp, sp, op, rows, dim, eps, grid, vpt, stream);
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;
+constexpr int kScaleCols = 32;      // dscale reduction: columns per block
+constexpr int kScaleSlices = 8;     // and slices of the partials' rows
+
+template <typename TX, typename TS>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_rows_kernel(const TX* __restrict__ x, const TS* __restrict__ scale,
+                        const TX* __restrict__ dy, TX* __restrict__ dx,
+                        float* __restrict__ partials, int rows, int dim, float eps) {
+  extern __shared__ float dsc[];                  // dim fp32: this block's partial
+  __shared__ float red[2][kBwdThreads / 32];
+  for (int c = threadIdx.x; c < dim; c += kBwdThreads) dsc[c] = 0.f;
+
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int64_t base = static_cast<int64_t>(row) * dim;
+    float ss = 0.f, sxg = 0.f;
+    for (int c = threadIdx.x; c < dim; c += kBwdThreads) {
+      const float xv = to_f(x[base + c]);
+      const float g = to_f(dy[base + c]) * to_f(scale[c]);
+      ss = fmaf(xv, xv, ss);
+      sxg = fmaf(xv, g, sxg);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      sxg += __shfl_xor_sync(0xffffffffu, sxg, o);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      red[0][threadIdx.x >> 5] = ss;
+      red[1][threadIdx.x >> 5] = sxg;
+    }
+    __syncthreads();
+    ss = 0.f;
+    sxg = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdThreads / 32; ++w) {
+      ss += red[0][w];
+      sxg += red[1][w];
+    }
+    __syncthreads();                               // red is rewritten for the next row
+    const float rstd = rsqrtf(ss / static_cast<float>(dim) + eps);
+    const float coef = rstd * rstd * rstd * sxg / static_cast<float>(dim);
+    for (int c = threadIdx.x; c < dim; c += kBwdThreads) {
+      const float xv = to_f(x[base + c]);
+      const float dyv = to_f(dy[base + c]);
+      dx[base + c] = from_f<TX>(rstd * dyv * to_f(scale[c]) - xv * coef);
+      dsc[c] = fmaf(dyv, xv * rstd, dsc[c]);
+    }
+  }
+  float* part = partials + static_cast<int64_t>(blockIdx.x) * dim;
+  for (int c = threadIdx.x; c < dim; c += kBwdThreads) part[c] = dsc[c];
+}
+
+template <typename TS>
+__global__ void __launch_bounds__(kScaleCols * kScaleSlices)
+rmsnorm_bwd_scale_kernel(const float* __restrict__ partials, int nparts, int dim,
+                         TS* __restrict__ dscale) {
+  __shared__ float sums[kScaleSlices][kScaleCols];
+  const int c = blockIdx.x * kScaleCols + threadIdx.x;
+  float acc = 0.f;
+  if (c < dim)
+    for (int b = threadIdx.y; b < nparts; b += kScaleSlices)
+      acc += partials[static_cast<int64_t>(b) * dim + c];
+  sums[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < dim) {
+    float total = 0.f;
+#pragma unroll
+    for (int y = 0; y < kScaleSlices; ++y) total += sums[y][threadIdx.x];
+    dscale[c] = from_f<TS>(total);
+  }
+}
+
+template <typename TX, typename TS>
+cudaError_t launch_bwd(const void* x, const void* scale, const void* dy, void* dx,
+                       float* partials, void* dscale, int rows, int dim, float eps,
+                       int grid, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(dim) * sizeof(float);   // up to 32 KB
+  rmsnorm_bwd_rows_kernel<TX, TS><<<grid, kBwdThreads, smem, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TS*>(scale), static_cast<const TX*>(dy),
+      static_cast<TX*>(dx), partials, rows, dim, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  rmsnorm_bwd_scale_kernel<TS><<<(dim + kScaleCols - 1) / kScaleCols,
+                                 dim3(kScaleCols, kScaleSlices), 0, stream>>>(
+      partials, grid, dim, static_cast<TS*>(dscale));
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Backward. dy and dx have x's type, dscale scale's; `partials` is an fp32
+// scratch of grid x dim. rows may be 0 (dscale is then zero). Returns a
+// cudaError_t as int.
+extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
+                           void* partials, void* dscale, int rows, int dim, float eps,
+                           int x_dtype, int scale_dtype, int grid, void* stream) {
+  if (dim < 1 || dim > kMaxDim || rows < 0 || grid < 1 || x_dtype < 0 || x_dtype > 1 ||
+      scale_dtype < 0 || scale_dtype > 1) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partials);
+  if (x_dtype == 0 && scale_dtype == 0)
+    return launch_bwd<float, float>(x, scale, dy, dx, part, dscale, rows, dim, eps, grid, s);
+  if (x_dtype == 0 && scale_dtype == 1)
+    return launch_bwd<float, __nv_bfloat16>(x, scale, dy, dx, part, dscale, rows, dim, eps, grid, s);
+  if (x_dtype == 1 && scale_dtype == 0)
+    return launch_bwd<__nv_bfloat16, float>(x, scale, dy, dx, part, dscale, rows, dim, eps, grid, s);
+  return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, scale, dy, dx, part, dscale, rows, dim,
+                                                  eps, grid, s);
+}
 
 // dtype codes: 0 = float32, 1 = bfloat16. path: 0 warp_per_row,
 // 1 block_per_row, 2 scalar; `grid` and `vpt` (16-byte vectors per thread)

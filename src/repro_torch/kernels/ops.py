@@ -6,19 +6,27 @@ no fallback from one to the other: a CUDA tensor the kernel cannot take
 raises. ``LAUNCHES`` counts kernel launches, one per call that launched,
 and nothing else, so a run can show that its path went through the kernels.
 
-The kernels have no backward yet (it comes with the training slice), so a
-CUDA call that autograd would need to differentiate raises.
+``rmsnorm`` always, and ``flash_attention`` where an input requires grad
+(and grad is enabled), go through ``torch.autograd.Function``s whose
+backward is a kernel too: ``_RMSNormFn`` saves x and scale and launches
+``rmsnorm_bwd``; ``_FlashAttentionFn`` saves q, k, v, o and the forward's
+lse and launches ``flash_attention_bwd`` (without grad the forward skips the
+lse output). Each backward call counts one in
+``LAUNCHES`` under its own name. On the CPU the same Functions run the plain
+forward and backward versions of ``ref.py``. ``ssd_scan`` has no backward
+kernel yet: a CUDA call that autograd would differentiate raises.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
-LAUNCHES = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0,
+            "rmsnorm_bwd": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -33,34 +41,85 @@ def _on_card(*ts: torch.Tensor) -> bool:
     if kinds != {"cuda"}:
         raise RuntimeError(f"tensors on {sorted(kinds)}: the kernels take "
                            "CUDA tensors and the plain versions CPU tensors")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "the CUDA kernels have no backward yet; call them under "
-            "torch.no_grad() or torch.inference_mode()")
     return True
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _RMSNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        if _on_card(x, scale):
+            out = rmsnorm_cuda(x, scale, eps)
+            LAUNCHES["rmsnorm"] += 1
+            return out
+        return ref.reference_rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dy = dy.contiguous()
+        if _on_card(x, scale, dy):
+            dx, dscale = rmsnorm_bwd_cuda(x, scale, dy, ctx.eps)
+            LAUNCHES["rmsnorm_bwd"] += 1
+        else:
+            dx, dscale = ref.reference_rmsnorm_bwd(x, scale, dy, ctx.eps)
+        return dx, dscale, None
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-5) -> torch.Tensor:
     """x: (R, D); scale: (D,). Returns (R, D) in x.dtype, fp32 math."""
-    if _on_card(x, scale):
-        out = rmsnorm_cuda(x, scale, eps)
-        LAUNCHES["rmsnorm"] += 1
-        return out
-    return ref.reference_rmsnorm(x, scale, eps)
+    return _RMSNormFn.apply(x, scale, eps)
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True):
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          return_lse: bool = False):
     """The plain version of ``flash_attention`` in the 4-D model layout, on
-    any device: K/V heads repeated for GQA, then ``ref.reference_attention``."""
+    any device: K/V heads repeated for GQA, then ``ref.reference_attention``.
+    ``return_lse`` also returns the (B, H, Sq) fp32 logsumexp."""
     B, H, Sq, D = q.shape
     KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     k = k.repeat_interleave(H // KH, dim=1)
     v = v.repeat_interleave(H // KH, dim=1)
     o = ref.reference_attention(q.reshape(B * H, Sq, D),
                                 k.reshape(B * H, Sk, D),
-                                v.reshape(B * H, Sk, Dv), causal=causal)
+                                v.reshape(B * H, Sk, Dv), causal=causal,
+                                return_lse=return_lse)
+    if return_lse:
+        return o[0].reshape(B, H, Sq, Dv), o[1].reshape(B, H, Sq)
     return o.reshape(B, H, Sq, Dv)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if _on_card(q, k, v):
+            fa.plan_bwd(q, k, v)          # refuse before the forward runs
+            o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+            LAUNCHES["flash_attention"] += 1
+        else:
+            o, lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if _on_card(q, k, v, do):
+            if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not fa.rows_16b(do)):
+                do = do.contiguous()              # a layout the kernel reads by rows
+            grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, ctx.causal)
+            LAUNCHES["flash_attention_bwd"] += 1
+        else:
+            grads = ref.reference_attention_bwd(q, k, v, o, lse, do,
+                                                causal=ctx.causal)
+        return (*grads, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -74,8 +133,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     three_d = q.dim() == 3
     if three_d:
         q, k, v = q[:, None], k[:, None], v[:, None]
-    if _on_card(q, k, v):
-        o = flash_attention_cuda(q, k, v, causal)
+    if _needs_grad(q, k, v):
+        o = _FlashAttentionFn.apply(q, k, v, causal)
+    elif _on_card(q, k, v):
+        o = fa.flash_attention_cuda(q, k, v, causal)
         LAUNCHES["flash_attention"] += 1
     else:
         o = flash_attention_plain(q, k, v, causal=causal)
@@ -135,6 +196,11 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     if Q < 1 or S % Q:
         raise ValueError(f"chunk {Q} must divide the sequence length {S}")
     if _on_card(x, dA, Bm, Cm):
+        if _needs_grad(x, dA, Bm, Cm):
+            raise NotImplementedError(
+                "ssd_scan has no backward kernel yet: it comes with the ssm "
+                "training slice; call it under torch.no_grad() or "
+                "torch.inference_mode()")
         # the kernel takes x in fp32, as the model hands it over
         y, state = ssd_scan_cuda(x.float(), dA, Bm, Cm, Q, return_state)
         y = y.to(x.dtype)

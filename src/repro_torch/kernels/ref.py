@@ -1,17 +1,22 @@
 """Plain PyTorch oracles for the port's kernels (the allclose ground truth).
 
-Torch copies of ``repro/kernels/ref.py``. The CPU path of every wrapper in
-``ops.py`` runs these, and ``chip_smoke.py`` holds each CUDA kernel against
-them on the card. ``reference_ssd`` is the sequential recurrence, independent
-of both the chunked plain version (``ops.ssd_scan_plain``) and the kernel.
+Torch copies of ``repro/kernels/ref.py``, and the plain backward versions the
+JAX package leaves to autodiff (``reference_rmsnorm_bwd``,
+``reference_attention_bwd``). The CPU path of every wrapper in ``ops.py``
+runs these, and ``chip_smoke.py`` holds each CUDA kernel against them on
+the card. ``reference_ssd`` is the sequential recurrence, independent of
+both the chunked plain version (``ops.ssd_scan_plain``) and the kernel.
 """
 from __future__ import annotations
 
 import torch
 
 
-def reference_attention(q, k, v, *, causal: bool = True, scale=None):
-    """q,k: (BH, Sq/Sk, D), v: (BH, Sk, Dv) -> (BH, Sq, Dv). Full softmax."""
+def reference_attention(q, k, v, *, causal: bool = True, scale=None,
+                        return_lse: bool = False):
+    """q,k: (BH, Sq/Sk, D), v: (BH, Sk, Dv) -> (BH, Sq, Dv). Full softmax.
+    ``return_lse`` also returns the rows' fp32 logsumexp of the scaled,
+    masked scores, (BH, Sq), in natural-log units."""
     Sq, Sk = q.shape[1], k.shape[1]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
@@ -19,7 +24,50 @@ def reference_attention(q, k, v, *, causal: bool = True, scale=None):
         mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device).tril()
         s = torch.where(mask[None], s, torch.full_like(s, -1e30))
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+    o = torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
+
+
+# Keys per block of ``reference_attention_bwd``: bounds its fp32 scores.
+ATTN_BWD_BLOCK = 1024
+
+
+def reference_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
+    """Gradients of attention with scale D^-0.5, by the FA2 recurrence over
+    key blocks of ``ATTN_BWD_BLOCK``, in the model layout with GQA: q (B,H,Sq,D), k
+    (B,KH,Sk,D), v (B,KH,Sk,Dv), o and do (B,H,Sq,Dv), lse (B,H,Sq) fp32 in
+    natural-log units. With P = exp(S*scale - lse) and D = rowsum(dO o O):
+    dV = P^T dO, dS = P o (dO V^T - D), dQ = dS K * scale, dK = dS^T Q * scale,
+    dK and dV summed over the H/KH query heads of each KV head. A row with no
+    valid key (lse = -inf) gets zero gradients. fp32 math; returns (dq, dk,
+    dv) in the inputs' dtypes.
+    """
+    B, H, Sq, D = q.shape
+    KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // KH
+    scale = D ** -0.5
+    q32 = q.float().reshape(B, KH, G, Sq, D)
+    do32 = do.float().reshape(B, KH, G, Sq, Dv)
+    delta = (do32 * o.float().reshape(B, KH, G, Sq, Dv)).sum(-1)
+    lse = lse.float().reshape(B, KH, G, Sq)
+    lse = torch.where(torch.isneginf(lse), torch.full_like(lse, float("inf")), lse)
+    qpos = torch.arange(Sq, device=q.device)
+    dq = torch.zeros_like(q32)
+    dks, dvs = [], []
+    block = ATTN_BWD_BLOCK
+    for s0 in range(0, Sk, block):
+        kb, vb = k[:, :, s0:s0 + block].float(), v[:, :, s0:s0 + block].float()
+        s = torch.einsum("bkgqd,bksd->bkgqs", q32, kb) * scale
+        p = torch.exp(s - lse[..., None])
+        if causal:
+            kpos = torch.arange(s0, s0 + kb.shape[2], device=q.device)
+            p = torch.where(qpos[:, None] >= kpos[None], p, torch.zeros_like(p))
+        dvs.append(torch.einsum("bkgqs,bkgqe->bkse", p, do32))
+        ds = p * (torch.einsum("bkgqe,bkse->bkgqs", do32, vb) - delta[..., None])
+        dq += torch.einsum("bkgqs,bksd->bkgqd", ds, kb) * scale
+        dks.append(torch.einsum("bkgqs,bkgqd->bksd", ds, q32) * scale)
+    return (dq.reshape(B, H, Sq, D).to(q.dtype), torch.cat(dks, 2).to(k.dtype),
+            torch.cat(dvs, 2).to(v.dtype))
 
 
 def reference_ssd(x, dA, Bm, Cm):
@@ -46,6 +94,21 @@ def reference_rmsnorm(x, scale, eps: float = 1e-5):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def reference_rmsnorm_bwd(x, scale, dy, eps: float = 1e-5):
+    """Gradients of ``reference_rmsnorm`` for x (..., D), in fp32 math:
+    dx = rstd * (g - x_hat * mean(x_hat * g)) with g = dy * scale and
+    x_hat = x * rstd; dscale = the sum over rows of dy * x_hat. Returns dx in
+    x's dtype and dscale in scale's."""
+    D = x.shape[-1]
+    x32 = x.float().reshape(-1, D)
+    dy32 = dy.float().reshape(-1, D)
+    rstd = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = x32 * rstd
+    g = dy32 * scale.float()
+    dx = rstd * (g - xhat * (xhat * g).mean(dim=-1, keepdim=True))
+    return dx.reshape(x.shape).to(x.dtype), (dy32 * xhat).sum(0).to(scale.dtype)
 
 
 def ssd_chunk_passes(x, dA, Bm, Cm, *, chunk: int):

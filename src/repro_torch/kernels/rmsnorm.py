@@ -17,6 +17,10 @@ kernel's three paths and its launch shape, on any device:
 
 The plain version is ``ref.reference_rmsnorm``; ``ops.rmsnorm`` picks
 between them. ``PLAN`` is the plan of the last launch.
+
+``rmsnorm_bwd_cuda`` launches the backward (``rmsnorm_bwd``): dx per row,
+and dscale in two deterministic stages, per-block fp32 partials over a grid
+of ``bwd_grid`` blocks, then a reduction over the blocks in a fixed order.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ FEW_ROWS_PER_SM = 2
 # --blocks-per-sm).
 BLOCKS_PER_SM = {True: 2, False: 4}
 PREFETCH_MAX_VECTORS = 8
+BWD_BLOCKS_PER_SM = 2          # the backward's row blocks, each holding a dscale partial
 
 
 @dataclass(frozen=True)
@@ -109,3 +114,40 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     build.check(code, "rmsnorm_fwd")
     PLAN = p
     return out
+
+
+def bwd_grid(R: int, sms: int = H100_SMS) -> int:
+    """Row blocks of the backward: each takes rows blockIdx, + grid, ..."""
+    return max(1, min(R, sms * BWD_BLOCKS_PER_SM))
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-5):
+    """x, dy: (R, D) on a CUDA device, dy in x's dtype; scale: (D,). Returns
+    (dx in x.dtype, dscale in scale.dtype); rstd is recomputed from x."""
+    if x.dim() != 2 or scale.shape != (x.shape[1],) or dy.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd takes x and dy (R, D) and scale (D,), got "
+                         f"{tuple(x.shape)}, {tuple(dy.shape)} and {tuple(scale.shape)}")
+    if x.dtype not in build.DTYPE_CODE or scale.dtype not in build.DTYPE_CODE:
+        raise TypeError(f"rmsnorm_bwd takes float32/bfloat16, got {x.dtype}, {scale.dtype}")
+    if dy.dtype != x.dtype:
+        raise TypeError(f"dy must be {x.dtype}, got {dy.dtype}")
+    if not (x.is_cuda and scale.device == x.device and dy.device == x.device):
+        raise ValueError("rmsnorm_bwd_cuda needs x, scale and dy on one CUDA device")
+    if not (x.is_contiguous() and scale.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("rmsnorm_bwd_cuda needs contiguous x, scale and dy")
+    R, D = x.shape
+    if not 1 <= D <= MAX_DIM:
+        raise ValueError(f"rmsnorm_bwd_cuda takes 1 <= D <= {MAX_DIM}, got {D}")
+    grid = bwd_grid(R, _sms(x.device.index))
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    partials = torch.empty((grid, D), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = build.library().lib.rmsnorm_bwd(
+            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            partials.data_ptr(), dscale.data_ptr(), R, D, float(eps),
+            build.DTYPE_CODE[x.dtype], build.DTYPE_CODE[scale.dtype], grid,
+            build.stream_handle(x.device))
+    build.check(code, "rmsnorm_bwd")
+    return dx, dscale

@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch import device as dev
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -101,8 +102,9 @@ def apply_attention_full(p, cfg, x, positions):
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device="cpu"):
+                  device: dev.DeviceLike = "cuda"):
     hd, KH = cfg.head_dim, cfg.num_kv_heads
+    device = dev.resolve(device)
     return {"k": torch.zeros((batch, KH, max_len, hd), dtype=dtype, device=device),
             "v": torch.zeros((batch, KH, max_len, hd), dtype=dtype, device=device)}
 

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import device as dev
 from repro_torch.kernels import ops
 
 
@@ -48,9 +49,10 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
 # norms
 # ---------------------------------------------------------------------------
 
-def init_rmsnorm(dim: int, dtype=torch.float32, device="cpu") -> nn.ParameterDict:
-    return nn.ParameterDict({"scale": _param(torch.ones(dim, dtype=dtype,
-                                                        device=device))})
+def init_rmsnorm(dim: int, dtype=torch.float32,
+                 device: dev.DeviceLike = "cuda") -> nn.ParameterDict:
+    return nn.ParameterDict({"scale": _param(torch.ones(
+        dim, dtype=dtype, device=dev.resolve(device)))})
 
 
 def apply_rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import device as dev
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -36,14 +37,14 @@ def init_ssm(gen: torch.Generator, cfg, dtype=torch.float32) -> nn.ParameterDict
     D = cfg.d_model
     d_in, H, G, N = dims(cfg)
     K = cfg.ssm_conv
-    dev = gen.device
+    where = gen.device
 
     def conv(width):
-        w = torch.randn((K, width), generator=gen, dtype=torch.float32, device=dev)
+        w = torch.randn((K, width), generator=gen, dtype=torch.float32, device=where)
         return L._param((w * 0.1).to(dtype))
 
     def f32(fill):
-        return L._param(torch.full((H,), fill, dtype=torch.float32, device=dev))
+        return L._param(torch.full((H,), fill, dtype=torch.float32, device=where))
 
     return nn.ParameterDict({
         "in_z": L._param(L.dense_init(gen, D, d_in, dtype)),
@@ -57,7 +58,7 @@ def init_ssm(gen: torch.Generator, cfg, dtype=torch.float32) -> nn.ParameterDict
         "conv_C": conv(G * N),
         "A_log": f32(0.0),                               # A = -exp(A_log) = -1
         "D_skip": f32(1.0),
-        "gate_norm": L.init_rmsnorm(d_in, dtype, dev),
+        "gate_norm": L.init_rmsnorm(d_in, dtype, where),
         "out": L._param(L.dense_init(gen, d_in, D, dtype)),
     })
 
@@ -108,8 +109,10 @@ def apply_ssm_full(p, cfg, x: torch.Tensor) -> torch.Tensor:
     return y @ p["out"].to(dt_)
 
 
-def init_ssm_cache(cfg, batch: int, dtype=torch.float32, device="cpu"):
+def init_ssm_cache(cfg, batch: int, dtype=torch.float32,
+                   device: dev.DeviceLike = "cuda"):
     d_in, H, G, N = dims(cfg)
+    device = dev.resolve(device)
     K = cfg.ssm_conv
     return {
         "state": torch.zeros((batch, H, cfg.ssm_head_dim, N), dtype=torch.float32,

@@ -12,16 +12,28 @@ applied after every group over ``concat(h, emb0)``. The JAX package stacks
 the layers on leading axes and scans over them; here they are
 ``nn.ModuleList``s and loops. Other families come with later slices.
 
-``apply_lm``         : full-sequence forward -> (logits, aux)  [prefill/eval]
+``apply_lm``         : full-sequence forward -> (logits, aux)  [train/prefill]
 ``apply_lm_decode``  : one-token forward with caches -> (logits, caches)
+
+``apply_lm(..., remat=)`` wraps each layer body as the JAX package's
+``_remat`` does (``transformer.py:35``): ``"full"`` recomputes the whole
+body in the backward (``torch.utils.checkpoint``, non-reentrant, the
+counterpart of ``nothing_saveable``); ``"dots"`` keeps the outputs of the
+plain matrix products (``aten.mm``) and recomputes the rest, the counterpart
+of ``checkpoint_dots_with_no_batch_dims``; ``"none"`` calls it. Under
+``"full"`` and ``"dots"`` the kernels in a body launch again during the
+recompute, so a training step counts each layer's forward launches twice.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import device as dev
 from repro_torch.configs import PORTED_FAMILIES
@@ -42,6 +54,30 @@ def _check_family(cfg) -> None:
 
 def _cdt(cfg) -> torch.dtype:
     return L.dtype_of(cfg.compute_dtype)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the (B*S, in) x (in, out) products' outputs."""
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """``fn`` wrapped for the remat policy ``mode`` (none | full | dots)."""
+    if mode == "none":
+        return fn
+    if mode not in ("full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got {mode!r}")
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def hybrid_split(cfg) -> Tuple[int, int]:
@@ -154,27 +190,32 @@ def _head(params, cfg, h):
     return logits.float()
 
 
-def apply_lm(params, cfg, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """tokens: (B,S) int. Returns (logits (B,S,V) fp32, aux dict)."""
+def apply_lm(params, cfg, tokens: torch.Tensor, *,
+             remat: str = "none") -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """tokens: (B,S) int. Returns (logits (B,S,V) fp32, aux dict). ``remat``
+    wraps each layer body (none | full | dots), as the JAX ``apply_lm``."""
     _check_family(cfg)
     B, S_ = tokens.shape
     h = L.apply_embed(params["embed"], tokens).to(_cdt(cfg))
     positions = torch.arange(S_, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S_)
     if cfg.family == "dense":
+        body = _remat(lambda hh, lp: _dense_body(cfg, lp, hh, positions), remat)
         for lp in params["layers"]:
-            h = _dense_body(cfg, lp, h, positions)
-    elif cfg.family == "ssm":
-        for lp in params["layers"]:
-            h = _ssm_body(cfg, lp, h)
-    else:                                                    # hybrid
-        emb0 = h
-        for group in params["groups"]:
-            for lp in group:
-                h = _ssm_body(cfg, lp, h)
-            h = _shared_body(cfg, params["shared"], h, emb0, positions)
-        for lp in (params["leftover"] if "leftover" in params else ()):
-            h = _ssm_body(cfg, lp, h)
+            h = body(h, lp)
+    else:
+        body = _remat(lambda hh, lp: _ssm_body(cfg, lp, hh), remat)
+        if cfg.family == "ssm":
+            for lp in params["layers"]:
+                h = body(h, lp)
+        else:                                                # hybrid
+            emb0 = h
+            for group in params["groups"]:
+                for lp in group:
+                    h = body(h, lp)
+                h = _shared_body(cfg, params["shared"], h, emb0, positions)
+            for lp in (params["leftover"] if "leftover" in params else ()):
+                h = body(h, lp)
     h = L.apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
     aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=h.device)}
     return _head(params, cfg, h), aux

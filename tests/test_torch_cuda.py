@@ -5,14 +5,18 @@ one, run them with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX, so it runs where only PyTorch is installed."""
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch import bridge
 from repro_torch.configs import get_arch, reduced
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models import transformer as T
+from repro_torch.training import train as TR
 
 pytestmark = pytest.mark.cuda
 
@@ -159,9 +163,19 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     qb = torch.zeros(1, 1, 8, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="16-byte"):          # row stride 68
         ops.flash_attention(qb, qb, qb)
-    w = torch.ones(16, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        ops.rmsnorm(torch.zeros(4, 16, device=cuda), w)
+    # under autograd: ssd_scan has no backward kernel, the flash backward
+    # takes head dims up to 128, the rmsnorm backward dy in x's dtype
+    x = torch.zeros(1, 64, 2, 16, device=cuda, requires_grad=True)
+    dA = torch.zeros(1, 64, 2, device=cuda)
+    bc = torch.zeros(1, 64, 1, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="ssm training slice"):
+        ops.ssd_scan(x, dA, bc, bc)
+    qw = torch.zeros(1, 2, 8, 192, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="slice"):
+        ops.flash_attention(qw, qw, qw)
+    with pytest.raises(TypeError):
+        rn.rmsnorm_bwd_cuda(torch.zeros(4, 16, device=cuda), torch.ones(16, device=cuda),
+                            torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16))
     x = torch.zeros(1, 64, 2, 16, device=cuda)
     dA = torch.zeros(1, 64, 2, device=cuda)
     bc = torch.zeros(1, 64, 1, 256, device=cuda)
@@ -185,3 +199,123 @@ def test_model_on_card_matches_cpu(cuda, aid, kw, S):
         got, _ = T.apply_lm(T.init_lm(cfg, 0, device="cpu").to(cuda), cfg,
                             toks.to(cuda))
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("R,D", [(4, 2048), (1000, 2048), (77, 2050), (3, 8192),
+                                 (8192, 2048)])
+@pytest.mark.parametrize("x_dtype,s_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_rmsnorm_bwd_kernel(cuda, R, D, x_dtype, s_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(R + D)
+    x = _randn(gen, (R, D), x_dtype, cuda)
+    s = 1.0 + 0.1 * _randn(gen, (D,), s_dtype, cuda)
+    dy = _randn(gen, (R, D), x_dtype, cuda)
+    dx, ds = rn.rmsnorm_bwd_cuda(x, s, dy)
+    want_dx, want_ds = ref.reference_rmsnorm_bwd(x, s, dy)
+    assert dx.dtype == x_dtype and ds.dtype == s_dtype
+    torch.testing.assert_close(dx.float(), want_dx.float(), atol=TOL[x_dtype], rtol=TOL[x_dtype])
+    # dscale sums R rows: the fp32 tolerance relative to its scale
+    tol = TOL[s_dtype] if s_dtype == torch.bfloat16 else TOL[x_dtype]
+    torch.testing.assert_close(ds.float(), want_ds.float(), atol=tol * R ** 0.5, rtol=tol)
+    again = rn.rmsnorm_bwd_cuda(x, s, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], ds)   # deterministic
+
+
+FLASH_BWD_CASES = [
+    (2, 4, 4, 128, 128, 64, 64, True), (1, 8, 2, 200, 200, 128, 128, True),
+    (1, 4, 4, 130, 130, 64, 64, False), (2, 4, 2, 70, 70, 16, 16, True),
+    (1, 4, 4, 100, 260, 64, 64, False), (1, 4, 4, 260, 100, 64, 64, True),
+    (1, 4, 4, 100, 260, 64, 64, True),        # keys past every query: zero dk, dv
+    (1, 32, 8, 256, 256, 128, 128, True),     # GQA 32/8 at hd 128
+    (1, 6, 2, 1000, 1000, 64, 64, True),      # ragged at 64, batch 1
+    (1, 1, 1, 1, 1, 64, 64, True),
+    (2, 4, 4, 96, 96, 64, 32, False)]          # Dv != D
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv,causal", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel(cuda, B, H, KH, Sq, Sk, D, Dv, causal, dtype):
+    """The forward's lse against the plain version's, then the backward
+    against the plain FA2 recurrence on the same o and lse, with do a
+    transposed view of a (B, S, H*Dv) gradient as the model hands it over."""
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + D + Dv)
+    q = _randn(gen, (B, Sq, H, D), dtype, cuda).transpose(1, 2)
+    k = _randn(gen, (B, Sk, KH, D), dtype, cuda).transpose(1, 2)
+    v = _randn(gen, (B, Sk, KH, Dv), dtype, cuda).transpose(1, 2)
+    do = _randn(gen, (B, Sq, H * Dv), dtype, cuda).view(B, Sq, H, Dv).transpose(1, 2)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+    o_plain, lse_plain = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    torch.testing.assert_close(o.float(), o_plain.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, lse_plain, atol=1e-3, rtol=1e-4)
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    want = ref.reference_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for got, w, like in zip((dq, dk, dv), want, (q, k, v)):
+        assert got.dtype == dtype and got.shape == like.shape and got.stride() == like.stride()
+        torch.testing.assert_close(got.float(), w.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))   # no atomics
+
+
+def test_serve_forward_leaves_lse_unwritten(cuda):
+    """Without ``return_lse`` the forward takes no lse and its output is the
+    one the training path gets."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = _randn(gen, (2, 4, 128, 64), torch.bfloat16, cuda)
+    o = fa.flash_attention_cuda(q, q, q, True)
+    o2, lse = fa.flash_attention_cuda(q, q, q, True, return_lse=True)
+    assert torch.equal(o, o2) and lse.shape == (2, 4, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_on_card_matches_cpu(cuda, dtype):
+    """``ops.rmsnorm`` and ``ops.flash_attention`` under autograd: the card
+    launches each backward kernel once and its gradients are the CPU's
+    (the plain versions through the same autograd Functions)."""
+    gen = torch.Generator().manual_seed(7)
+    B, H, KH, S, D = 2, 8, 2, 150, 64
+    base = [torch.randn(s, generator=gen).to(dtype) for s in
+            [(B, S, H, D), (B, S, KH, D), (B, S, KH, D), (B, H, S, D), (S, 256), (256,)]]
+
+    def run(device):
+        q, k, v, x, s = (base[i].to(device).requires_grad_(True) for i in (0, 1, 2, 4, 5))
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        y = ops.rmsnorm(x, s)
+        torch.autograd.backward([o, y], [base[3].to(device), torch.ones_like(y)])
+        return [t.grad.cpu().float() for t in (q, k, v, x, s)]
+
+    before = dict(ops.LAUNCHES)
+    got = run(cuda)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert ops.LAUNCHES["rmsnorm_bwd"] == before["rmsnorm_bwd"] + 1
+    tol = TOL[dtype] * (5 if dtype == torch.bfloat16 else 1)
+    for g, w in zip(got, run("cpu")):
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_train_steps_on_card_match_cpu(cuda, remat):
+    """Reduced stablelm in fp32: two steps on the card through the kernels
+    and on the CPU through the plain versions, from the same init; the
+    card's launches per step are the path's exactly (under "full" and
+    "dots" each layer's forward kernels launch again in the recompute)."""
+    cfg = reduced(get_arch("stablelm-1.6b").model).replace(
+        num_layers=3, num_kv_heads=2, param_dtype="float32", compute_dtype="float32")
+    tcfg = dataclasses.replace(get_arch("stablelm-1.6b").train, remat=remat)
+    n = cfg.num_layers
+    twice = 1 if remat == "none" else 2
+    cpu_state = TR.init_train_state(cfg, tcfg, 0, device="cpu")
+    card_state = bridge.state_from_jax(
+        bridge.unflatten(bridge.state_to_flat(cpu_state)), cfg, cuda)
+    step = TR.make_train_step(cfg, tcfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    expect = {"flash_attention": twice * n, "flash_attention_bwd": n,
+              "rmsnorm": twice * 2 * n + 1, "rmsnorm_bwd": 2 * n + 1, "ssd_scan": 0}
+    for _ in range(2):
+        ops.reset_launches()
+        card_state, m_card = step(card_state, TR.to_device(batch, cuda))
+        assert ops.LAUNCHES == expect
+        cpu_state, m_cpu = step(cpu_state, TR.to_device(batch, "cpu"))
+        for key in ("loss", "grad_norm"):
+            torch.testing.assert_close(m_card[key].cpu(), m_cpu[key], atol=1e-4, rtol=1e-4)

@@ -13,7 +13,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serve.py",
-    ROOT / "scripts" / "flash_variants.py"]
+    ROOT / "scripts" / "profile_torch_train.py", ROOT / "scripts" / "flash_variants.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -37,7 +37,8 @@ def test_no_jax_or_repro_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving.engine, repro_torch.launch.serve, "
-            "repro_torch.bridge\n"
+            "repro_torch.bridge, repro_torch.launch.train, "
+            "repro_torch.training.checkpoint, repro_torch.data.pipeline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro'))\n"
             "assert not bad, bad\n")

@@ -194,3 +194,134 @@ def test_mixed_devices_raise():
     x = torch.zeros(2, 8)
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         ops.rmsnorm(x, torch.zeros(8, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# backward: the plain versions and the autograd wrappers against jax.vjp
+# ---------------------------------------------------------------------------
+
+import jax  # noqa: E402
+
+from repro.models import layers as JL  # noqa: E402
+
+
+def _attn_inputs(seed, B, H, KH, Sq, Sk, D, Dv):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in
+            [(B, H, Sq, D), (B, KH, Sk, D), (B, KH, Sk, Dv), (B, H, Sq, Dv)]]
+    return arrs, [torch.from_numpy(a) for a in arrs]
+
+
+def _jax_attention_vjp(arrs, causal, H, KH):
+    """jax.vjp of the model-level blockwise attention (K/V repeated for
+    GQA inside the function, so their cotangents sum over the group)."""
+    q, k, v, do = (jnp.asarray(a) for a in arrs)
+    Sq, Sk = q.shape[2], k.shape[2]
+    qpos = jnp.arange(Sq, dtype=jnp.int32)
+    kpos = jnp.arange(Sk, dtype=jnp.int32)
+    if not causal:                  # every key visible: positions before every query
+        kpos = jnp.full((Sk,), -1, dtype=jnp.int32)
+
+    def f(q, k, v):
+        return jax_blockwise(q, jnp.repeat(k, H // KH, axis=1),
+                             jnp.repeat(v, H // KH, axis=1), qpos, kpos, block=64)
+    _, vjp = jax.vjp(f, q, k, v)
+    return vjp(do)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv", [
+    (2, 4, 2, 70, 70, 16, 16), (1, 4, 4, 40, 100, 16, 24), (1, 6, 2, 130, 130, 32, 32)])
+def test_reference_attention_bwd_matches_jax_blockwise(causal, B, H, KH, Sq, Sk, D, Dv,
+                                                       monkeypatch):
+    monkeypatch.setattr(ref, "ATTN_BWD_BLOCK", 48)     # several blocks, a ragged last
+    arrs, (q, k, v, do) = _attn_inputs(Sq + Sk + D, B, H, KH, Sq, Sk, D, Dv)
+    o, lse = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    dq, dk, dv = ref.reference_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for want, got in zip(_jax_attention_vjp(arrs, causal, H, KH), (dq, dk, dv)):
+        _close(want, got, TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_reference_attention_bwd_matches_jax_reference(causal):
+    """The Pallas contract (BH, S, D): jax.vjp of the JAX oracle
+    ``reference_attention`` against the plain backward with H = KH = 1."""
+    rng = np.random.default_rng(31)
+    arrs = [rng.standard_normal((3, 50, 8)).astype(np.float32) for _ in range(4)]
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in arrs)
+    _, vjp = jax.vjp(lambda q, k, v: jref.reference_attention(q, k, v, causal=causal),
+                     jq, jk, jv)
+    q, k, v, do = (torch.from_numpy(a)[:, None] for a in arrs)
+    o, lse = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    got = ref.reference_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for want, g in zip(vjp(jdo), got):
+        _close(want, g[:, 0], TOL["float32"])
+
+
+def test_reference_attention_bwd_no_valid_key_is_zero():
+    """A row whose lse is -inf (no visible key) takes no gradient."""
+    _, (q, k, v, do) = _attn_inputs(3, 1, 2, 2, 8, 8, 16, 16)
+    o, lse = ops.flash_attention_plain(q, k, v, return_lse=True)
+    lse[:, :, 2] = float("-inf")
+    dq, dk, dv = ref.reference_attention_bwd(q, k, v, o, lse, do)
+    assert torch.all(dq[:, :, 2] == 0)
+    assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+
+
+@pytest.mark.parametrize("R,D", [(7, 24), (64, 48), (33, 100)])
+def test_reference_rmsnorm_bwd_matches_jax(R, D):
+    (jx, js, jdy), (tx, ts, tdy) = _inputs(R + D, [(R, D), (D,), (R, D)], "float32")
+    js, ts = 1.0 + 0.1 * js, 1.0 + 0.1 * ts
+    _, vjp = jax.vjp(lambda x, s: JL.apply_rmsnorm({"scale": s}, x), jx, js)
+    jdx, jds = vjp(jdy)
+    dx, ds = ref.reference_rmsnorm_bwd(tx, ts, tdy)
+    assert dx.dtype == tx.dtype and ds.dtype == ts.dtype
+    _close(jdx, dx, TOL["float32"])
+    _close(jds, ds, TOL["float32"])
+
+
+def test_reference_rmsnorm_bwd_keeps_dtypes():
+    x = torch.randn(6, 32).bfloat16()
+    s = torch.ones(32)
+    dx, ds = ref.reference_rmsnorm_bwd(x, s, torch.randn(6, 32).bfloat16())
+    assert dx.dtype == torch.bfloat16 and ds.dtype == torch.float32
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ops_flash_attention_autograd_matches_jax(causal):
+    """``ops.flash_attention`` under autograd on the CPU (the autograd
+    Function with the plain forward and backward) against jax.vjp, in the
+    model's transposed layout with GQA."""
+    B, H, KH, S, D = 2, 4, 2, 90, 16
+    arrs, _ = _attn_inputs(41, B, H, KH, S, S, D, D)
+    q, k, v = (torch.from_numpy(a).transpose(1, 2).contiguous().transpose(1, 2)
+               .requires_grad_(True) for a in arrs[:3])
+    before = dict(ops.LAUNCHES)
+    o = ops.flash_attention(q, k, v, causal=causal)
+    o.backward(torch.from_numpy(arrs[3]))
+    assert ops.LAUNCHES == before          # the plain versions launch nothing
+    for want, t in zip(_jax_attention_vjp(arrs, causal, H, KH), (q, k, v)):
+        _close(want, t.grad, TOL["float32"])
+
+
+def test_ops_rmsnorm_autograd_matches_jax():
+    (jx, js, jdy), (tx, ts, tdy) = _inputs(5, [(40, 64), (64,), (40, 64)], "float32")
+    js, ts = 1.0 + 0.1 * js, (1.0 + 0.1 * ts)
+    tx.requires_grad_(True)
+    ts.requires_grad_(True)
+    ops.rmsnorm(tx, ts).backward(tdy)
+    _, vjp = jax.vjp(lambda x, s: JL.apply_rmsnorm({"scale": s}, x), jx, js)
+    jdx, jds = vjp(jdy)
+    _close(jdx, tx.grad, TOL["float32"])
+    _close(jds, ts.grad, TOL["float32"])
+
+
+def test_flash_plan_bwd_refuses_wide_heads():
+    q = torch.zeros(1, 2, 8, 192)
+    v = torch.zeros(1, 2, 8, 128)
+    with pytest.raises(ValueError, match="later|slice"):
+        fa.plan_bwd(q, q, v)
+    fa.plan_bwd(q[..., :128], q[..., :128], v)     # D 128 is taken
+    with pytest.raises(TypeError):
+        fa.plan_bwd(q.half()[..., :64], q.half()[..., :64], v.half()[..., :64])

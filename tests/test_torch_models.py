@@ -121,7 +121,7 @@ def test_attention_decode(kh):
     B, S = 2, 6
     xs = np.random.default_rng(6).standard_normal((S, B, 1, cfg.d_model)).astype(np.float32)
     jcache = JA.init_kv_cache(jc, B, S + 2, jnp.float32)
-    tcache = A.init_kv_cache(cfg, B, S + 2, torch.float32)
+    tcache = A.init_kv_cache(cfg, B, S + 2, torch.float32, device="cpu")
     for i in range(S):
         jo, jcache = JA.apply_attention_decode(jp, jc, jnp.asarray(xs[i]), jcache, i)
         to, tcache = A.apply_attention_decode(_t(jp), cfg, torch.from_numpy(xs[i]),

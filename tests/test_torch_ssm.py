@@ -124,7 +124,7 @@ def test_apply_ssm_full_and_decode_match_jax():
     x = np.random.default_rng(3).standard_normal((B, S_, cfg.d_model)).astype(np.float32)
     _close(S.apply_ssm_full(tp, cfg, torch.from_numpy(x)),
            JS.apply_ssm_full(jp, jc, jnp.asarray(x)))
-    cache = S.init_ssm_cache(cfg, B)
+    cache = S.init_ssm_cache(cfg, B, device="cpu")
     jcache = JS.init_ssm_cache(jc, B)
     jdecode = jax.jit(lambda p, x, c: JS.apply_ssm_decode(p, jc, x, c))
     for i in range(S_):
