@@ -23,6 +23,9 @@ its seconds:
                 the same inputs, with ``library_ms`` the backward through
                 ``F.rms_norm`` and ``F.scaled_dot_product_attention`` under
                 autograd (forward and backward, less the forward alone);
+                each names the path of ``rmsnorm.plan_bwd`` or the route and
+                tile of ``flash_attention.plan_bwd`` that ran, and fails on
+                another;
 4. consistency  stablelm-1.6b and mamba2-370m at full width in float32:
                 decode logits at every prompt position equal the full
                 forward's (mamba2 over two 256-row chunks), and reduced
@@ -449,10 +452,10 @@ def main() -> int:
         fail("ssd_scan against reference_ssd failed")
 
     # the backward kernels, against the plain backward versions
-    for case, R, D, dtype, sdtype in [
-            ("train_bwd", TRAIN_BATCH * TRAIN_SEQ, 2048, "bfloat16", "bfloat16"),
-            ("train_bwd_fp32", TRAIN_BATCH * TRAIN_SEQ, 2048, "float32", "float32"),
-            ("unaligned_dim_bwd", 77, 2050, "float32", "bfloat16")]:
+    for case, R, D, dtype, sdtype, path in [
+            ("train_bwd", TRAIN_BATCH * TRAIN_SEQ, 2048, "bfloat16", "bfloat16", warp),
+            ("train_bwd_fp32", TRAIN_BATCH * TRAIN_SEQ, 2048, "float32", "float32", block),
+            ("unaligned_dim_bwd", 77, 2050, "float32", "bfloat16", "scalar")]:
         x = randn(R, D, dtype=dtype)
         s = 1.0 + 0.1 * randn(D, dtype=sdtype)
         dy = randn(R, D, dtype=dtype)
@@ -468,10 +471,12 @@ def main() -> int:
                    tols=[(TOL[dtype], TOL[dtype]), (TOL[dtype] * R ** 0.5, TOL[dtype])],
                    nbytes=3 * x.numel() * x.element_size() + 2 * s.numel() * s.element_size(),
                    ops_s=9 * R * D / PEAK_FLOPS["float32"], shape=[R, D],
-                   scale_dtype=sdtype, grid=rn.bwd_grid(R, torch.cuda.get_device_properties(
-                       cuda).multi_processor_count))
+                   scale_dtype=sdtype, route=(lambda: rn.PLAN_BWD.path, path),
+                   record=lambda: {"plan": {"grid": rn.PLAN_BWD.grid,
+                                            "threads": rn.PLAN_BWD.threads,
+                                            "vectors": rn.PLAN_BWD.vectors}})
 
-    def attn_bwd_case(case, B, H, KH, S, D, dtype, causal):
+    def attn_bwd_case(case, B, H, KH, S, D, dtype, causal, route):
         """The model's layout: q, k, v transposed views of (B,S,heads,hd), do
         a transposed view of the (B,S,H*hd) gradient. The kernel takes o and
         lse from the kernel's forward, as in training; the plain backward
@@ -480,7 +485,7 @@ def main() -> int:
         plain gradients from q, k, v, do rounded to fp8. Bound: the five
         products (2 Sq Sk D each, over the causal pairs) at the peak rate of
         the inputs' type, or the bytes of q, k, v, o, do, lse read and dq,
-        dk, dv written."""
+        dk, dv written. ``route``: the (route, tile) that must run."""
         q = randn(B, S, H, D, dtype=dtype).transpose(1, 2)
         k = randn(B, S, KH, D, dtype=dtype).transpose(1, 2)
         v = randn(B, S, KH, D, dtype=dtype).transpose(1, 2)
@@ -516,16 +521,21 @@ def main() -> int:
             lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal),
             lambda: ref.reference_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal),
             None, library_timer=library_timer, judge=judge,
+            route=(lambda: json.loads(json.dumps(fa.BWD_ROUTE)), route),   # tuples as lists
             nbytes=(2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel()
                     + do.numel()) * q.element_size() + 4 * lse.numel(),
             flops=5 * 2 * B * H * pairs * D,
             shape={"B": B, "H": H, "KH": KH, "Sq": S, "Sk": S, "D": D, "Dv": D},
             causal=causal)
 
-    attn_bwd_case("train_bwd", TRAIN_BATCH, 32, 32, TRAIN_SEQ, 64, "bfloat16", True)
-    attn_bwd_case("gqa_32q_8kv_hd128_bwd", 2, 32, 8, 1024, 128, "bfloat16", True)
-    attn_bwd_case("fp32_bwd", 1, 32, 32, 1024, 64, "float32", True)
-    attn_bwd_case("non_causal_ragged_bwd", 2, 8, 8, 1000, 64, "bfloat16", False)
+    # route: tensor cores (wgmma) with the (width, q step) tile, or CUDA cores
+    attn_bwd_case("train_bwd", TRAIN_BATCH, 32, 32, TRAIN_SEQ, 64, "bfloat16", True,
+                  ["tensor_cores", [64, 64]])
+    attn_bwd_case("gqa_32q_8kv_hd128_bwd", 2, 32, 8, 1024, 128, "bfloat16", True,
+                  ["tensor_cores", [128, 32]])
+    attn_bwd_case("fp32_bwd", 1, 32, 32, 1024, 64, "float32", True, ["cuda_cores", None])
+    attn_bwd_case("non_causal_ragged_bwd", 2, 8, 8, 1000, 64, "bfloat16", False,
+                  ["tensor_cores", [64, 64]])
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase})
 
     # 4. consistency ----------------------------------------------------------

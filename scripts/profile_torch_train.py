@@ -23,12 +23,17 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-# The port's kernels (csrc/*.cu) by the names of their __global__ functions.
-PORT_KERNELS = {"flash_bwd_dkdv": "flash_attention_bwd (dK/dV)",
-                "flash_bwd_dq": "flash_attention_bwd (dQ)",
+# The port's kernels (csrc/*.cu) by the names of their __global__ functions;
+# a name takes the group of the first mark it holds.
+PORT_KERNELS = {"flash_bwd_dkdv_wgmma": "flash_attention_bwd (dK/dV)",
+                "flash_bwd_dq_wgmma": "flash_attention_bwd (dQ)",
                 "flash_bwd_delta": "flash_attention_bwd (delta)",
+                "flash_bwd_": "flash_attention_bwd (fp32, CUDA cores)",
                 "flash_fwd": "flash_attention (forward)",
-                "rmsnorm_bwd": "rmsnorm_bwd", "rmsnorm_": "rmsnorm (forward)"}
+                "rmsnorm_bwd_vec": "rmsnorm_bwd (rows)",
+                "rmsnorm_bwd_rows": "rmsnorm_bwd (rows, scalar path)",
+                "rmsnorm_bwd_scale": "rmsnorm_bwd (dscale)",
+                "rmsnorm_": "rmsnorm (forward)"}
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "sm90_", "nvjet")
 
 

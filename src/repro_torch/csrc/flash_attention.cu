@@ -69,38 +69,54 @@
 //     P = exp(S * scale - lse),  dV = P^T dO,  dP = dO V^T,
 //     dS = P o (dP - D) with D = rowsum(dO o O),
 //     dQ = dS K * scale,  dK = dS^T Q * scale.
-// What bounds it: operations. Five products of 2 * Sq * Sk * D flops
-// (half under the causal mask) against reading q, k, v, o, dO and writing
-// dq, dk, dv once. Three launches, no atomics, so the gradients are the
-// same run to run:
-//  1. delta: D per (batch, head, row), a warp per row, into an fp32 scratch;
-//  2. dkdv: a block per (64-key tile, KV head, batch), K and V staged once;
-//     it loops over the H/KH query heads of its KV head and over their q
-//     tiles (under the causal mask from its own rows on), so GQA sums in
+// What bounds it: operations. Five products of 2 * Sq * Sk * D flops (half
+// under the causal mask) against reading q, k, v, o, dO and writing dq, dk,
+// dv once: at (2, 32, 4096, 64) causal, 344 GFLOP (0.35 ms at 989 TF/s)
+// against 270 MB (0.08 ms). At D 64 the exponentials come close behind:
+// one per pair and pass, some 537M, about 0.15 ms of the SFUs a pass. Three
+// launches, no atomics, so the gradients are the same run to run:
+//  1. delta: D per (batch, head, row) into an fp32 scratch (bf16: 16-byte
+//     chunks, Dv / 8 lanes a row; fp32: a warp a row), and beside it the
+//     lse in log2 units (+inf where it is -inf, so that such a row's P is
+//     0) for the bf16 kernels;
+//  2. dkdv: a block per (key tile, KV head, batch), K and V staged once; it
+//     loops over the H/KH query heads of its KV head and over their q tiles
+//     (under the causal mask from its own first key on), so GQA sums in
 //     registers. Per q tile it recomputes S^T and dP^T, then dV += P^T dO
 //     and dK += dS^T Q;
-//  3. dq: a block per (64-row q tile, head, batch), Q, dO, lse and D staged
-//     once, looping over the key tiles it sees (S and dP again: seven
-//     products in all), dQ += dS K.
-// bf16 runs on the tensor cores (flash_bwd_*_mma_kernel): four warps a
-// block, each owning 16 of its 64 keys (dkdv) or q rows (dq); every product
-// is mma.sync m16n8k16 (bf16 in, fp32 sums) on tiles staged as bf16 in
-// shared memory, rows padded by 16 bytes against bank conflicts, copied 16
-// bytes at a time through the model's strides. P^T and dS^T stay in
-// registers: their fp32 accumulator fragments, rounded to bf16, are the a
-// operands of the next products (the C layout of two n-tiles is the a
-// layout), and the b operands that are stored k-major come through
-// ldmatrix with the transpose. D and Dv are padded with zero columns to 64
-// or 128; dkdv takes 32 q rows a step at 128 to keep its four fp32
-// accumulator sets in registers. fp32 runs on the CUDA cores in exact fp32
+//  3. dq: a block per (q tile, head, batch) over the key tiles it sees (S
+//     and dP again: seven products in all), dQ += dS K, the key tiles
+//     summed in order.
+// bf16 runs on wgmma (flash_bwd_dkdv_wgmma_kernel, flash_bwd_dq_wgmma_kernel)
+// with the forward's pieces: two consumer warpgroups a block, tiles copied
+// by 16-byte cp.async through the model's strides into the 128-byte
+// swizzle, the next tile's copy in flight under the current tile's
+// products, and P^T and dS^T (dS) rounded to bf16 in registers as the A
+// operand of the next product, whose B (dO, Q, K) is read MN-major with the
+// transpose bit. A dK/dV block owns 128 keys, 64 a warpgroup, so every
+// Q/dO tile it fetches serves 128 keys; a dQ block is shaped like the
+// forward's, 128 q rows over 64-key tiles. At width 64 the operands a
+// warpgroup keeps (K and V; Q and dO) are register-A fragments, loaded once
+// by ldmatrix: a product of m64n64k16 with both operands in shared memory
+// reads 4 KB in the 32 cycles it takes, all of the SM's 128 bytes a cycle,
+// and with A in registers half that. Each warpgroup issues S^T and dP^T as
+// two groups and computes P^T's exponentials while dP^T still runs, and
+// dS^T while dV's product runs; a tile's dK (dQ) product is waited for
+// only once the next tile's S^T (S) is in, so the rings have three stages.
+// On both routes the key (q) block is the slowest grid dimension, so that
+// under the causal mask the heaviest blocks of every head start first and
+// the last wave is short. D and Dv are padded with zero columns to 64 or
+// 128; at 128 the dK/dV block steps 32 q rows (wgmma N 32) to keep its
+// 2 x 64 fp32 accumulators in registers. dq, dk, dv are staged in shared
+// memory and
+// written 16 bytes a store. fp32 runs on the CUDA cores in exact fp32
 // (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): 256 threads, every tile in
 // shared memory in fp32 (rows padded by one float), a thread holding a 4 x
 // 4 patch of each 64 x 64 score tile and 4 rows x ceil(D/16) columns of its
 // accumulators, P^T and dS^T passed through shared memory. dO arrives as a
 // transposed view of the (B, S, H*hd) gradient and is not copied; dq, dk,
 // dv are written through their own strides. D and Dv up to 128. A row with
-// no valid key (lse = -inf) gets P = 0, so zero gradients. No cp.async,
-// wgmma or TMA yet: a later PR.
+// no valid key (lse = -inf) gets P = 0, so zero gradients.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -389,15 +405,20 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Waits until at most N of this warpgroup's committed groups are pending;
+// groups complete in the order they were committed.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
 
 // Tells the compiler the accumulator registers change here, so that no read
 // or write of them moves across an asynchronous wgmma or its wait.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 #define FA_D32                                                                \
@@ -432,6 +453,48 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : FA_OUT32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers) B (16 x 64), B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : FA_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The register-A fragment of rows row0..row0+15 (one warp's) and k-step kk
+// of a tile stored in the 128-byte swizzle with ROWS rows: ldmatrix.x4,
+// lane l naming row row0 + l % 8 + 8 (l / 8 % 2) of 16-byte chunk 2kk + l / 16.
+template <int ROWS>
+__device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4], uint32_t tile, int row0, int kk) {
+  const int lane = threadIdx.x % 32;
+  const int r = row0 + lane % 8 + 8 * ((lane / 8) % 2);
+  const int c = 2 * kk + lane / 16;
+  const uint32_t addr = tile + (c / 8) * (ROWS * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(addr) : "memory");
+}
+
+#define FA_D16                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define FA_OUT16(d)                                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),   \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// d (64 x 32, fp32) += A (64 x 16) B (16 x 32), A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " FA_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : FA_OUT16(d)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // 2^x in one MUFU instruction (exp2f adds range handling); exp2(-inf) = 0.
@@ -662,8 +725,6 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
 
 enum { kQ, kK, kV, kO, kDO, kDQ, kDK, kDV, kNumT };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 
 struct Strides {
@@ -678,6 +739,7 @@ struct BwdParams {
   const void* dout;
   const float* lse;    // (B, H, Sq), natural-log units
   float* delta;        // (B, H, Sq) scratch: rowsum(dO o O)
+  float* lse2;         // (B, H, Sq) scratch after delta: lse in log2 units, +inf for -inf
   void* dq;
   void* dk;
   void* dv;
@@ -732,8 +794,8 @@ size_t bwd_smem_bytes(int D, int Dv) {
                           static_cast<size_t>(kBT) * (kBT + 1) + 2 * kBT);
 }
 
-// Pre-pass: delta = rowsum(dO o O), one warp per (batch, head, row).
-template <typename T>
+// Pre-pass on fp32 rows: delta = rowsum(dO o O), and the lse in log2 units
+// (which the bf16 kernels read), one warp per (batch, head, row).
 __global__ void __launch_bounds__(kBwdThreads) flash_bwd_delta_kernel(const BwdParams p,
                                                                       int64_t rows) {
   const int64_t w = static_cast<int64_t>(blockIdx.x) * (kBwdThreads / 32) + threadIdx.x / 32;
@@ -742,13 +804,54 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_delta_kernel(const BwdP
   const int i = static_cast<int>(w % p.Sq);
   const int h = static_cast<int>((w / p.Sq) % p.H);
   const int b = static_cast<int>(w / (static_cast<int64_t>(p.Sq) * p.H));
-  const T* orow = row_ptr<T>(p.o, p.st[kO], b, h, i);
-  const T* dorow = row_ptr<T>(p.dout, p.st[kDO], b, h, i);
+  const float* orow = row_ptr<float>(p.o, p.st[kO], b, h, i);
+  const float* dorow = row_ptr<float>(p.dout, p.st[kDO], b, h, i);
   float acc = 0.f;
-  for (int c = lane; c < p.Dv; c += 32) acc = fmaf(to_f(orow[c]), to_f(dorow[c]), acc);
+  for (int c = lane; c < p.Dv; c += 32) acc = fmaf(orow[c], dorow[c], acc);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if (lane == 0) p.delta[w] = acc;
+  if (lane == 0) {
+    p.delta[w] = acc;
+    const float l = p.lse[w];
+    p.lse2[w] = l == -INFINITY ? INFINITY : l * kLog2e;
+  }
+}
+
+// The same pre-pass on bf16 rows in 16-byte chunks: CH lanes a row (Dv / 8
+// rounded up to a power of two), 32 / CH rows a warp; lse2 is the bf16
+// kernels' lse, and a row with no valid key gets P = exp2(-inf) = 0.
+template <int CH>
+__global__ void __launch_bounds__(kBwdThreads) flash_bwd_delta_vec_kernel(const BwdParams p,
+                                                                          int64_t rows) {
+  using bf = __nv_bfloat16;
+  const int lane = threadIdx.x % 32;
+  const int64_t w = (static_cast<int64_t>(blockIdx.x) * (kBwdThreads / 32) + threadIdx.x / 32) *
+                        (32 / CH) + lane / CH;
+  const int c = lane % CH;
+  float acc = 0.f;
+  if (w < rows && c * 8 < p.Dv) {
+    const int i = static_cast<int>(w % p.Sq);
+    const int h = static_cast<int>((w / p.Sq) % p.H);
+    const int b = static_cast<int>(w / (static_cast<int64_t>(p.Sq) * p.H));
+    const uint4 ov = *reinterpret_cast<const uint4*>(row_ptr<bf>(p.o, p.st[kO], b, h, i) + c * 8);
+    const uint4 gv = *reinterpret_cast<const uint4*>(row_ptr<bf>(p.dout, p.st[kDO], b, h, i) + c * 8);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 a = __bfloat1622float2(o2[j]);
+      const float2 d = __bfloat1622float2(g2[j]);
+      acc = fmaf(a.x, d.x, acc);
+      acc = fmaf(a.y, d.y, acc);
+    }
+  }
+#pragma unroll
+  for (int o = CH / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (w < rows && c == 0) {
+    p.delta[w] = acc;
+    const float l = p.lse[w];
+    p.lse2[w] = l == -INFINITY ? INFINITY : l * kLog2e;
+  }
 }
 
 // dK and dV of one 64-key tile of one KV head: loops over the H / KH query
@@ -771,9 +874,9 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(const BwdPa
   float* lse_s = Ps + kBT * ldp;
   float* dl_s = lse_s + kBT;
 
-  const int k0 = blockIdx.x * kBT;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int k0 = blockIdx.z * kBT;         // the slowest grid dimension: causal, heaviest first
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
@@ -908,9 +1011,9 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(const BwdPara
   float* lse_s = Ps + kBT * ldp;
   float* dl_s = lse_s + kBT;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBT;   // causal: heaviest first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int kh = h / p.group;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
@@ -1019,358 +1122,496 @@ cudaError_t launch_bwd_tiles(const BwdParams& p, int B, cudaStream_t stream) {
     if (e != cudaSuccess) return clear_and_return(e);
     smem_set = smem;
   }
-  const dim3 grid_kv((p.Sk + kBT - 1) / kBT, p.H / p.group, B);
+  const dim3 grid_kv(p.H / p.group, B, (p.Sk + kBT - 1) / kBT);   // as launch_bwd_wgmma's
   flash_bwd_dkdv_kernel<NT><<<grid_kv, kBwdThreads, smem, stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.Sq == 0) return e;
-  const dim3 grid_q((p.Sq + kBT - 1) / kBT, p.H, B);
+  const dim3 grid_q(p.H, B, (p.Sq + kBT - 1) / kBT);
   flash_bwd_dq_kernel<NT><<<grid_q, kBwdThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// backward, bf16: mma.sync on the tensor cores
+// backward, bf16: wgmma fed by cp.async rings
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaRows = 16 * kMmaWarps;   // a block's keys (dK/dV) or q rows (dQ)
+constexpr int kBwdKeys = kWgRows * kWarpgroups;   // keys of a dK/dV block: 64 a warpgroup
+// Ring stages of the backward: a tile's last product (dK, or dQ) is waited
+// for only after the next tile's first two are issued, so the stage the next
+// copy overwrites must be two tiles back.
+constexpr int kBwdStages = 3;
 
-// c (16 x 8, fp32) += a (16 x 16, bf16) b (16 x 8, bf16). Fragments of
-// m16n8k16, lane = 4g + q4: a holds rows g, g+8 at columns 2q4, 2q4+1 and
-// 2q4+8, 2q4+9; b columns (n) g at rows (k) 2q4, 2q4+1 and +8; c rows g,
-// g+8 at columns 2q4, 2q4+1.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// q rows per dK/dV step by tile width: 64 at DT 64; 32 at DT 128, where the
+// dK and dV accumulators take 128 fp32 registers a thread.
+template <int DT>
+constexpr int bwd_q_step() {
+  return DT == 64 ? 64 : 32;
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-// The a fragment of rows r0.. and columns k0.. of a row-major tile.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* t, int ld,
-                                       int r0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* ptr = t + (r0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  a[0] = ld_u32(ptr);
-  a[1] = ld_u32(ptr + 8 * ld);
-  a[2] = ld_u32(ptr + 8);
-  a[3] = ld_u32(ptr + 8 * ld + 8);
-}
-
-// The b fragment of a tile stored [n][k] (k contiguous): n from n0, k from k0.
-__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* t,
-                                       int ld, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* ptr = t + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b0 = ld_u32(ptr);
-  b1 = ld_u32(ptr + 8);
-}
-
-// The b fragments of n-tiles n0 and n0 + 8 of a tile stored [k][n] (n
-// contiguous), k from k0: ldmatrix with the transpose, lanes 8j..8j+7
-// naming the rows of 8 x 8 matrix j.
-__device__ __forceinline__ void frag_b_trans(uint32_t (&b)[4], const __nv_bfloat16* t, int ld,
-                                             int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* ptr = t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(smem_u32(ptr))
-               : "memory");
-}
-
-// The a fragments of k-step kk of a 16-row fp32 C tile set (n-tiles 2kk and
-// 2kk + 1), rounded to bf16: the C layout of two n-tiles is the a layout.
-template <int NT>
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c)[NT][4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// Rows [row0, row0 + ROWS) and columns [0, W) of a bf16 matrix with row
-// stride `ld` into shared memory with row stride `ldt`, 16 bytes a copy;
-// zero past `nrows` and past `ncols` (a multiple of 8).
-template <int ROWS, int W>
-__device__ __forceinline__ void load_tile_mma(__nv_bfloat16* dst, int ldt,
-                                              const __nv_bfloat16* src, int64_t ld,
-                                              int row0, int nrows, int ncols) {
-  constexpr int kChunks = W / 8;
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kMmaThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const int gr = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < nrows && c < ncols) v = *reinterpret_cast<const uint4*>(src + gr * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * ldt + c) = v;
-  }
-}
-
-template <int DT, int ROWS_A, int ROWS_B>
-constexpr size_t mma_smem_bytes() {
-  // two tiles of ROWS_A rows, two of ROWS_B (rows padded by 8 bf16 against
-  // bank conflicts), lse and delta of up to 64 rows
-  return sizeof(__nv_bfloat16) * (2 * ROWS_A + 2 * ROWS_B) * (DT + 8) + 2 * 64 * sizeof(float);
-}
-
-// dK and dV of 64 keys of one KV head. Warp w owns keys 16w..16w+15 and,
-// per q tile of BQ rows, computes S^T = K Q^T and dP^T = V dO^T into fp32
-// fragments, P^T and dS^T in place, then dV += P^T dO and dK += dS^T Q with
-// P^T and dS^T rounded to bf16 as a operands (no trip through shared
-// memory). DT: D and Dv padded to 64 or 128 with zero columns.
 template <int DT, int BQ>
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_mma_kernel(const BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  constexpr int ld = DT + 8;
-  constexpr int NQ = BQ / 8;               // n-tiles of q columns
-  constexpr int ND = DT / 8;               // n-tiles of head columns
-  using bf = __nv_bfloat16;
-  bf* Ks = reinterpret_cast<bf*>(smem_mma);   // 64 x ld
-  bf* Vs = Ks + kMmaRows * ld;                // 64 x ld
-  bf* Qs = Vs + kMmaRows * ld;                // BQ x ld
-  bf* dOs = Qs + BQ * ld;                     // BQ x ld
-  float* lse_s = reinterpret_cast<float*>(dOs + BQ * ld);
-  float* dl_s = lse_s + BQ;
+constexpr size_t dkdv_smem_bytes() {
+  // alignment slack, K and V of the block's keys, kBwdStages Q/dO tiles,
+  // and kBwdStages rows of lse2 and delta
+  return kAtom + 2ull * kBwdKeys * DT * 2 + kBwdStages * (2ull * BQ * DT * 2 + 2ull * BQ * 4);
+}
 
-  const int k0 = blockIdx.x * kMmaRows;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
-  const int kw = (threadIdx.x >> 5) * 16;     // this warp's first key in the tile
+template <int DT>
+constexpr size_t dq_smem_bytes() {
+  // alignment slack, Q and dO of the block's rows, kBwdStages K/V tiles
+  return kAtom + 2ull * kRows * DT * 2 + kBwdStages * 2ull * kKeys * DT * 2;
+}
 
-  load_tile_mma<kMmaRows, DT>(Ks, ld, row_ptr<bf>(p.k, p.st[kK], b, kh, 0), p.st[kK].s,
-                              k0, p.Sk, p.D);
-  load_tile_mma<kMmaRows, DT>(Vs, ld, row_ptr<bf>(p.v, p.st[kV], b, kh, 0), p.st[kV].s,
-                              k0, p.Sk, p.Dv);
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) dk[n][r] = dv[n][r] = 0.f;
-
-  const int q_first = p.causal ? k0 : 0;   // k0 is a multiple of BQ
-  for (int hh = 0; hh < p.group; ++hh) {
-    const int h = kh * p.group + hh;
-    const int64_t stat = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
-    for (int q0 = q_first; q0 < p.Sq; q0 += BQ) {
-      __syncthreads();                     // the last tile's Qs, dOs are consumed
-      load_tile_mma<BQ, DT>(Qs, ld, row_ptr<bf>(p.q, p.st[kQ], b, h, 0), p.st[kQ].s,
-                            q0, p.Sq, p.D);
-      load_tile_mma<BQ, DT>(dOs, ld, row_ptr<bf>(p.dout, p.st[kDO], b, h, 0), p.st[kDO].s,
-                            q0, p.Sq, p.Dv);
-      load_row_stats<BQ, kMmaThreads>(lse_s, dl_s, p.lse + stat, p.delta + stat, q0, p.Sq);
-      __syncthreads();
-      if (p.causal && q0 + BQ - 1 < k0 + kw) continue;   // every pair masked for this warp
-
-      float s[NQ][4], dp[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) s[n][r] = dp[n][r] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DT / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        frag_a(ak, Ks, ld, kw, kk * 16);
-        frag_a(av, Vs, ld, kw, kk * 16);
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          uint32_t b0, b1;
-          frag_b(b0, b1, Qs, ld, n * 8, kk * 16);
-          mma_bf16(s[n], ak, b0, b1);
-          frag_b(b0, b1, dOs, ld, n * 8, kk * 16);
-          mma_bf16(dp[n], av, b0, b1);
-        }
-      }
-      // P^T = exp2(S^T * scale_log2 - lse) on valid pairs; dS^T = P^T o (dP^T - delta)
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int key = k0 + kw + g + 8 * (r >> 1);
-          const int qc = n * 8 + 2 * q4 + (r & 1);
-          const int qr = q0 + qc;
-          const bool valid = key < p.Sk && qr < p.Sq && (!p.causal || key <= qr);
-          const float pv = valid ? exp2f(s[n][r] * p.scale_log2 - lse_s[qc]) : 0.f;
-          s[n][r] = pv;
-          dp[n][r] = pv * (dp[n][r] - dl_s[qc]);
-        }
-      // dV += P^T dO and dK += dS^T Q, over the q columns in steps of 16
-#pragma unroll
-      for (int kq = 0; kq < BQ / 16; ++kq) {
-        uint32_t pa[4], da[4];
-        c_to_a<NQ>(pa, s, kq);
-        c_to_a<NQ>(da, dp, kq);
-#pragma unroll
-        for (int n0 = 0; n0 < DT; n0 += 16) {
-          uint32_t bt[4];
-          frag_b_trans(bt, dOs, ld, kq * 16, n0);
-          mma_bf16(dv[n0 / 8], pa, bt[0], bt[1]);
-          mma_bf16(dv[n0 / 8 + 1], pa, bt[2], bt[3]);
-          frag_b_trans(bt, Qs, ld, kq * 16, n0);
-          mma_bf16(dk[n0 / 8], da, bt[0], bt[1]);
-          mma_bf16(dk[n0 / 8 + 1], da, bt[2], bt[3]);
-        }
-      }
-    }
+// Copies floats [row0, row0 + N) of `src` to shared memory at `dst`, one
+// 4-byte cp.async each; zero past `nrows`.
+template <int N>
+__device__ __forceinline__ void load_stats(uint32_t dst, const float* src, int row0, int nrows) {
+  for (int i = threadIdx.x; i < N; i += kThreads) {
+    const bool ok = row0 + i < nrows;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst + 4 * i), "l"(ok ? src + row0 + i : src), "r"(ok ? 4 : 0)
+                 : "memory");
   }
+}
 
-  bf* dkb = static_cast<bf*>(p.dk) + b * p.st[kDK].b + kh * p.st[kDK].h;
-  bf* dvb = static_cast<bf*>(p.dv) + b * p.st[kDV].b + kh * p.st[kDV].h;
+// Stages a warpgroup's accumulator blocks (64 rows x 64 columns each, fp32)
+// times `mul` in bf16 at rows r0, r0 + 8 of a stage with row stride `ld`.
+template <int NB>
+__device__ __forceinline__ void stage_acc(__nv_bfloat16* stage, int ld, const float (&acc)[NB][32],
+                                          float mul, int r0, int c0) {
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int r = 0; r < 4; r += 2) {
-      const int key = k0 + kw + g + 8 * (r >> 1);
-      const int col = n * 8 + 2 * q4;
-      if (key >= p.Sk) continue;
-      if (col < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(dkb + static_cast<int64_t>(key) * p.st[kDK].s + col) =
-            __floats2bfloat162_rn(dk[n][r] * p.scale, dk[n][r + 1] * p.scale);
-      if (col < p.Dv)
-        *reinterpret_cast<__nv_bfloat162*>(dvb + static_cast<int64_t>(key) * p.st[kDV].s + col) =
-            __floats2bfloat162_rn(dv[n][r], dv[n][r + 1]);
+    for (int i = 0; i < 32; i += 2) {
+      const int row = r0 + 8 * ((i / 2) % 2);
+      const int col = nb * 64 + 8 * (i / 4) + c0;
+      *reinterpret_cast<__nv_bfloat162*>(stage + row * ld + col) =
+          __floats2bfloat162_rn(acc[nb][i] * mul, acc[nb][i + 1] * mul);
     }
 }
 
-// dQ of 64 q rows of one head. Warp w owns rows 16w..16w+15 and, per key
-// tile of BK keys, computes S = Q K^T and dP = dO V^T into fp32 fragments,
-// dS in place, then dQ += dS K with dS rounded to bf16. Causal q tiles run
-// heaviest first.
-template <int DT, int BK>
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma_kernel(const BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  constexpr int ld = DT + 8;
-  constexpr int NK = BK / 8;
-  constexpr int ND = DT / 8;
+// Writes ROWS staged rows (stride DT + 8) to rows [row0, row0 + ROWS) and
+// columns [0, ncols) of `dst` with row stride `ld`, 16 bytes a store; rows
+// at or past `nrows` are not written.
+template <int ROWS, int DT>
+__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, int64_t ld,
+                                           const __nv_bfloat16* stage, int row0, int nrows,
+                                           int ncols) {
+  constexpr int kChunks = DT / 8;
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks;
+    const int cc = idx % kChunks;
+    if (row0 + r < nrows && cc * 8 < ncols)
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * ld + cc * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * (DT + 8) + cc * 8);
+  }
+}
+
+// The bf16 A operand of k-step kk from an fp32 accumulator fragment: the
+// accumulator layout of columns 16kk..16kk+15 is the register-A layout.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[R], int kk) {
+  a[0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+  a[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+}
+
+// dK and dV of 128 keys of one KV head: warpgroup wg owns keys wg*64.. of
+// the block, whose K and V stay in shared memory (and, at a q step of 64,
+// in the warpgroup's registers as A operands). The block walks the q
+// tiles of BQ rows of each query head of the group (under the causal mask
+// from its first key on), their Q, dO, lse2 and delta through a three-stage
+// cp.async ring, so GQA sums in registers. Per tile a warpgroup computes
+// S^T = K Q^T and dP^T = V dO^T (wgmma, Q and dO K-major B operands),
+// P^T = exp2(S^T * scale_log2 - lse2) while dP^T is still running, issues
+// dV += P^T dO (P^T rounded to bf16 as register A, dO an MN-major B), then
+// dS^T = P^T o (dP^T - delta) and dK += dS^T Q, which it waits for only
+// once the next tile's S^T is in. A warpgroup skips a tile whose every pair
+// is masked. Rows past Sq read zero Q, dO, lse2 and delta, which add
+// nothing.
+template <int DT, int BQ>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const BwdParams p) {
   using bf = __nv_bfloat16;
-  bf* Qs = reinterpret_cast<bf*>(smem_mma);   // 64 x ld
-  bf* dOs = Qs + kMmaRows * ld;               // 64 x ld
-  bf* Ks = dOs + kMmaRows * ld;               // BK x ld
-  bf* Vs = Ks + BK * ld;                      // BK x ld
-  float* lse_s = reinterpret_cast<float*>(Vs + BK * ld);
-  float* dl_s = lse_s + kMmaRows;
+  constexpr int kNB = DT / 64;             // 64-wide blocks of dK and dV
+  constexpr int kNQ = BQ / 2;              // a thread's share of an m64 x BQ fragment
+  constexpr uint32_t kKVBytes = kBwdKeys * DT * 2;
+  constexpr uint32_t kTileBytes = BQ * DT * 2;
+  constexpr uint32_t kStageBytes = 2 * kTileBytes;
+  constexpr int ldst = DT + 8;             // staged output row, padded against bank conflicts
+  static_assert(2 * kBwdKeys * ldst * 2 <= 2 * kKVBytes + kBwdStages * kStageBytes,
+                "dK and dV stage in K, V and the ring");
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / p.group;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
-  const int qw = (threadIdx.x >> 5) * 16;     // this warp's first q row in the tile
-  const int64_t stat = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
-  const bf* kb = row_ptr<bf>(p.k, p.st[kK], b, kh, 0);
-  const bf* vb = row_ptr<bf>(p.v, p.st[kV], b, kh, 0);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kAtom - 1) & ~(kAtom - 1);   // swizzle atoms are 1024-aligned
+  const uint32_t k_s = base;
+  const uint32_t v_s = base + kKVBytes;
+  const uint32_t ring = base + 2 * kKVBytes;      // stage st: Q at ring + st * kStageBytes, then dO
+  const uint32_t stats = ring + kBwdStages * kStageBytes;   // stage st: lse2 (BQ floats), then delta
+  const float* stats_f = reinterpret_cast<const float*>(smem_raw + (stats - raw));
 
-  load_tile_mma<kMmaRows, DT>(Qs, ld, row_ptr<bf>(p.q, p.st[kQ], b, h, 0), p.st[kQ].s,
-                              q0, p.Sq, p.D);
-  load_tile_mma<kMmaRows, DT>(dOs, ld, row_ptr<bf>(p.dout, p.st[kDO], b, h, 0), p.st[kDO].s,
-                              q0, p.Sq, p.Dv);
-  load_row_stats<kMmaRows, kMmaThreads>(lse_s, dl_s, p.lse + stat, p.delta + stat, q0,
-                                        p.Sq);
-  float dq[ND][4];
+  const int k0 = blockIdx.z * kBwdKeys;    // the slowest grid dimension: causal, heaviest first
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int kw0 = k0 + wg * kWgRows;       // this warpgroup's first key
+  const int rk = warp * 16 + lane / 4;     // its keys kw0 + rk and + 8
+  const int c0 = 2 * (lane % 4);
+
+  const int q_first = p.causal ? k0 : 0;   // causal: earlier rows see none of these keys
+  const int per_head = p.Sq > q_first ? (p.Sq - q_first + BQ - 1) / BQ : 0;
+  const int n_tiles = per_head * p.group;
+
+  auto load = [&](int t) {
+    const int h = kh * p.group + t / per_head;
+    const int q0 = q_first + (t % per_head) * BQ;
+    const int st = t % kBwdStages;
+    const uint32_t q_s = ring + st * kStageBytes;
+    load_tile_sw128<BQ, DT>(q_s, row_ptr<bf>(p.q, p.st[kQ], b, h, 0), p.st[kQ].s, q0, p.Sq, p.D);
+    load_tile_sw128<BQ, DT>(q_s + kTileBytes, row_ptr<bf>(p.dout, p.st[kDO], b, h, 0),
+                            p.st[kDO].s, q0, p.Sq, p.Dv);
+    const int64_t stat = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+    const uint32_t st_s = stats + st * (2 * BQ * 4);
+    load_stats<BQ>(st_s, p.lse2 + stat, q0, p.Sq);
+    load_stats<BQ>(st_s + BQ * 4, p.delta + stat, q0, p.Sq);
+  };
+
+  load_tile_sw128<kBwdKeys, DT>(k_s, row_ptr<bf>(p.k, p.st[kK], b, kh, 0), p.st[kK].s, k0,
+                                p.Sk, p.D);
+  load_tile_sw128<kBwdKeys, DT>(v_s, row_ptr<bf>(p.v, p.st[kV], b, kh, 0), p.st[kV].s, k0,
+                                p.Sk, p.Dv);
+  if (n_tiles > 0) load(0);
+  cp_async_commit();
+
+  float dk[kNB][32], dv[kNB][32];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) dq[n][r] = 0.f;
+    for (int i = 0; i < 32; ++i) dk[nb][i] = dv[nb][i] = 0.f;
 
-  const int k_end = p.causal ? min(p.Sk, q0 + kMmaRows) : p.Sk;
-  const int n_tiles = (k_end + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int kb0 = kt * BK;
-    __syncthreads();                       // the last tile's Ks, Vs are consumed
-    load_tile_mma<BK, DT>(Ks, ld, kb, p.st[kK].s, kb0, p.Sk, p.D);
-    load_tile_mma<BK, DT>(Vs, ld, vb, p.st[kV].s, kb0, p.Sk, p.Dv);
+  // At a q step of 64 the warpgroup's K and V are register-A operands,
+  // loaded once: S^T and dP^T then read only Q and dO from shared memory.
+  constexpr bool kRegKV = BQ == 64;
+  uint32_t ka[kRegKV ? DT / 16 : 1][4], va[kRegKV ? DT / 16 : 1][4];
+  if constexpr (kRegKV) {
+    cp_async_wait<0>();
     __syncthreads();
-    if (p.causal && kb0 > q0 + qw + 15) continue;   // every pair masked for this warp
-
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[n][r] = dp[n][r] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DT / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      frag_a(aq, Qs, ld, qw, kk * 16);
-      frag_a(ao, dOs, ld, qw, kk * 16);
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        uint32_t b0, b1;
-        frag_b(b0, b1, Ks, ld, n * 8, kk * 16);
-        mma_bf16(s[n], aq, b0, b1);
-        frag_b(b0, b1, Vs, ld, n * 8, kk * 16);
-        mma_bf16(dp[n], ao, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = qw + g + 8 * (r >> 1);
-        const int qr = q0 + row;
-        const int key = kb0 + n * 8 + 2 * q4 + (r & 1);
-        const bool valid = key < p.Sk && qr < p.Sq && (!p.causal || key <= qr);
-        const float pv = valid ? exp2f(s[n][r] * p.scale_log2 - lse_s[row]) : 0.f;
-        dp[n][r] = pv * (dp[n][r] - dl_s[row]);
-      }
-#pragma unroll
-    for (int kq = 0; kq < BK / 16; ++kq) {  // dQ += dS K, K stored [key][d]
-      uint32_t da[4];
-      c_to_a<NK>(da, dp, kq);
-#pragma unroll
-      for (int n0 = 0; n0 < DT; n0 += 16) {
-        uint32_t bt[4];
-        frag_b_trans(bt, Ks, ld, kq * 16, n0);
-        mma_bf16(dq[n0 / 8], da, bt[0], bt[1]);
-        mma_bf16(dq[n0 / 8 + 1], da, bt[2], bt[3]);
-      }
+      ldmatrix_a<kBwdKeys>(ka[kk], k_s, wg * kWgRows + warp * 16, kk);
+      ldmatrix_a<kBwdKeys>(va[kk], v_s, wg * kWgRows + warp * 16, kk);
     }
   }
 
-  bf* dqb = static_cast<bf*>(p.dq) + b * p.st[kDQ].b + h * p.st[kDQ].h;
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int r = 0; r < 4; r += 2) {
-      const int qr = q0 + qw + g + 8 * (r >> 1);
-      const int col = n * 8 + 2 * q4;
-      if (qr < p.Sq && col < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(dqb + static_cast<int64_t>(qr) * p.st[kDQ].s + col) =
-            __floats2bfloat162_rn(dq[n][r] * p.scale, dq[n][r + 1] * p.scale);
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();                    // this thread's copies of tile t (and K, V)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
+    __syncthreads();                       // everyone's; and tile t-2 is consumed
+    if (t + 1 < n_tiles) {                 // into tile t-2's stage, under tile t's products
+      load(t + 1);
+      cp_async_commit();
     }
+    const int q0 = q_first + (t % per_head) * BQ;
+    if (kw0 >= p.Sk || (p.causal && q0 + BQ - 1 < kw0)) {   // every pair masked
+      wgmma_wait<0>();                     // an earlier tile's dK, before its stage is reused
+      continue;
+    }
+    const int st = t % kBwdStages;
+    const uint32_t q_s = ring + st * kStageBytes;
+    const uint32_t do_s = q_s + kTileBytes;
+    const float* lse2_s = stats_f + st * (2 * BQ);
+    const float* dl_s = lse2_s + BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T, two groups, over D in steps of 16
+    float s[kNQ], dp[kNQ];
+#pragma unroll
+    for (int i = 0; i < kNQ; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * (kBwdKeys * 128) + wg * (kWgRows * 128) + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * (BQ * 128) + (kk % 4) * 32;
+      if constexpr (kRegKV)
+        wgmma_rs_kmajor(s, ka[kk], desc_sw128(q_s + b_off, 16, kAtom));
+      else
+        wgmma_ss(s, desc_sw128(k_s + a_off, 16, kAtom), desc_sw128(q_s + b_off, 16, kAtom));
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * (kBwdKeys * 128) + wg * (kWgRows * 128) + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * (BQ * 128) + (kk % 4) * 32;
+      if constexpr (kRegKV)
+        wgmma_rs_kmajor(dp, va[kk], desc_sw128(do_s + b_off, 16, kAtom));
+      else
+        wgmma_ss(dp, desc_sw128(v_s + a_off, 16, kAtom), desc_sw128(do_s + b_off, 16, kAtom));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();                       // tile t-1's dK and S^T are in; dP^T may still run
+    fence_regs(s);
+
+    // P^T on the fragment: element 4g + e is key rk + 8(e/2), q column 8g + c0 + e%2
+    const bool diag = p.causal && q0 < kw0 + kWgRows;
+#pragma unroll
+    for (int g = 0; g < BQ / 8; ++g) {
+      const float2 l = *reinterpret_cast<const float2*>(lse2_s + 8 * g + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = fast_exp2(fmaf(s[4 * g + e], p.scale_log2, -(e % 2 ? l.y : l.x)));
+        if (diag && kw0 + rk + 8 * (e / 2) > q0 + 8 * g + c0 + e % 2) x = 0.f;
+        s[4 * g + e] = x;
+      }
+    }
+    uint32_t pa[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a(pa[kk], s, kk);
+    // dV += P^T dO: dO is [q][Dv] with Dv contiguous, an MN-major B
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+        wgmma_rs(dv[nb], pa[kk], desc_sw128(do_s + nb * (BQ * 128) + kk * (16 * 128), kAtom, kAtom));
+    wgmma_commit();
+    wgmma_wait<1>();                       // dP^T is in; dV may still run
+    fence_regs(dp);
+
+#pragma unroll
+    for (int g = 0; g < BQ / 8; ++g) {
+      const float2 d = *reinterpret_cast<const float2*>(dl_s + 8 * g + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[4 * g + e] = s[4 * g + e] * (dp[4 * g + e] - (e % 2 ? d.y : d.x));
+    }
+    uint32_t da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a(da[kk], dp, kk);
+    // dK += dS^T Q: Q is [q][D], an MN-major B
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+        wgmma_rs(dk[nb], da[kk], desc_sw128(q_s + nb * (BQ * 128) + kk * (16 * 128), kAtom, kAtom));
+    wgmma_commit();                        // waited for in the next tile
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) {
+    fence_regs(dk[nb]);
+    fence_regs(dv[nb]);
+  }
+
+  // epilogue: dK * scale and dV in bf16, staged over K, V and the ring
+  cp_async_wait<0>();
+  __syncthreads();                         // every warpgroup is done with shared memory
+  bf* stage_k = reinterpret_cast<bf*>(smem_raw + (base - raw));
+  bf* stage_v = stage_k + kBwdKeys * ldst;
+  stage_acc(stage_k, ldst, dk, p.scale, wg * kWgRows + rk, c0);
+  stage_acc(stage_v, ldst, dv, 1.f, wg * kWgRows + rk, c0);
+  __syncthreads();
+  store_tile<kBwdKeys, DT>(static_cast<bf*>(p.dk) + b * p.st[kDK].b + kh * p.st[kDK].h,
+                           p.st[kDK].s, stage_k, k0, p.Sk, p.D);
+  store_tile<kBwdKeys, DT>(static_cast<bf*>(p.dv) + b * p.st[kDV].b + kh * p.st[kDV].h,
+                           p.st[kDV].s, stage_v, k0, p.Sk, p.Dv);
 }
 
-// BQ, BK: q rows per dK/dV step and keys per dQ step; 32 q rows at DT 128
-// keep dK/dV's accumulators and fragments in registers.
-template <int DT, int BQ, int BK>
-cudaError_t launch_bwd_mma(const BwdParams& p, int B, cudaStream_t stream) {
-  constexpr size_t smem_kv = mma_smem_bytes<DT, kMmaRows, BQ>();
-  constexpr size_t smem_q = mma_smem_bytes<DT, kMmaRows, BK>();
+// dQ of 128 q rows of one head, shaped like the forward: warpgroup wg owns
+// rows wg*64.., Q and dO stay in shared memory (and, at width 64, in the
+// warpgroup's registers as A operands), 64-key K and V tiles go
+// through a three-stage cp.async ring. Per tile: S = Q K^T and dP = dO V^T,
+// P = exp2(S * scale_log2 - lse2) while dP runs, dS = P o (dP - delta), then
+// dQ += dS K (dS register A, K an MN-major B), waited for once the next
+// tile's S is in. The key tiles are summed in order, so dQ is the same run
+// to run. Causal q tiles run heaviest first.
+template <int DT>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdParams p) {
+  using bf = __nv_bfloat16;
+  constexpr int kNB = DT / 64;
+  constexpr uint32_t kQBytes = kRows * DT * 2;
+  constexpr uint32_t kKBytes = kKeys * DT * 2;
+  constexpr uint32_t kStageBytes = 2 * kKBytes;
+  constexpr int ldst = DT + 8;
+  static_assert(kRows * ldst * 2 <= 2 * kQBytes, "dQ stages over Q and dO");
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kAtom - 1) & ~(kAtom - 1);
+  const uint32_t q_s = base;
+  const uint32_t do_s = base + kQBytes;
+  const uint32_t ring = base + 2 * kQBytes;   // stage st: K at ring + st * kStageBytes, then V
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;   // causal: heaviest first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kh = h / p.group;
+  const bf* kb = row_ptr<bf>(p.k, p.st[kK], b, kh, 0);
+  const bf* vb = row_ptr<bf>(p.v, p.st[kV], b, kh, 0);
+  const int k_end = p.causal ? min(p.Sk, q0 + kRows) : p.Sk;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+
+  load_tile_sw128<kRows, DT>(q_s, row_ptr<bf>(p.q, p.st[kQ], b, h, 0), p.st[kQ].s, q0, p.Sq, p.D);
+  load_tile_sw128<kRows, DT>(do_s, row_ptr<bf>(p.dout, p.st[kDO], b, h, 0), p.st[kDO].s, q0,
+                             p.Sq, p.Dv);
+  load_tile_sw128<kKeys, DT>(ring, kb, p.st[kK].s, 0, p.Sk, p.D);
+  load_tile_sw128<kKeys, DT>(ring + kKBytes, vb, p.st[kV].s, 0, p.Sk, p.Dv);
+  cp_async_commit();
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int r0 = wg * kWgRows + warp * 16 + lane / 4;   // row in the block; and r0 + 8
+  const int c0 = 2 * (lane % 4);
+  const int q0w = q0 + wg * kWgRows;
+  const int wg_tiles = q0w >= p.Sq ? 0
+      : p.causal ? (min(p.Sk, q0w + kWgRows) + kKeys - 1) / kKeys : n_tiles;
+  const int64_t stat = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+  float lse2[2], dl[2];                    // a row past Sq: P = exp2(-inf) = 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    lse2[r] = row < p.Sq ? p.lse2[stat + row] : INFINITY;
+    dl[r] = row < p.Sq ? p.delta[stat + row] : 0.f;
+  }
+
+  float dq[kNB][32];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[nb][i] = 0.f;
+
+  // At width 64 the warpgroup's Q and dO are register-A operands, loaded
+  // once: S and dP then read only K and V from shared memory.
+  constexpr bool kRegQO = DT == 64;
+  uint32_t qa[kRegQO ? DT / 16 : 1][4], oa[kRegQO ? DT / 16 : 1][4];
+  if constexpr (kRegQO) {
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      ldmatrix_a<kRows>(qa[kk], q_s, wg * kWgRows + warp * 16, kk);
+      ldmatrix_a<kRows>(oa[kk], do_s, wg * kWgRows + warp * 16, kk);
+    }
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const uint32_t k_s = ring + (j % kBwdStages) * kStageBytes;
+    const uint32_t v_s = k_s + kKBytes;
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (j + 1 < n_tiles) {                 // into tile j-2's stage
+      const uint32_t nk = ring + ((j + 1) % kBwdStages) * kStageBytes;
+      load_tile_sw128<kKeys, DT>(nk, kb, p.st[kK].s, (j + 1) * kKeys, p.Sk, p.D);
+      load_tile_sw128<kKeys, DT>(nk + kKBytes, vb, p.st[kV].s, (j + 1) * kKeys, p.Sk, p.Dv);
+      cp_async_commit();
+    }
+    if (j >= wg_tiles) {                   // wholly masked for this warpgroup
+      wgmma_wait<0>();                     // the last tile's dQ, before its stage is reused
+      continue;
+    }
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * (kRows * 128) + wg * (kWgRows * 128) + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * (kKeys * 128) + (kk % 4) * 32;
+      if constexpr (kRegQO)
+        wgmma_rs_kmajor(s, qa[kk], desc_sw128(k_s + b_off, 16, kAtom));
+      else
+        wgmma_ss(s, desc_sw128(q_s + a_off, 16, kAtom), desc_sw128(k_s + b_off, 16, kAtom));
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * (kRows * 128) + wg * (kWgRows * 128) + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * (kKeys * 128) + (kk % 4) * 32;
+      if constexpr (kRegQO)
+        wgmma_rs_kmajor(dp, oa[kk], desc_sw128(v_s + b_off, 16, kAtom));
+      else
+        wgmma_ss(dp, desc_sw128(do_s + a_off, 16, kAtom), desc_sw128(v_s + b_off, 16, kAtom));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();                       // tile j-1's dQ and S are in; dP may still run
+    fence_regs(s);
+
+    const int k0 = j * kKeys;
+    const bool edge = k0 + kKeys > p.Sk || (p.causal && k0 + kKeys - 1 > q0w);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = fast_exp2(fmaf(s[i], p.scale_log2, -lse2[(i / 2) % 2]));
+      if (edge) {
+        const int row = q0 + r0 + 8 * ((i / 2) % 2);
+        const int col = k0 + 8 * (i / 4) + c0 + (i % 2);
+        if (col >= p.Sk || (p.causal && col > row)) x = 0.f;
+      }
+      s[i] = x;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    uint32_t da[kKeys / 16][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dl[(i / 2) % 2]);
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) acc_to_a(da[kk], dp, kk);
+    // dQ += dS K: K is [key][D] with D contiguous, an MN-major B
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+        wgmma_rs(dq[nb], da[kk], desc_sw128(k_s + nb * (kKeys * 128) + kk * (16 * 128), kAtom, kAtom));
+    wgmma_commit();                        // waited for in the next tile
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) fence_regs(dq[nb]);
+
+  // epilogue: dQ * scale in bf16, staged over Q and dO
+  cp_async_wait<0>();
+  __syncthreads();
+  bf* stage = reinterpret_cast<bf*>(smem_raw + (base - raw));
+  stage_acc(stage, ldst, dq, p.scale, r0, c0);
+  __syncthreads();
+  store_tile<kRows, DT>(static_cast<bf*>(p.dq) + b * p.st[kDQ].b + h * p.st[kDQ].h,
+                        p.st[kDQ].s, stage, q0, p.Sq, p.D);
+}
+
+template <int DT>
+cudaError_t launch_bwd_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
+  constexpr int BQ = bwd_q_step<DT>();
+  constexpr size_t smem_kv = dkdv_smem_bytes<DT, BQ>();
+  constexpr size_t smem_q = dq_smem_bytes<DT>();
   static bool smem_set = false;            // per instantiation
   if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<DT, BQ>,
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<DT, BQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_kv));
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DT, BK>,
+      e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<DT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_q));
     if (e != cudaSuccess) return clear_and_return(e);
     smem_set = true;
   }
-  const dim3 grid_kv((p.Sk + kMmaRows - 1) / kMmaRows, p.H / p.group, B);
-  flash_bwd_dkdv_mma_kernel<DT, BQ><<<grid_kv, kMmaThreads, smem_kv, stream>>>(p);
+  // The key (q) blocks vary slowest, so that under the causal mask every
+  // head's heaviest blocks start first and the last wave holds light ones.
+  const dim3 grid_kv(p.H / p.group, B, (p.Sk + kBwdKeys - 1) / kBwdKeys);
+  flash_bwd_dkdv_wgmma_kernel<DT, BQ><<<grid_kv, kThreads, smem_kv, stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.Sq == 0) return e;
-  const dim3 grid_q((p.Sq + kMmaRows - 1) / kMmaRows, p.H, B);
-  flash_bwd_dq_mma_kernel<DT, BK><<<grid_q, kMmaThreads, smem_q, stream>>>(p);
+  const dim3 grid_q(p.H, B, (p.Sq + kRows - 1) / kRows);
+  flash_bwd_dq_wgmma_kernel<DT><<<grid_q, kThreads, smem_q, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1379,22 +1620,21 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o, const 
               const void* lse, void* delta, void* dq, void* dk, void* dv,
               int B, int H, int KH, int Sq, int Sk, int D, int Dv,
               const long long* strides, float scale, int causal, void* stream) {
-  if (bad_args(B, H, KH, Sq, Sk, D, Dv) || D > kBwdMaxDim || Dv > kBwdMaxDim)
+  if (bad_args(B, H, KH, Sq, Sk, D, Dv) || D > kBwdMaxDim || Dv > kBwdMaxDim ||
+      (Sk + kBT - 1) / kBT > 65535 || (Sq + kBT - 1) / kBT > 65535)   // grid z
     return cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
-    // 16-byte copies of q, k, v, do rows; 4-byte stores of dq, dk, dv pairs
-    long long st16 = 0, st2 = 0;
-    for (int i = 0; i < 3; ++i) {
-      st16 |= strides[3 * kQ + i] | strides[3 * kK + i] | strides[3 * kV + i] |
-              strides[3 * kDO + i];
-      st2 |= strides[3 * kDQ + i] | strides[3 * kDK + i] | strides[3 * kDV + i];
+    // 16-byte copies of q, k, v, o, do rows and 16-byte stores of dq, dk, dv rows
+    const int rows16[] = {kQ, kK, kV, kO, kDO, kDQ, kDK, kDV};
+    const void* ptrs16[] = {q, k, v, o, dout, dq, dk, dv};
+    long long st16 = 0;
+    uintptr_t p16 = 0;
+    for (int i = 0; i < 8; ++i) {
+      const int t = rows16[i];
+      st16 |= strides[3 * t] | strides[3 * t + 1] | strides[3 * t + 2];
+      p16 |= reinterpret_cast<uintptr_t>(ptrs16[i]);
     }
-    const uintptr_t p16 = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
-    const uintptr_t p4 = reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
-                         reinterpret_cast<uintptr_t>(dv);
-    if (D % 16 != 0 || Dv % 16 != 0 || (st16 & 7) != 0 || (st2 & 1) != 0 ||
-        (p16 & 15) != 0 || (p4 & 3) != 0)
+    if (D % 16 != 0 || Dv % 16 != 0 || (st16 & 7) != 0 || (p16 & 15) != 0)
       return cudaErrorInvalidValue;
   }
   if (B == 0) return cudaSuccess;
@@ -1402,6 +1642,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o, const 
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
+  p.lse2 = p.delta + static_cast<int64_t>(B) * H * Sq;
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.H = H; p.group = H / KH; p.Sq = Sq; p.Sk = Sk; p.D = D; p.Dv = Dv;
   for (int t = 0; t < kNumT; ++t)
@@ -1412,14 +1653,22 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t rows = static_cast<int64_t>(B) * H * Sq;
   if (rows > 0) {
-    const int64_t blocks = (rows + kBwdThreads / 32 - 1) / (kBwdThreads / 32);
-    flash_bwd_delta_kernel<T><<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(p, rows);
+    if constexpr (sizeof(T) == 2) {       // 16-byte rows of o and do
+      const int ch = Dv <= 64 ? 8 : 16;
+      const int64_t per_block = (kBwdThreads / 32) * (32 / ch);
+      const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
+      if (ch == 8) flash_bwd_delta_vec_kernel<8><<<blocks, kBwdThreads, 0, s>>>(p, rows);
+      else flash_bwd_delta_vec_kernel<16><<<blocks, kBwdThreads, 0, s>>>(p, rows);
+    } else {
+      const int64_t blocks = (rows + kBwdThreads / 32 - 1) / (kBwdThreads / 32);
+      flash_bwd_delta_kernel<<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(p, rows);
+    }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  if constexpr (sizeof(T) == 2) {         // bf16: mma.sync
-    if (D <= 64 && Dv <= 64) return launch_bwd_mma<64, 64, 64>(p, B, s);
-    return launch_bwd_mma<128, 32, 64>(p, B, s);
+  if constexpr (sizeof(T) == 2) {         // bf16: wgmma
+    if (D <= 64 && Dv <= 64) return launch_bwd_wgmma<64>(p, B, s);
+    return launch_bwd_wgmma<128>(p, B, s);
   } else {                                 // fp32: CUDA cores
     if (D <= 64 && Dv <= 64) return launch_bwd_tiles<4>(p, B, s);
     return launch_bwd_tiles<8>(p, B, s);
@@ -1475,14 +1724,16 @@ extern "C" int flash_attention_fwd_bf16(
   return cudaErrorInvalidValue;
 }
 
-// Backward, two routes by dtype: bf16 on mma.sync (bf16 products of Q, K, V,
+// Backward, two routes by dtype: bf16 on wgmma (bf16 products of Q, K, V,
 // dO and of P^T/dS^T rounded to bf16, fp32 sums), fp32 on the CUDA cores in
 // exact fp32. q, k, v, o, do are read through their strides (unit last
 // stride; do may be a transposed view), dq, dk, dv written through theirs,
-// all in the inputs' type; lse is the forward's, fp32 (B, H, Sq), natural
-// log; delta an fp32 (B, H, Sq) scratch. `strides` order: q, k, v, o, do,
-// dq, dk, dv, each (batch, head, row). D and Dv up to 128. Three launches;
-// returns a cudaError_t as int.
+// all in the inputs' type; bf16 needs q, k, v, o, do, dq, dk, dv 16-byte
+// aligned with strides in multiples of 8. lse is the forward's, fp32 (B, H,
+// Sq), natural log; delta an fp32 scratch of 2 x B x H x Sq (delta, then
+// the lse in log2 units). `strides` order: q, k, v, o, do, dq, dk, dv,
+// each (batch, head, row). D and Dv up to 128. Three launches; returns a
+// cudaError_t as int.
 #define FA_BWD_ARGS                                                            \
     const void* q, const void* k, const void* v, const void* o, const void* dout, \
     const void* lse, void* delta, void* dq, void* dk, void* dv,               \

@@ -40,8 +40,8 @@ SIGNATURES = {
     # vectors per thread, stream
     "rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     # x, scale, dy, dx, partials, dscale, rows, dim, eps, x_dtype,
-    # scale_dtype, grid, stream
-    "rmsnorm_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P],
+    # scale_dtype, grid, path, vectors per thread, stream
+    "rmsnorm_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, lse (null: not written), B, H, KH, Sq, Sk, D, Dv,
     # 9 strides, scale, causal, stream
     "flash_attention_fwd_f32": [_P] * 5 + [_I] * 7 + [_L] * 9 + [_F, _I, _P],

@@ -20,14 +20,16 @@ Two routes, chosen by dtype alone, with no fallback between them:
 logsumexp of the scaled scores, (B, H, Sq), in natural-log units, which
 ``flash_attention_bwd_cuda`` reads. The backward takes D and Dv up to
 ``MAX_BWD_HEAD_DIM``, by dtype as the forward: bf16 on the tensor cores
-(``flash_attention_bwd_bf16``, ``mma.sync``; D and Dv multiples of 16,
-16-byte rows of q, k, v and do), fp32 on the CUDA cores
-(``flash_attention_bwd_f32``). ``plan_bwd`` checks what it takes on any
-device. It returns dq, dk, dv with the strides of q, k, v where
-those are dense, so the model's transposed views get their gradients in
-their own layout.
+(``flash_attention_bwd_bf16``: wgmma fed by cp.async rings; D and Dv
+multiples of 16, padded to the tile of ``BWD_TILES``; 16-byte rows of q, k,
+v, o and do), fp32 on the CUDA cores (``flash_attention_bwd_f32``).
+``plan_bwd`` checks what it takes on any device and names its route and
+tile. It returns dq, dk, dv with the strides of q, k, v where those are
+dense, so the model's transposed views get their gradients in their own
+layout.
 
-``ROUTE`` names the route of the last forward launch.
+``ROUTE`` names the route of the last forward launch, ``BWD_ROUTE`` the
+route and tile of the last backward launch.
 """
 from __future__ import annotations
 
@@ -42,8 +44,15 @@ MAX_BWD_HEAD_DIM = 128       # the dense archs: stablelm 64, mistral-nemo 128
 ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 # (D, Dv) tile widths the bf16 kernel is built for, smallest first.
 BF16_TILES = ((64, 64), (128, 128), (192, 128), (256, 256))
+# The bf16 backward's tiles: the width D and Dv are padded to, and the q rows
+# its dK/dV block takes a step (wgmma N; 32 at width 128 keeps the dK and dV
+# accumulators in registers). A dK/dV block owns BWD_KEYS keys, 64 a
+# warpgroup; a dQ block BWD_Q_ROWS q rows over key tiles of BWD_KEY_TILE.
+BWD_TILES = ((64, 64), (128, 32))
+BWD_KEYS, BWD_Q_ROWS, BWD_KEY_TILE = 128, 128, 64
 
 ROUTE: Optional[str] = None
+BWD_ROUTE: Optional[Tuple[str, Optional[Tuple[int, int]]]] = None
 
 
 def bf16_tile(D: int, Dv: int) -> Tuple[int, int]:
@@ -100,9 +109,19 @@ def _check_rows_16b(*ts: torch.Tensor) -> None:
                              f"of 8, got strides {t.stride()}")
 
 
-def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def bwd_tile(D: int, Dv: int) -> Tuple[int, int]:
+    """The bf16 backward's (width, q rows per dK/dV step) for D and Dv."""
+    for width, q_step in BWD_TILES:
+        if D <= width and Dv <= width:
+            return width, q_step
+    raise ValueError(f"the flash backward takes head dims up to {MAX_BWD_HEAD_DIM}, "
+                     f"got D {D}, Dv {Dv}")
+
+
+def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Checks, on any device, that the backward kernels take these inputs
-    (the forward's checks, then D and Dv up to ``MAX_BWD_HEAD_DIM``)."""
+    (the forward's checks, then D and Dv up to ``MAX_BWD_HEAD_DIM``);
+    returns (route, tile), the tile ``bwd_tile``'s, None on the fp32 route."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention_bwd_cuda takes 4-D q, k, v")
     D, Dv = q.shape[3], v.shape[3]
@@ -123,6 +142,9 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             or H % KH != 0 or Sk < 1):
         raise ValueError(f"bad attention shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.dtype != torch.bfloat16:
+        return ROUTES[q.dtype], None
+    return ROUTES[q.dtype], bwd_tile(D, Dv)
 
 
 def _one_card(*ts: torch.Tensor) -> None:
@@ -161,9 +183,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (dq, dk, dv) of ``flash_attention_cuda`` in q's dtype, from
     its output o, its lse and the output's gradient do, each read through its
     strides with a unit last stride (do may be a transposed view). Three
-    launches: D = rowsum(do o o) into an fp32 scratch, dK/dV over key tiles
-    (GQA summed in the block), dQ over q tiles."""
-    plan_bwd(q, k, v)
+    launches: D = rowsum(do o o) and the lse in log2 units into an fp32
+    scratch, dK/dV over key tiles (GQA summed in the block), dQ over q
+    tiles."""
+    global BWD_ROUTE
+    route = plan_bwd(q, k, v)
     B, H, Sq, D = q.shape
     KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     if o.shape != (B, H, Sq, Dv) or do.shape != o.shape or lse.shape != (B, H, Sq):
@@ -176,10 +200,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd_cuda needs a unit last stride "
                          "and a contiguous lse")
     _one_card(q, k, v, o, lse, do)
-    if q.dtype == torch.bfloat16:
-        _check_rows_16b(q, k, v, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        _check_rows_16b(q, k, v, o, do, dq, dk, dv)
+    delta = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
     name = ("flash_attention_bwd_bf16" if q.dtype == torch.bfloat16
             else "flash_attention_bwd_f32")
     strides = [st for t in (q, k, v, o, do, dq, dk, dv) for st in _strides(t)]
@@ -189,4 +213,5 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             B, H, KH, Sq, Sk, D, Dv, *strides, D ** -0.5, int(causal),
             build.stream_handle(q.device))
     build.check(code, name)
+    BWD_ROUTE = route
     return dq, dk, dv

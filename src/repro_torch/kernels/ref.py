@@ -150,3 +150,117 @@ def ssd_chunk_passes(x, dA, Bm, Cm, *, chunk: int):
     y = torch.einsum("bcgts,bctsgr,bcsgrp->bctgrp", CB, Lmat, x32)
     y = y + torch.einsum("bctgn,bctgr,bcgrnp->bctgrp", C32, cum.exp(), entering)
     return y.reshape(Bsz, S, H, P).to(x.dtype), run.reshape(Bsz, H, N, P)
+
+
+def attention_bwd_tiles(q, k, v, o, lse, do, *, causal: bool = True, q_step: int = 64,
+                        keys: int = 128, q_rows: int = 128, key_tile: int = 64,
+                        half: int = 64):
+    """The CUDA bf16 flash backward's tiling in plain PyTorch (fp32), for the
+    tests only (no path of the port runs it). Model layout with GQA, as
+    ``reference_attention_bwd``; the lse in log2 units (+inf for -inf) and
+    P = exp2(S * scale * log2(e) - lse2), as the kernels compute them.
+
+    dK/dV: blocks of ``keys`` keys per KV head, each split in warpgroup
+    halves of ``half`` keys; a block walks the q tiles of ``q_step`` rows of
+    each query head of its group, from its first key on under the causal
+    mask, and a half skips a tile whose every pair is masked (or whose keys
+    all lie past Sk). dQ: blocks of ``q_rows`` rows in halves of ``half``,
+    each half summing its ``key_tile``-key tiles in order up to the causal
+    limit. Returns (dq, dk, dv, visits): visits counts the (half, tile)
+    products of each kernel, over the KV heads and query heads of batch 0.
+    """
+    B, H, Sq, D = q.shape
+    KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // KH
+    scale = D ** -0.5
+    log2e = 1.4426950408889634
+    q32 = q.float().reshape(B, KH, G, Sq, D)
+    do32 = do.float().reshape(B, KH, G, Sq, Dv)
+    k32, v32 = k.float(), v.float()
+    delta = (do32 * o.float().reshape(B, KH, G, Sq, Dv)).sum(-1)
+    l2 = lse.float().reshape(B, KH, G, Sq) * log2e
+    l2 = torch.where(torch.isneginf(l2), torch.full_like(l2, float("inf")), l2)
+    qpos = torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    dk = torch.zeros_like(k32)
+    dv = torch.zeros_like(v32)
+    dq = torch.zeros_like(q32)
+    visits = {"dkdv": 0, "dq": 0}
+
+    for k0 in range(0, Sk, keys):
+        q_first = k0 if causal else 0
+        for kw0 in range(k0, k0 + keys, half):
+            if kw0 >= Sk:
+                continue
+            ks = slice(kw0, min(kw0 + half, Sk))
+            for hh in range(G):
+                for q0 in range(q_first, Sq, q_step):
+                    if causal and q0 + q_step - 1 < kw0:
+                        continue
+                    visits["dkdv"] += KH
+                    qs = slice(q0, min(q0 + q_step, Sq))
+                    qt, dot = q32[:, :, hh, qs], do32[:, :, hh, qs]
+                    s_t = torch.einsum("bkid,bkjd->bkij", k32[:, :, ks], qt)
+                    p_t = torch.exp2(s_t * (scale * log2e) - l2[:, :, hh, None, qs])
+                    if causal:
+                        valid = kpos[ks, None] <= qpos[None, qs]
+                        p_t = torch.where(valid, p_t, torch.zeros_like(p_t))
+                    dp_t = torch.einsum("bkie,bkje->bkij", v32[:, :, ks], dot)
+                    ds_t = p_t * (dp_t - delta[:, :, hh, None, qs])
+                    dv[:, :, ks] += torch.einsum("bkij,bkje->bkie", p_t, dot)
+                    dk[:, :, ks] += torch.einsum("bkij,bkjd->bkid", ds_t, qt)
+
+    for q0 in range(0, Sq, q_rows):
+        n_tiles = -(-(min(Sk, q0 + q_rows) if causal else Sk) // key_tile)
+        for q0w in range(q0, q0 + q_rows, half):
+            if q0w >= Sq:
+                continue
+            wg_tiles = -(-min(Sk, q0w + half) // key_tile) if causal else n_tiles
+            rows = slice(q0w, min(q0w + half, Sq))
+            for j in range(wg_tiles):
+                visits["dq"] += H
+                ks = slice(j * key_tile, min((j + 1) * key_tile, Sk))
+                s = torch.einsum("bkgid,bkjd->bkgij", q32[:, :, :, rows], k32[:, :, ks])
+                p = torch.exp2(s * (scale * log2e) - l2[:, :, :, rows, None])
+                if causal:
+                    valid = kpos[None, ks] <= qpos[rows, None]
+                    p = torch.where(valid, p, torch.zeros_like(p))
+                dp = torch.einsum("bkgie,bkje->bkgij", do32[:, :, :, rows], v32[:, :, ks])
+                ds = p * (dp - delta[:, :, :, rows, None])
+                dq[:, :, :, rows] += torch.einsum("bkgij,bkjd->bkgid", ds, k32[:, :, ks])
+    return ((dq * scale).reshape(B, H, Sq, D).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype), visits)
+
+
+def rmsnorm_bwd_partials(x, scale, dy, *, path: str, grid: int, eps: float = 1e-5,
+                         warps: int = 4, slices: int = 8):
+    """The CUDA ``rmsnorm_bwd``'s order of summation in plain PyTorch (fp32),
+    for the tests only. x, dy (R, D); ``path`` and ``grid`` as
+    ``rmsnorm.plan_bwd`` gives them. On ``warp_per_row`` warp w of block b
+    takes rows b*warps + w, then + grid*warps, ..., summing dy * x_hat of
+    its rows in order, and the block adds its warps in order; on the other
+    paths block b takes rows b, b + grid, ... Then, per column, ``slices``
+    running sums over the blocks b = y, y + slices, ... are added in order
+    of y. Returns (dx, dscale, partials (grid, D) fp32), dx in x's dtype,
+    dscale in scale's."""
+    R, D = x.shape
+    x32, dy32, s32 = x.float(), dy.float(), scale.float()
+    rstd = torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    g = dy32 * s32
+    dx = rstd * g - x32 * (rstd ** 3 * (x32 * g).sum(-1, keepdim=True) / D)
+    contrib = dy32 * (x32 * rstd)
+    per_block = warps if path == "warp_per_row" else 1
+    partials = torch.zeros((grid, D), dtype=torch.float32, device=x.device)
+    for b in range(grid):
+        for w in range(per_block):
+            acc = torch.zeros(D, dtype=torch.float32, device=x.device)
+            for r in range(b * per_block + w, R, grid * per_block):
+                acc = acc + contrib[r]
+            partials[b] = partials[b] + acc
+    total = torch.zeros(D, dtype=torch.float32, device=x.device)
+    for y in range(slices):
+        acc = torch.zeros(D, dtype=torch.float32, device=x.device)
+        for b in range(y, grid, slices):
+            acc = acc + partials[b]
+        total = total + acc
+    return dx.to(x.dtype), total.to(scale.dtype), partials

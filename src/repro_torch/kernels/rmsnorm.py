@@ -19,8 +19,19 @@ The plain version is ``ref.reference_rmsnorm``; ``ops.rmsnorm`` picks
 between them. ``PLAN`` is the plan of the last launch.
 
 ``rmsnorm_bwd_cuda`` launches the backward (``rmsnorm_bwd``): dx per row,
-and dscale in two deterministic stages, per-block fp32 partials over a grid
-of ``bwd_grid`` blocks, then a reduction over the blocks in a fixed order.
+and dscale in two deterministic stages, per-block fp32 partials, then a
+reduction over the blocks in a fixed order. ``plan_bwd`` picks its path and
+grid, on any device:
+
+- ``warp_per_row``: one warp per row, x and dy read once into registers
+  with the warp's part of ``scale``, each lane summing dscale for its own
+  columns over the rows it walks, the block adding its warps in order at
+  the end; x rows of at most ``BWD_WARP_ROW_BYTES`` (and scale's), and at
+  least ``FEW_ROWS_PER_SM`` rows per SM;
+- ``block_per_row``: 256 threads per row otherwise, up to ``MAX_DIM``;
+- ``scalar``: where D or a pointer does not allow 16-byte accesses.
+
+``PLAN_BWD`` is the plan of the last backward launch.
 """
 from __future__ import annotations
 
@@ -48,6 +59,9 @@ FEW_ROWS_PER_SM = 2
 BLOCKS_PER_SM = {True: 2, False: 4}
 PREFETCH_MAX_VECTORS = 8
 BWD_BLOCKS_PER_SM = 2          # the backward's row blocks, each holding a dscale partial
+# The most of a row of x (and of scale) a warp of the backward holds: the
+# lane keeps x, dy, scale and its fp32 dscale columns in registers.
+BWD_WARP_ROW_BYTES = 4096
 
 
 @dataclass(frozen=True)
@@ -59,6 +73,7 @@ class Plan:
 
 
 PLAN: Optional[Plan] = None
+PLAN_BWD: Optional[Plan] = None
 
 
 def plan(R: int, D: int, x_dtype: torch.dtype, scale_dtype: torch.dtype, *,
@@ -116,9 +131,30 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def bwd_grid(R: int, sms: int = H100_SMS) -> int:
-    """Row blocks of the backward: each takes rows blockIdx, + grid, ..."""
-    return max(1, min(R, sms * BWD_BLOCKS_PER_SM))
+def bwd_grid(R: int, sms: int = H100_SMS, rows_per_block: int = 1) -> int:
+    """Row blocks of the backward: each takes ``rows_per_block`` rows from
+    blockIdx * rows_per_block, then the same + grid * rows_per_block, ..."""
+    return max(1, min(-(-R // rows_per_block), sms * BWD_BLOCKS_PER_SM))
+
+
+def plan_bwd(R: int, D: int, x_dtype: torch.dtype, scale_dtype: torch.dtype, *,
+             aligned: bool = True, sms: int = H100_SMS) -> Plan:
+    """The backward's path and launch shape for an (R, D) x and dy and a (D,)
+    scale. ``aligned``: x, dy, dx and scale start on 16-byte boundaries."""
+    if x_dtype not in build.DTYPE_CODE or scale_dtype not in build.DTYPE_CODE:
+        raise TypeError(f"rmsnorm_bwd takes float32/bfloat16, got {x_dtype}, {scale_dtype}")
+    if not 1 <= D <= MAX_DIM:
+        raise ValueError(f"rmsnorm_bwd_cuda takes 1 <= D <= {MAX_DIM}, got {D}")
+    vec = 16 // x_dtype.itemsize
+    if not aligned or D % vec:
+        return Plan("scalar", bwd_grid(R, sms), THREADS["scalar"], 0)
+    row_bytes = D * max(x_dtype.itemsize, scale_dtype.itemsize)
+    path = ("warp_per_row" if row_bytes <= BWD_WARP_ROW_BYTES and R >= FEW_ROWS_PER_SM * sms
+            else "block_per_row")
+    per_thread = -(-(D // vec) // ROW_THREADS[path])
+    vectors = 1 << (per_thread - 1).bit_length()          # 1, 2, 4 or 8
+    grid = bwd_grid(R, sms, THREADS[path] // ROW_THREADS[path])
+    return Plan(path, grid, THREADS[path], vectors)
 
 
 def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
@@ -136,18 +172,19 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         raise ValueError("rmsnorm_bwd_cuda needs x, scale and dy on one CUDA device")
     if not (x.is_contiguous() and scale.is_contiguous() and dy.is_contiguous()):
         raise ValueError("rmsnorm_bwd_cuda needs contiguous x, scale and dy")
+    global PLAN_BWD
     R, D = x.shape
-    if not 1 <= D <= MAX_DIM:
-        raise ValueError(f"rmsnorm_bwd_cuda takes 1 <= D <= {MAX_DIM}, got {D}")
-    grid = bwd_grid(R, _sms(x.device.index))
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
-    partials = torch.empty((grid, D), dtype=torch.float32, device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy, dx))
+    p = plan_bwd(R, D, x.dtype, scale.dtype, aligned=aligned, sms=_sms(x.device.index))
+    partials = torch.empty((p.grid, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         code = build.library().lib.rmsnorm_bwd(
             x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             partials.data_ptr(), dscale.data_ptr(), R, D, float(eps),
-            build.DTYPE_CODE[x.dtype], build.DTYPE_CODE[scale.dtype], grid,
-            build.stream_handle(x.device))
+            build.DTYPE_CODE[x.dtype], build.DTYPE_CODE[scale.dtype], p.grid,
+            PATH_CODE[p.path], p.vectors, build.stream_handle(x.device))
     build.check(code, "rmsnorm_bwd")
+    PLAN_BWD = p
     return dx, dscale

@@ -222,6 +222,35 @@ def test_rmsnorm_bwd_kernel(cuda, R, D, x_dtype, s_dtype):
     assert torch.equal(again[0], dx) and torch.equal(again[1], ds)   # deterministic
 
 
+@pytest.mark.parametrize("R,D,x_dtype,s_dtype,path", [
+    (8192, 2048, torch.bfloat16, torch.bfloat16, "warp_per_row"),   # the train path
+    (1000, 1024, torch.float32, torch.float32, "warp_per_row"),
+    (1001, 512, torch.bfloat16, torch.float32, "warp_per_row"),     # ragged grid
+    (8192, 2048, torch.float32, torch.float32, "block_per_row"),
+    (4, 2048, torch.bfloat16, torch.bfloat16, "block_per_row"),     # few rows
+    (333, 4096, torch.bfloat16, torch.float32, "block_per_row"),
+    (3, 8192, torch.float32, torch.float32, "block_per_row"),
+    (77, 2050, torch.float32, torch.bfloat16, "scalar"),
+    (5, 4100, torch.bfloat16, torch.bfloat16, "scalar")])
+def test_rmsnorm_bwd_kernel_paths(cuda, R, D, x_dtype, s_dtype, path):
+    """Each path of ``plan_bwd``: the path that ran is the plan's, the
+    gradients are the plain version's, and two runs give equal bits."""
+    gen = torch.Generator(device=cuda).manual_seed(R + D + 1)
+    x = _randn(gen, (R, D), x_dtype, cuda)
+    s = 1.0 + 0.1 * _randn(gen, (D,), s_dtype, cuda)
+    dy = _randn(gen, (R, D), x_dtype, cuda)
+    dx, ds = rn.rmsnorm_bwd_cuda(x, s, dy)
+    assert rn.PLAN_BWD.path == path
+    assert rn.PLAN_BWD == rn.plan_bwd(
+        R, D, x_dtype, s_dtype, sms=torch.cuda.get_device_properties(cuda).multi_processor_count)
+    want_dx, want_ds = ref.reference_rmsnorm_bwd(x, s, dy)
+    torch.testing.assert_close(dx.float(), want_dx.float(), atol=TOL[x_dtype], rtol=TOL[x_dtype])
+    tol = TOL[s_dtype] if s_dtype == torch.bfloat16 else TOL[x_dtype]
+    torch.testing.assert_close(ds.float(), want_ds.float(), atol=tol * R ** 0.5, rtol=tol)
+    again = rn.rmsnorm_bwd_cuda(x, s, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], ds)
+
+
 FLASH_BWD_CASES = [
     (2, 4, 4, 128, 128, 64, 64, True), (1, 8, 2, 200, 200, 128, 128, True),
     (1, 4, 4, 130, 130, 64, 64, False), (2, 4, 2, 70, 70, 16, 16, True),
@@ -230,7 +259,16 @@ FLASH_BWD_CASES = [
     (1, 32, 8, 256, 256, 128, 128, True),     # GQA 32/8 at hd 128
     (1, 6, 2, 1000, 1000, 64, 64, True),      # ragged at 64, batch 1
     (1, 1, 1, 1, 1, 64, 64, True),
-    (2, 4, 4, 96, 96, 64, 32, False)]          # Dv != D
+    (2, 4, 4, 96, 96, 64, 32, False),          # Dv != D
+    # the edges of the bf16 tiles: 128-key dK/dV blocks, 128-row dQ blocks,
+    # 64-key tiles, q steps of 64 (width 64) and 32 (width 128)
+    (1, 2, 2, 127, 127, 64, 64, True), (1, 2, 2, 129, 129, 64, 64, True),
+    (1, 2, 1, 4096, 4096, 64, 64, True),      # the train path's length
+    (1, 4, 2, 129, 300, 64, 64, True),        # Sk > Sq, ragged blocks of both
+    (1, 4, 4, 127, 385, 128, 128, False),     # Sk > Sq at width 128
+    (1, 2, 2, 129, 129, 128, 128, True),      # ragged q steps of 32
+    (1, 2, 2, 100, 100, 64, 128, True),       # D 64 padded to width 128
+    (1, 1, 1, 300, 300, 64, 64, True)]        # batch 1, one head
 
 
 @pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv,causal", FLASH_BWD_CASES)
@@ -253,6 +291,7 @@ def test_flash_attention_bwd_kernel(cuda, B, H, KH, Sq, Sk, D, Dv, causal, dtype
     for got, w, like in zip((dq, dk, dv), want, (q, k, v)):
         assert got.dtype == dtype and got.shape == like.shape and got.stride() == like.stride()
         torch.testing.assert_close(got.float(), w.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert fa.BWD_ROUTE == fa.plan_bwd(q, k, v)
     again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
     assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))   # no atomics
 

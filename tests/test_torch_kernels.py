@@ -325,3 +325,131 @@ def test_flash_plan_bwd_refuses_wide_heads():
     fa.plan_bwd(q[..., :128], q[..., :128], v)     # D 128 is taken
     with pytest.raises(TypeError):
         fa.plan_bwd(q.half()[..., :64], q.half()[..., :64], v.half()[..., :64])
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' designs: their tiling and summation order, in plain
+# PyTorch, against jax.vjp; and the plans that pick their paths
+# ---------------------------------------------------------------------------
+
+def _has_valid_pair(q0, q1, k0, k1, Sq, Sk, causal):
+    """Whether rows [q0, q1) and keys [k0, k1), cut to Sq and Sk, hold a
+    pair the mask lets through (key <= row under the causal mask)."""
+    q1, k1 = min(q1, Sq), min(k1, Sk)
+    return q0 < q1 and k0 < k1 and (not causal or k0 <= q1 - 1)
+
+
+def _tiles_with_a_valid_pair(H, KH, Sq, Sk, causal, q_step):
+    """The (warpgroup half, tile) products a kernel must run, counted by
+    brute force over every tile of the grid."""
+    half = fa.BWD_KEYS // 2
+    dkdv = sum(_has_valid_pair(q0, q0 + q_step, kw0, kw0 + half, Sq, Sk, causal)
+               for kw0 in range(0, -(-Sk // fa.BWD_KEYS) * fa.BWD_KEYS, half)
+               for q0 in range(0, Sq, q_step)) * H
+    dq = sum(_has_valid_pair(q0w, q0w + half, k0, k0 + fa.BWD_KEY_TILE, Sq, Sk, causal)
+             for q0w in range(0, -(-Sq // fa.BWD_Q_ROWS) * fa.BWD_Q_ROWS, half)
+             for k0 in range(0, Sk, fa.BWD_KEY_TILE)) * H
+    return {"dkdv": dkdv, "dq": dq}
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,causal", [
+    (1, 2, 1, 127, 127, True), (1, 2, 1, 129, 129, True),    # 128-key and 128-row edges
+    (2, 4, 2, 200, 200, True), (1, 4, 2, 129, 300, False),
+    (1, 2, 2, 100, 260, True),                                # keys past every query
+    (1, 2, 2, 260, 100, True), (1, 1, 1, 1, 1, True)])
+@pytest.mark.parametrize("q_step", [64, 32])                  # widths 64 and 128
+def test_flash_bwd_tiling_matches_jax(B, H, KH, Sq, Sk, causal, q_step):
+    """The bf16 backward's decomposition (128-key dK/dV blocks in two
+    halves, q tiles of ``q_step`` from the block's first key on, dQ over
+    64-key tiles in order, tiles skipped where every pair is masked)
+    against jax.vjp of the model's blockwise attention; it runs exactly the
+    tiles that hold a valid pair."""
+    D = Dv = 16
+    arrs, (q, k, v, do) = _attn_inputs(Sq + Sk + q_step, B, H, KH, Sq, Sk, D, Dv)
+    o, lse = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    dq, dk, dv, visits = ref.attention_bwd_tiles(
+        q, k, v, o, lse, do, causal=causal, q_step=q_step, keys=fa.BWD_KEYS,
+        q_rows=fa.BWD_Q_ROWS, key_tile=fa.BWD_KEY_TILE)
+    for want, got in zip(_jax_attention_vjp(arrs, causal, H, KH), (dq, dk, dv)):
+        _close(want, got, TOL["float32"])
+    assert visits == _tiles_with_a_valid_pair(H, KH, Sq, Sk, causal, q_step)
+
+
+def test_flash_bwd_tiling_no_valid_key_is_zero():
+    """A row whose lse is -inf takes P = exp2(-(+inf)) = 0 in the kernels'
+    log2 units, so no gradient, as in the plain backward."""
+    _, (q, k, v, do) = _attn_inputs(4, 1, 2, 2, 70, 70, 16, 16)
+    o, lse = ops.flash_attention_plain(q, k, v, return_lse=True)
+    lse[:, :, 5] = float("-inf")
+    got = ref.attention_bwd_tiles(q, k, v, o, lse, do)[:3]
+    want = ref.reference_attention_bwd(q, k, v, o, lse, do)
+    assert torch.all(got[0][:, :, 5] == 0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TOL["float32"], rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("D,Dv,want", [(64, 64, (64, 64)), (16, 16, (64, 64)),
+                                       (64, 128, (128, 32)), (128, 128, (128, 32)),
+                                       (80, 48, (128, 32))])
+def test_flash_bwd_tile_choice(D, Dv, want):
+    assert fa.bwd_tile(D, Dv) == want
+    q = torch.zeros(1, 2, 8, D, dtype=torch.bfloat16)
+    v = torch.zeros(1, 2, 8, Dv, dtype=torch.bfloat16)
+    assert fa.plan_bwd(q, q, v) == ("tensor_cores", want)
+    assert fa.plan_bwd(q.float(), q.float(), v.float()) == ("cuda_cores", None)
+
+
+@pytest.mark.parametrize("R,D,sms,path", [
+    (40, 64, 4, "warp_per_row"), (70, 1024, 4, "warp_per_row"),
+    (37, 48, 32, "block_per_row"), (30, 2048, 2, "block_per_row"),
+    (9, 66, 4, "scalar")])
+def test_rmsnorm_bwd_partials_match_jax(R, D, sms, path):
+    """The backward's order of summation on each path (per-warp or
+    per-block dscale partials, warps added in order, then the blocks in
+    eight strided slices), with the plan's grid, against jax.vjp of the
+    model's RMSNorm."""
+    (jx, js, jdy), (tx, ts, tdy) = _inputs(R * D, [(R, D), (D,), (R, D)], "float32")
+    js, ts = 1.0 + 0.1 * js, 1.0 + 0.1 * ts
+    p = rn.plan_bwd(R, D, torch.float32, torch.float32, sms=sms)
+    assert p.path == path
+    dx, ds, partials = ref.rmsnorm_bwd_partials(tx, ts, tdy, path=p.path, grid=p.grid)
+    assert partials.shape == (p.grid, D)
+    _, vjp = jax.vjp(lambda x, s: JL.apply_rmsnorm({"scale": s}, x), jx, js)
+    jdx, jds = vjp(jdy)
+    _close(jdx, dx, TOL["float32"])
+    _close(jds, ds, TOL["float32"])
+    torch.testing.assert_close(partials.sum(0), ds, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("R,D,xd,sd,want", [
+    # the train path's (8192, 2048): a warp a row in bf16, a block in fp32
+    (8192, 2048, BF, BF, ("warp_per_row", 264, 128, 8)),
+    (8192, 2048, F32, F32, ("block_per_row", 264, 256, 2)),
+    (1000, 2048, BF, BF, ("warp_per_row", 250, 128, 8)),
+    (1000, 1024, F32, F32, ("warp_per_row", 250, 128, 8)),
+    (264, 512, BF, F32, ("warp_per_row", 66, 128, 2)),
+    # a wider scale than a warp holds, or too few rows for two per SM
+    (8192, 2048, BF, F32, ("block_per_row", 264, 256, 1)),
+    (263, 1024, BF, BF, ("block_per_row", 263, 256, 1)),
+    (4, 2048, BF, BF, ("block_per_row", 4, 256, 1)),
+    (3, 8192, F32, F32, ("block_per_row", 3, 256, 8)),
+    (333, 4096, BF, BF, ("block_per_row", 264, 256, 2)),
+    # no 16-byte accesses
+    (77, 2050, F32, BF, ("scalar", 77, 256, 0)),
+    (5, 4100, BF, BF, ("scalar", 5, 256, 0))])
+def test_rmsnorm_plan_bwd(R, D, xd, sd, want):
+    """The backward's path and launch shape, on any device: (path, grid,
+    threads per block, 16-byte vectors of x per thread)."""
+    p = rn.plan_bwd(R, D, xd, sd)
+    assert (p.path, p.grid, p.threads, p.vectors) == want
+
+
+def test_rmsnorm_plan_bwd_unaligned_and_refusals():
+    assert rn.plan_bwd(8192, 2048, BF, BF, aligned=False).path == "scalar"
+    assert rn.plan_bwd(10 ** 6, 1024, BF, BF, sms=100).grid == 200   # 100 SMs x 2
+    assert rn.plan_bwd(0, 64, BF, BF).grid == 1                      # dscale is then 0
+    with pytest.raises(TypeError):
+        rn.plan_bwd(4, 64, torch.float16, BF)
+    for D in (0, 8193):
+        with pytest.raises(ValueError):
+            rn.plan_bwd(4, D, BF, BF)
