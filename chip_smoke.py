@@ -18,31 +18,36 @@ its seconds:
                 and launch shape of ``rmsnorm.plan`` and fails on another
                 path; ``ssd_scan`` also against the sequential recurrence
                 ``reference_ssd``;
-                The backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``)
-                against the plain backward versions of ``kernels/ref.py`` on
-                the same inputs, with ``library_ms`` the backward through
-                ``F.rms_norm`` and ``F.scaled_dot_product_attention`` under
-                autograd (forward and backward, less the forward alone);
+                The backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``,
+                ``ssd_scan_bwd``) against the plain backward versions of
+                ``kernels/ref.py`` on the same inputs, with ``library_ms``
+                the backward through ``F.rms_norm`` and
+                ``F.scaled_dot_product_attention`` under autograd (forward
+                and backward, less the forward alone; none for ssd_scan);
                 each names the path of ``rmsnorm.plan_bwd`` or the route and
                 tile of ``flash_attention.plan_bwd`` that ran, and fails on
-                another;
-4. consistency  stablelm-1.6b and mamba2-370m at full width in float32:
-                decode logits at every prompt position equal the full
-                forward's (mamba2 over two 256-row chunks), and reduced
-                stablelm, mamba2 and zamba2 models on the card equal the same
-                models on the CPU; a reduced stablelm (fp32, remat full)
-                trains 3 steps on the card and on the CPU from one init, with
-                equal losses and grad norms;
+                another; each ``ssd_scan_bwd`` gradient is also held by
+                norm, and the slow-decay case against a control without the
+                carried state gradient;
+4. consistency  stablelm-1.6b, mamba2-370m and zamba2-1.2b at full width in
+                float32: decode logits at every prompt position equal the
+                full forward's (the ssm/hybrid archs over two 256-row
+                chunks), and reduced stablelm, mamba2 and zamba2 models on
+                the card equal the same models on the CPU; reduced stablelm,
+                mamba2 and zamba2 (fp32, remat full) train 3 steps on the
+                card and on the CPU from one init, with equal losses and
+                grad norms;
 5. serve        the serving paths: stablelm-1.6b, mamba2-370m and zamba2-1.2b
                 at full width in bf16 each serve a batch through
                 ``ServingEngine.generate``, then ``apply_lm`` runs on the same
                 model; the launch counts of each path must be exactly the
                 path's, which proves that it went through its kernels;
-6. train        the training path: full-width bf16 stablelm-1.6b with its own
-                TrainConfig (AdamW, remat full) at seq 4096, batch 2 (the
-                train_4k global batch of 256 cut to what one card holds),
-                through ``launch/train.py``'s loop: one warm-up step, then 4
-                steps on one fixed batch, each with exactly its launches.
+6. train        the training paths: full-width bf16 stablelm-1.6b, mamba2-370m
+                and zamba2-1.2b, each with its own TrainConfig (AdamW, remat
+                full) at seq 4096, batch 2 (the train_4k global batch of 256
+                cut to what one card holds), through ``launch/train.py``'s
+                loop: one warm-up step, then 4 steps on one fixed batch,
+                each with exactly its launches.
 
 Then a summary line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero before
@@ -75,6 +80,13 @@ TRAIN_TOL = 1e-4
 # The forward's lse (fp32 sums of the same exact products) against the plain
 # one: (atol, rtol), as tests/test_torch_cuda.py holds it.
 LSE_TOL = (1e-3, 1e-4)
+# ||got - want|| / ||want|| of the ssd_scan_bwd gradients (dx, d dA, dB, dC),
+# by B/C's dtype. A sound kernel reads about 6e-7 and 4e-6 on dx and d dA,
+# and with bf16 B and C, where dB and dC are rounded to bf16, 2e-5 to 4e-5 on
+# those; the plain backward from x and dy rounded to bf16, the control of
+# the bf16 cases, reads about 2e-3 on dx and d dA and 3e-3 on dB and dC.
+SSD_GRAD_NORM_TOL = {"float32": (1e-4, 1e-4, 1e-4, 1e-4),
+                     "bfloat16": (1e-4, 1e-4, 1e-3, 1e-3)}
 # ||got - want|| / ||want|| of each flash gradient. A sound bf16 kernel reads
 # about 3e-3 (bf16 P^T, dS^T and outputs); the same gradients from inputs
 # rounded to fp8 e4m3, the control, about 5e-2; the case fails unless the
@@ -154,6 +166,26 @@ def ssd_ops_s(BH: int, S: int, P: int, N: int, Q: int, bc_dtype: str,
     recurrence = 5 * rows * N * P / PEAK_FLOPS["float32"]
     chunked = rows * (Q * N / heads_per_group / PEAK_FLOPS[bc_dtype]
                       + (Q * P + 4 * N * P) / PEAK_FLOPS["float32"])
+    return min((recurrence, "recurrence"), (chunked, "chunked"))
+
+
+def ssd_bwd_ops_s(BH: int, S: int, P: int, N: int, Q: int, bc_dtype: str,
+                  heads_per_group: int = 1):
+    """Least time for the operations of one SSD scan backward, and the form
+    it counts: the smaller of the reverse recurrence's fp32 work, 14*N*P
+    flops per row and head (the forward state again, its decay and rank-1
+    update without y, 3*N*P; the state gradient's decay and rank-1 update,
+    3*N*P; dx, dB and dC, 6*N*P; the decay's gradient, 2*N*P), and the
+    chunked form's as ``ssd_scan_bwd``
+    runs it: per row and head 2*Q*P + 2*Q*N fp32 flops within the chunk (dy
+    x^T and (C B^T o L)^T dy, (dy x^T o L)^T C and (dy x^T o L) B over the
+    causal half) and 8*N*P across chunks (the state-gradient term and the
+    three cross-chunk products), with C B^T's Q*N per row once per group at
+    B/C's own rate."""
+    rows = BH * S
+    recurrence = 14 * rows * N * P / PEAK_FLOPS["float32"]
+    chunked = rows * (Q * N / heads_per_group / PEAK_FLOPS[bc_dtype]
+                      + (2 * Q * P + 2 * Q * N + 8 * N * P) / PEAK_FLOPS["float32"])
     return min((recurrence, "recurrence"), (chunked, "chunked"))
 
 
@@ -536,6 +568,82 @@ def main() -> int:
     attn_bwd_case("fp32_bwd", 1, 32, 32, 1024, 64, "float32", True, ["cuda_cores", None])
     attn_bwd_case("non_causal_ragged_bwd", 2, 8, 8, 1000, 64, "bfloat16", False,
                   ["tensor_cores", [64, 64]])
+
+    def ssd_bwd_case(case, B, S, H, G, Pd, N, chunk, bc_dtype, decay=1.0,
+                     dstate=False, control=False):
+        """Inputs as ``ssd_case`` gives them; cum, the chunk states and the
+        final state from the kernel's forward, as in training; dy (and, with
+        ``dstate``, the final state's gradient) random. Each gradient held
+        elementwise at 10x TOL of its dtype (dB and dC come back in B/C's),
+        and by norm at its ``SSD_GRAD_NORM_TOL``; d dA sums up to ``chunk``
+        rows of d cum in the chunk, so its atol scales with sqrt(chunk), as
+        dscale's with sqrt(rows); two runs must give equal bits. With bf16
+        B/C, the plain backward from x and dy rounded to bf16 (products of
+        bf16 operands) must read above every gradient's limit, which shows
+        that the check sees a kernel that computes in bf16. ``control``: the
+        plain backward with the carried state gradient set to zero must read
+        above the limit on dx, which shows that the check sees the
+        cross-chunk path. Bound: ``ssd_bwd_ops_s``, or the bytes of x, B, C,
+        cum, states, dy (dstate, state) read and dx, d dA, dB, dC written."""
+        x = randn(B, S, H, Pd, dtype="float32")
+        dA = -decay * F.softplus(randn(B, S, H, dtype="float32"))
+        Bm, Cm = (0.5 * randn(B, S, G * N, dtype=bc_dtype).reshape(B, S, G, N)
+                  for _ in range(2))
+        dy = randn(B, S, H, Pd, dtype="float32")
+        ds = randn(B, H, N, Pd, dtype="float32") if dstate else None
+        _, st, cum, states = ssd.ssd_scan_cuda(x, dA, Bm, Cm, chunk, True)
+        limits = SSD_GRAD_NORM_TOL[bc_dtype]
+
+        def run():
+            return ssd.ssd_scan_bwd_cuda(x, dA, Bm, Cm, chunk, cum, states, st, dy, ds)
+
+        def rel(got, want):
+            return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+        def judge(outs, wants):
+            again = run()
+            got = [rel(g, w) for g, w in zip(outs, wants)]
+            rec = {"rel_norm_err": got, "rel_norm_tol": limits,
+                   "equal_bits": all(bool(torch.equal(a, b)) for a, b in zip(outs, again))}
+            ok = all(e <= lim for e, lim in zip(got, limits)) and rec["equal_bits"]
+            if bc_dtype == "bfloat16":
+                def r16(t):
+                    return t.to(torch.bfloat16).float()
+                ctl = ref.ssd_scan_bwd(r16(x), dA, Bm, Cm, r16(dy), ds, chunk=chunk)
+                rec["bf16_control_rel_norm_err"] = [rel(c, w) for c, w in zip(ctl, wants)]
+                ok = ok and all(e > lim for e, lim in
+                                zip(rec["bf16_control_rel_norm_err"], limits))
+            if control:
+                ctl = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=chunk,
+                                       carry_state_grad=False)
+                rec["no_state_grad_control_rel_norm_err"] = [
+                    rel(c, w) for c, w in zip(ctl, wants)]
+                ok = ok and rec["no_state_grad_control_rel_norm_err"][0] > limits[0]
+            return {**rec, "ok": ok}
+
+        t32, tbc = 10 * TOL["float32"], 10 * TOL[bc_dtype]
+        isz = Bm.element_size()
+        nbytes = (3 * x.numel() * 4 + 4 * Bm.numel() * isz + 8 * cum.numel()
+                  + 4 * states.numel() + 4 * dA.numel()
+                  + (2 * 4 * ds.numel() if dstate else 0))
+        ops_s, ops_form = ssd_bwd_ops_s(B * H, S, Pd, N, chunk, bc_dtype, H // G)
+        check_case("ssd_scan_bwd", case, "float32", run,
+                   lambda: ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=chunk),
+                   None, judge=judge,
+                   tols=[(t32, t32), (t32 * chunk ** 0.5, t32), (tbc, tbc), (tbc, tbc)],
+                   nbytes=nbytes, ops_s=ops_s, bound_ops=ops_form,
+                   cuda_launches_per_call=ssd.CUDA_LAUNCHES_BWD,
+                   shape={"B": B, "S": S, "H": H, "G": G, "P": Pd, "N": N,
+                          "chunk": chunk}, bc_dtype=bc_dtype, decay=decay,
+                   dstate=dstate)
+
+    # the train path's shapes (x fp32, B/C bf16 as the model hands them over)
+    ssd_bwd_case("mamba2_train_bwd", TRAIN_BATCH, TRAIN_SEQ, 32, 1, 64, 128, 256, "bfloat16")
+    ssd_bwd_case("zamba2_train_bwd", TRAIN_BATCH, TRAIN_SEQ, 64, 1, 64, 64, 256, "bfloat16")
+    ssd_bwd_case("slow_decay_bwd", 2, 2048, 8, 1, 64, 128, 256, "float32", decay=0.01,
+                 dstate=True, control=True)
+    ssd_bwd_case("grouped_bwd", 2, 512, 8, 2, 64, 64, 256, "bfloat16", dstate=True)
+    ssd_bwd_case("ragged_bwd", 1, 128, 2, 1, 30, 20, 64, "float32", decay=0.1, dstate=True)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase})
 
     # 4. consistency ----------------------------------------------------------
@@ -614,42 +722,54 @@ def main() -> int:
         if not ok:
             fail("mamba2-370m consistency phase failed")
 
-    def train_launches(n_layers):
-        """A train step's launches under remat "full": each layer's forward
-        kernels run again in the recompute; the final norm is outside it."""
-        return {"flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers,
-                "rmsnorm": 4 * n_layers + 1, "rmsnorm_bwd": 2 * n_layers + 1,
-                "ssd_scan": 0}
+        zcfg = get_arch("zamba2-1.2b").model
+        n, groups = zcfg.num_layers, T.hybrid_split(zcfg)[0]
+        rec, ok, t_phase = decode_vs_forward(
+            "zamba2-1.2b", SSM_CONSISTENCY_PROMPT,
+            {"flash_attention": groups, "rmsnorm": 2 * n + 2 * groups + 1, "ssd_scan": n})
+        emit({**rec, "ok": ok, "seconds": time.perf_counter() - t_phase})
+        if not ok:
+            fail("zamba2-1.2b consistency phase failed")
 
-    # a reduced stablelm trains on the card (kernels) as on the CPU (plain)
-    t_phase = time.perf_counter()
-    spec = get_arch("stablelm-1.6b")
-    small = reduced(spec.model).replace(num_layers=3, num_kv_heads=2,
-                                        param_dtype="float32", compute_dtype="float32")
-    cpu_state = TR.init_train_state(small, spec.train, 1, device="cpu")
-    card_state = bridge.state_from_jax(
-        bridge.unflatten(bridge.state_to_flat(cpu_state)), small, cuda)
-    step_fn = TR.make_train_step(small, spec.train)
-    rows, ok = [], True
-    for batch in synthetic_batches(2, 64, small.vocab_size, seed=1, n=3):
-        ops.reset_launches()
-        card_state, m_card = step_fn(card_state, TR.to_device(batch, cuda))
-        launches = dict(ops.LAUNCHES)
-        cpu_state, m_cpu = step_fn(cpu_state, TR.to_device(batch, "cpu"))
-        row = {k: [float(m_card[k]), float(m_cpu[k])] for k in ("loss", "grad_norm")}
-        row["launches"] = launches
-        ok = (ok and launches == train_launches(small.num_layers)
-              and all(abs(a - b) <= TRAIN_TOL * (1 + abs(b)) for a, b in
-                      (row["loss"], row["grad_norm"])))
-        rows.append(row)
-    emit({"phase": "consistency", "arch": "stablelm-1.6b (reduced: 3 layers, d_model 64, "
-          "4 heads on 2 KV heads)", "what": "train steps, card vs cpu", "dtype": "float32",
-          "remat": spec.train.remat, "steps": rows, "tol": TRAIN_TOL,
-          "expected_launches": train_launches(small.num_layers), "ok": ok,
-          "seconds": time.perf_counter() - t_phase})
-    if not ok:
-        fail("reduced stablelm train steps on the card differ from the CPU's")
-    del cpu_state, card_state
+    def train_card_vs_cpu(aid, label, **kw):
+        """A reduced model (fp32, the arch's TrainConfig) trains 3 steps on
+        the card (kernels) and on the CPU (plain versions) from one init;
+        loss and grad norm agree within TRAIN_TOL, launches are exact."""
+        t_phase = time.perf_counter()
+        spec = get_arch(aid)
+        small = reduced(spec.model).replace(param_dtype="float32",
+                                            compute_dtype="float32", **kw)
+        cpu_state = TR.init_train_state(small, spec.train, 1, device="cpu")
+        card_state = bridge.state_from_jax(
+            bridge.unflatten(bridge.state_to_flat(cpu_state)), small, cuda)
+        step_fn = TR.make_train_step(small, spec.train)
+        expect = TR.kernel_launches_per_step(small, spec.train.remat)
+        rows, ok = [], True
+        for batch in synthetic_batches(2, 64, small.vocab_size, seed=1, n=3):
+            ops.reset_launches()
+            card_state, m_card = step_fn(card_state, TR.to_device(batch, cuda))
+            launches = dict(ops.LAUNCHES)
+            cpu_state, m_cpu = step_fn(cpu_state, TR.to_device(batch, "cpu"))
+            row = {k: [float(m_card[k]), float(m_cpu[k])] for k in ("loss", "grad_norm")}
+            row["launches"] = launches
+            ok = (ok and launches == expect
+                  and all(abs(a - b) <= TRAIN_TOL * (1 + abs(b)) for a, b in
+                          (row["loss"], row["grad_norm"])))
+            rows.append(row)
+        emit({"phase": "consistency", "arch": label, "what": "train steps, card vs cpu",
+              "dtype": "float32", "remat": spec.train.remat, "steps": rows,
+              "tol": TRAIN_TOL, "expected_launches": expect, "ok": ok,
+              "seconds": time.perf_counter() - t_phase})
+        if not ok:
+            fail(f"reduced {aid} train steps on the card differ from the CPU's")
+
+    # reduced models train on the card (kernels) as on the CPU (plain)
+    train_card_vs_cpu("stablelm-1.6b", "stablelm-1.6b (reduced: 3 layers, d_model 64, "
+                      "4 heads on 2 KV heads)", num_layers=3, num_kv_heads=2)
+    train_card_vs_cpu("mamba2-370m", "mamba2-370m (reduced: 3 layers, d_model 64, "
+                      "8 SSD heads of P 16, N 16, chunk 16)", num_layers=3)
+    train_card_vs_cpu("zamba2-1.2b", "zamba2-1.2b (reduced: 5 mamba2 layers, 2 shared "
+                      "blocks and a leftover layer, d_model 64)", num_layers=5)
 
     # 5. serve: the main paths ------------------------------------------------
     def serve(aid, forward_len, per_pass):
@@ -725,62 +845,69 @@ def main() -> int:
         "zamba2-1.2b", SSM_FORWARD_LEN,
         {"flash_attention": groups, "rmsnorm": 2 * n + 2 * groups + 1, "ssd_scan": n})
 
-    # 6. train: the training path --------------------------------------------
-    t_phase = time.perf_counter()
-    cfg, tcfg = launch_train.configs("stablelm-1.6b", full=True)
-    state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
-    n_params = sum(p.numel() for p in state["params"].parameters())
-    batch = next(synthetic_batches(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, seed=0, n=1))
-    steps = []            # (host time after the step, its metrics, its launches)
+    # 6. train: the training paths -------------------------------------------
+    def train(aid):
+        """The arch's own config and TrainConfig at full width through
+        ``launch/train.py``'s loop: a warm-up step, then TRAIN_STEPS steps on
+        one fixed batch, each with exactly ``kernel_launches_per_step``."""
+        t_phase = time.perf_counter()
+        cfg, tcfg = launch_train.configs(aid, full=True)
+        state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        batch = next(synthetic_batches(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, seed=0, n=1))
+        steps = []            # (host time after the step, its metrics, its launches)
 
-    def on_step(step, m):
+        def on_step(step, m):
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter(), float(m["loss"]), float(m["grad_norm"]),
+                          dict(ops.LAUNCHES)))
+            ops.reset_launches()
+
         torch.cuda.synchronize()
-        steps.append((time.perf_counter(), float(m["loss"]), float(m["grad_norm"]),
-                      dict(ops.LAUNCHES)))
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
+        launch_train.train_loop(state, TR.make_train_step(cfg, tcfg),
+                                iter([batch] * (1 + TRAIN_STEPS)), steps=1 + TRAIN_STEPS,
+                                device=cuda, log_every=0, on_step=on_step)
+        peak = torch.cuda.max_memory_allocated()
+        timed_steps = steps[1:]                  # after the warm-up step
+        step_s = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
+        losses = [st[1] for st in timed_steps]
+        gnorms = [st[2] for st in timed_steps]
+        per_step = [st[3] for st in timed_steps]
+        expect = TR.kernel_launches_per_step(cfg, tcfg.remat)
+        train_total = {k: sum(ls[k] for ls in per_step) for k in expect}
+        finite = all(map(math.isfinite, losses + gnorms + [steps[0][1], steps[0][2]]))
+        ok = (finite and all(ls == expect for ls in per_step) and losses[-1] < losses[0]
+              and len(timed_steps) == TRAIN_STEPS)
+        emit({"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
+              "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
+              "optimizer": tcfg.optimizer, "learning_rate": tcfg.learning_rate,
+              "remat": tcfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "reduced": TRAIN_CUT, "warmup_step": {"loss": steps[0][1],
+                                                    "grad_norm": steps[0][2],
+                                                    "launches": steps[0][3]},
+              "step_s": step_s, "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / t for t in step_s],
+              "max_memory_allocated_bytes": peak, "losses": losses, "grad_norms": gnorms,
+              "launches_per_step": per_step, "expected_launches_per_step": expect,
+              "ok": ok, "seconds": time.perf_counter() - t_phase})
+        if not ok:
+            fail(f"{aid} train phase failed: losses {losses}, launches {per_step}, "
+                 f"expected {expect} per step")
+        for name, n in expect.items():
+            if n and train_total[name] == 0:
+                fail(f"kernel {name} was never launched on the {aid} train path")
+        main_paths[f"{aid}/train"] = train_total
+        del state
+        torch.cuda.empty_cache()
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    launch_train.train_loop(state, TR.make_train_step(cfg, tcfg),
-                            iter([batch] * (1 + TRAIN_STEPS)), steps=1 + TRAIN_STEPS,
-                            device=cuda, log_every=0, on_step=on_step)
-    peak = torch.cuda.max_memory_allocated()
-    timed_steps = steps[1:]                  # after the warm-up step
-    step_s = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
-    losses = [st[1] for st in timed_steps]
-    gnorms = [st[2] for st in timed_steps]
-    per_step = [st[3] for st in timed_steps]
-    expect = train_launches(cfg.num_layers)
-    train_total = {k: sum(ls[k] for ls in per_step) for k in expect}
-    finite = all(map(math.isfinite, losses + gnorms + [steps[0][1], steps[0][2]]))
-    ok = (finite and all(ls == expect for ls in per_step) and losses[-1] < losses[0]
-          and len(timed_steps) == TRAIN_STEPS)
-    emit({"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
-          "optimizer": tcfg.optimizer, "learning_rate": tcfg.learning_rate,
-          "remat": tcfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-          "reduced": TRAIN_CUT, "warmup_step": {"loss": steps[0][1],
-                                                "grad_norm": steps[0][2],
-                                                "launches": steps[0][3]},
-          "step_s": step_s, "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / t for t in step_s],
-          "max_memory_allocated_bytes": peak, "losses": losses, "grad_norms": gnorms,
-          "launches_per_step": per_step, "expected_launches_per_step": expect,
-          "ok": ok, "seconds": time.perf_counter() - t_phase})
-    if not ok:
-        fail(f"stablelm-1.6b train phase failed: losses {losses}, launches {per_step}, "
-             f"expected {expect} per step")
-    for name, n in expect.items():
-        if n and train_total[name] == 0:
-            fail(f"kernel {name} was never launched on the train path")
-    main_paths["stablelm-1.6b/train"] = train_total
-    del state
-    torch.cuda.empty_cache()
+    for aid in ("stablelm-1.6b", "mamba2-370m", "zamba2-1.2b"):
+        train(aid)
 
     # summary -----------------------------------------------------------------
     main_case = {"rmsnorm": "serve_decode", "flash_attention": "serve_forward",
                  "ssd_scan": "mamba2_forward", "rmsnorm_bwd": "train_bwd",
-                 "flash_attention_bwd": "train_bwd"}
+                 "flash_attention_bwd": "train_bwd", "ssd_scan_bwd": "mamba2_train_bwd"}
     meta = {
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:32"),
@@ -794,6 +921,8 @@ def main() -> int:
         "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/models/attention.py:72 (jax.grad of "
                                 "blockwise_attention)"),
+        "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan.cu",
+                         "src/repro/models/ssm.py:67 (jax.grad of ssd_chunked)"),
     }
     summary = []
     for name, (source, replaces) in meta.items():

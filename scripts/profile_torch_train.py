@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its time on the card.
 
-    PYTHONPATH=src python scripts/profile_torch_train.py [--arch stablelm-1.6b]
+    PYTHONPATH=src python scripts/profile_torch_train.py
+        [--arch stablelm-1.6b|mamba2-370m|zamba2-1.2b]
         [--batch 2] [--seq 4096] [--steps 1]
 
 The arch's own config and TrainConfig (bf16, AdamW, its remat) at full width
@@ -24,7 +25,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 # The port's kernels (csrc/*.cu) by the names of their __global__ functions;
-# a name takes the group of the first mark it holds.
+# a name takes the group of the first mark it holds ("dstate_pass" before
+# "state_pass", which it contains).
 PORT_KERNELS = {"flash_bwd_dkdv_wgmma": "flash_attention_bwd (dK/dV)",
                 "flash_bwd_dq_wgmma": "flash_attention_bwd (dQ)",
                 "flash_bwd_delta": "flash_attention_bwd (delta)",
@@ -33,7 +35,15 @@ PORT_KERNELS = {"flash_bwd_dkdv_wgmma": "flash_attention_bwd (dK/dV)",
                 "rmsnorm_bwd_vec": "rmsnorm_bwd (rows)",
                 "rmsnorm_bwd_rows": "rmsnorm_bwd (rows, scalar path)",
                 "rmsnorm_bwd_scale": "rmsnorm_bwd (dscale)",
-                "rmsnorm_": "rmsnorm (forward)"}
+                "rmsnorm_": "rmsnorm (forward)",
+                "chunk_dstate": "ssd_scan_bwd (chunk_dstate)",
+                "dstate_pass": "ssd_scan_bwd (dstate_pass)",
+                "chunk_grads": "ssd_scan_bwd (chunk_grads)",
+                "reduce_rows": "ssd_scan_bwd (reduce_rows)",
+                "dA_scan": "ssd_scan_bwd (dA_scan)",
+                "chunk_state": "ssd_scan (chunk_state)",
+                "state_pass": "ssd_scan (state_pass)",
+                "chunk_out": "ssd_scan (chunk_out)"}
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "sm90_", "nvjet")
 
 

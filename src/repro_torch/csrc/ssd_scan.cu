@@ -50,6 +50,46 @@
 // Two heads per block (not more) keep chunk_out at 128 registers, two blocks
 // an SM, without spills; on the H100 (NVIDIA H100 80GB HBM3, 700 W) four
 // heads per block spilled and were no faster (scripts/flash_variants.py).
+//
+// Backward (ssd_scan_bwd). No TPU kernel: the JAX package differentiates
+// src/repro/models/ssm.py::ssd_chunked. Per chunk c, with cum_t the running
+// sum of dA in the chunk (the forward's, saved), h_c the state entering the
+// chunk (the forward's `states`, saved), e_t = exp(cum_t), w_s = exp(cum_Q -
+// cum_s), L_ts = exp(cum_t - cum_s) for s <= t (else 0) and G_c the gradient
+// of the state leaving chunk c:
+//     G_last = d(final state),  G_{c-1} = exp(cum_Q) G_c + sum_t e_t C_t dy_t^T
+//     dx_s = sum_{t>=s} (C_t.B_s) L_ts dy_t + w_s G_c^T B_s
+//     dB_s = sum_{t>=s} L_ts (dy_t.x_s) C_t + w_s G_c x_s
+//     dC_t = sum_{s<=t} L_ts (dy_t.x_s) B_s + e_t h_c dy_t
+//     d cum_t = C_t.dC_t - B_t.dB_t  (per head; with M_ts = (C_t.B_s)(dy_t.x_s)
+//               L_ts this is sum_s M_ts - sum_t' M_t't + e_t (C_t^T h_c).dy_t
+//               - w_t B_t^T G_c x_t)  + [t = Q-1] <h_{c+1}, G_c>
+//     d dA_s  = sum_{t>=s in the chunk} d cum_t
+// where the last row's term, sum_s w_s B_s^T G_c x_s + exp(cum_Q) <h_c, G_c>,
+// is the state leaving the chunk dotted with its gradient.
+//
+// What bounds it: operations. Counted from this code, per row and head:
+// D_c 2*N*P flops, the three cross-chunk products 6*N*P, the within-chunk
+// products 2*Q*P + 2*Q*N over the causal half (dy x^T and (CB o L)^T dy;
+// (DX o L)^T C and (DX o L) B), and C B^T's Q*N per row and group; the
+// reverse recurrence would need about 16*N*P.
+//
+// Design: five launches, each parallel over chunks (or rows), no atomics, so
+// two runs give equal bits.
+//  1. chunk_dstate, one block per (batch, chunk, head, 64 x 64 tile of the
+//     state): D_c = (C o e)^T dy, into `dstates` (Bsz, H, nc, N, P).
+//  2. dstate_pass, one thread per (batch, head, n, p): walks the chunks in
+//     reverse and overwrites D_c with G_c.
+//  3. chunk_grads, one block per (batch, chunk, head, 64-row tile r): dx and
+//     dB of rows r over the column slabs t >= r, then dC of rows r over the
+//     slabs s <= r, so every block runs nT + 1 slabs. Each slab forms the
+//     masked, decayed C B^T and dy x^T tiles in shared memory, all in fp32
+//     FMAs with a 4 x 4 patch a thread; the block's own x, B and dy rows stay
+//     in shared memory throughout. dB and dC are per head, fp32, (Bsz, S, H, N).
+//  4. reduce_rows, one block per (batch, row): dB and dC summed over the heads
+//     of each group in head order, cast to B's type, and d cum per head.
+//  5. dA_scan, one block per (batch, chunk, head): <h_{c+1}, G_c> in a fixed
+//     order, then the reverse running sum of d cum in fp64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -607,6 +647,484 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ===========================================================================
+// Backward
+// ===========================================================================
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+struct BwdParams {
+  const float* x;
+  const void* b;
+  const void* c;
+  const double* cum;       // (Bsz, H, S), the forward's
+  const float* states;     // (Bsz, H, nc, N, P), the states entering each chunk
+  const float* state;      // (Bsz, H, N, P), the final state; null when dstate is
+  const float* dy;         // (Bsz, S, H, P), contiguous
+  const float* dstate;     // (Bsz, H, N, P) or null (zero)
+  float* dx;               // (Bsz, S, H, P)
+  float* ddA;              // (Bsz, S, H)
+  void* db;                // (Bsz, S, G, N) in B's type
+  void* dc;
+  float* dstates;          // (Bsz, H, nc, N, P) scratch: D_c, then G_c
+  float* dbh;              // (Bsz, S, H, N) scratch: dB per head
+  float* dch;              // (Bsz, S, H, N) scratch: dC per head
+  float* dcum;             // (Bsz, H, S) scratch: d cum per head
+  int S, H, G, rep, P, N, Q, nc;
+  int64_t x_sb, x_ss, x_sh, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg;
+};
+
+// acc[i][j] += sum_{k < K} A[ty*4 + i][k] * Bt[tx + 16*j][k]: both row-major
+// (k contiguous); K a multiple of 4.
+__device__ __forceinline__ void mm_rr(float (&acc)[4][4], const float* A, int lda,
+                                      const float* Bt, int ldb, int K) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int k = 0; k < K; k += 4) {
+    float4 a[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = ld4(A + (ty * 4 + i) * lda + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = ld4(Bt + (tx + 16 * j) * ldb + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(a[i].x, bv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, bv[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, bv[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, bv[j].w, acc[i][j]);
+      }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// 1. chunk_dstate: D_c = (C o exp(cum))^T dy
+// ---------------------------------------------------------------------------
+template <typename TB>
+__global__ void __launch_bounds__(kThreads) chunk_dstate_kernel(const BwdParams p) {
+  extern __shared__ float e[];            // Q of exp(cum)
+  __shared__ __align__(16) float Cs[kSlab1][kTile];
+  __shared__ __align__(16) float Ys[kSlab1][kTile];
+
+  const int N = p.N, P = p.P, Q = p.Q;
+  const int nN = (N + kTile - 1) / kTile, nP = (P + kTile - 1) / kTile;
+  const int c = blockIdx.x / (nN * nP);
+  const int n0 = ((blockIdx.x / nP) % nN) * kTile;
+  const int p0 = (blockIdx.x % nP) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z, g = h / p.rep;
+  const int r0 = c * Q;
+  const int64_t bh = static_cast<int64_t>(b) * p.H + h;
+  const double* cumc = p.cum + bh * p.S + r0;
+  for (int r = threadIdx.x; r < Q; r += kThreads) e[r] = expf(static_cast<float>(cumc[r]));
+  const TB* cb = static_cast<const TB*>(p.c) + b * p.c_sb + g * p.c_sg + r0 * p.c_ss;
+  const float* yb = p.dy + ((static_cast<int64_t>(b) * p.S + r0) * p.H + h) * P;
+  const int64_t y_ss = static_cast<int64_t>(p.H) * P;
+
+  float acc[4][4] = {};
+  for (int t0 = 0; t0 < Q; t0 += kSlab1) {
+    __syncthreads();                      // e is written; the last slab is consumed
+    for (int idx = threadIdx.x; idx < kSlab1 * kTile; idx += kThreads) {
+      const int r = idx / kTile, col = idx % kTile, t = t0 + r;
+      const bool row_ok = t < Q;
+      const int n = n0 + col, pp = p0 + col;
+      Cs[r][col] = row_ok && n < N ? to_f(cb[t * p.c_ss + n]) : 0.f;
+      Ys[r][col] = row_ok && pp < P ? yb[t * y_ss + pp] * e[t] : 0.f;
+    }
+    __syncthreads();
+    mm_kk(acc, &Cs[0][0], kTile, &Ys[0][0], kTile, min(kSlab1, Q - t0));
+  }
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* st = p.dstates + (bh * p.nc + c) * N * P;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int pp = p0 + tx * 4 + j;
+      if (n < N && pp < P) st[n * P + pp] = acc[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. dstate_pass: G_last = dstate, G_{c-1} = exp(cum_Q) G_c + D_c
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads) dstate_pass_kernel(const BwdParams p) {
+  const int NP = p.N * p.P;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= NP) return;
+  const int64_t bh = static_cast<int64_t>(blockIdx.z) * p.H + blockIdx.y;
+  float* st = p.dstates + bh * p.nc * NP + i;
+  const double* cum_last = p.cum + bh * p.S + p.Q - 1;
+  constexpr int kBatch = 8;
+  float run = p.dstate != nullptr ? p.dstate[bh * NP + i] : 0.f;
+  for (int c0 = p.nc - 1; c0 >= 0; c0 -= kBatch) {
+    float own[kBatch], decay[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (c0 - k >= 0) {
+        own[k] = st[static_cast<int64_t>(c0 - k) * NP];
+        decay[k] = expf(static_cast<float>(cum_last[static_cast<int64_t>(c0 - k) * p.Q]));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (c0 - k >= 0) {
+        st[static_cast<int64_t>(c0 - k) * NP] = run;   // the gradient leaving chunk c0 - k
+        run = fmaf(run, decay[k], own[k]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. chunk_grads
+// ---------------------------------------------------------------------------
+
+// Shared memory of chunk_grads, in floats: the block's own x, B and dy rows,
+// then a region U that holds either two slabs and the two 64 x 64 tiles, or
+// one (N, P) state (or its transpose), then four vectors of 64.
+struct GradSmem {
+  int kP, kN, ldP, ldN, ldS;
+  size_t xo, bo, yo, s1, s2, t1, t2, u, vec, total;
+  __host__ __device__ GradSmem(int N, int P) {
+    kP = round_up(P, kTile);
+    kN = round_up(N, kTile);
+    ldP = kP + 4;
+    ldN = kN + 4;
+    ldS = ldP > ldN ? ldP : ldN;
+    xo = 0;
+    bo = xo + kTile * ldP;
+    yo = bo + kTile * ldN;
+    u = yo + kTile * ldP;
+    s1 = u;
+    s2 = s1 + kTile * ldS;
+    t1 = s2 + kTile * ldS;
+    t2 = t1 + kTile * kLdL;
+    size_t uend = t2 + kTile * kLdL;
+    const size_t st1 = u + static_cast<size_t>(kN) * ldP, st2 = u + static_cast<size_t>(kP) * ldN;
+    if (st1 > uend) uend = st1;
+    if (st2 > uend) uend = st2;
+    vec = uend;
+    total = (vec + 4 * kTile) * sizeof(float);
+  }
+};
+
+template <typename TB>
+__global__ void __launch_bounds__(kThreads, 1) chunk_grads_kernel(const BwdParams p) {
+  extern __shared__ __align__(16) float sm[];
+  const int N = p.N, P = p.P, Q = p.Q;
+  const GradSmem L(N, P);
+  float* xo = sm + L.xo;          // 64 x ldP: x of the block's rows
+  float* bo = sm + L.bo;          // 64 x ldN: B of the block's rows
+  float* yo = sm + L.yo;          // 64 x ldP: dy of the block's rows
+  float* S1 = sm + L.s1;          // 64 x ldS: a slab of C (phase A) or B (phase B)
+  float* S2 = sm + L.s2;          // 64 x ldS: a slab of dy (phase A) or x (phase B)
+  float* T1 = sm + L.t1;          // 64 x kLdL: (C B^T o L) [t][s]
+  float* T2 = sm + L.t2;          // 64 x kLdL: (dy x^T o L) [t][s]
+  float* U = sm + L.u;            // a state, (N, P) or (P, N)
+  float* c_own = sm + L.vec;      // cum at the block's rows, less cum at its first
+  float* c_slab = c_own + kTile;  // cum at a slab's rows, less the same
+  float* w_own = c_slab + kTile;  // exp(cum_Q - cum) at the block's rows
+  float* e_own = w_own + kTile;   // exp(cum) at the block's rows
+
+  const int nT = (Q + kTile - 1) / kTile;
+  const int nP = L.kP / kTile, nN = L.kN / kTile;
+  const int c = blockIdx.x / nT, r = blockIdx.x % nT, t0 = r * kTile;
+  const int h = blockIdx.y, b = blockIdx.z, g = h / p.rep;
+  const int r0 = c * Q;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int64_t bh = static_cast<int64_t>(b) * p.H + h;
+  const double* cumc = p.cum + bh * p.S + r0;
+  const float* xb = p.x + b * p.x_sb + h * p.x_sh + r0 * p.x_ss;
+  const TB* bb = static_cast<const TB*>(p.b) + b * p.b_sb + g * p.b_sg + r0 * p.b_ss;
+  const TB* cb = static_cast<const TB*>(p.c) + b * p.c_sb + g * p.c_sg + r0 * p.c_ss;
+  const int64_t y_ss = static_cast<int64_t>(p.H) * P;
+  const float* yb = p.dy + ((static_cast<int64_t>(b) * p.S + r0) * p.H + h) * P;
+  const int64_t NP = static_cast<int64_t>(N) * P;
+
+  // rows [q0, q0 + 64) of the chunk into a 64 x ld tile, zero past Q and
+  // past the width
+  auto load_f = [&](float* dst, int ld, int width, int kw, const float* src,
+                    int64_t ss, int q0) {
+    for (int idx = threadIdx.x; idx < kTile * kw; idx += kThreads) {
+      const int s = idx / kw, col = idx % kw;
+      dst[s * ld + col] = q0 + s < Q && col < width ? src[(q0 + s) * ss + col] : 0.f;
+    }
+  };
+  auto load_b = [&](float* dst, const TB* src, int64_t ss, int q0) {
+    for (int idx = threadIdx.x; idx < kTile * L.kN; idx += kThreads) {
+      const int s = idx / L.kN, col = idx % L.kN;
+      dst[s * L.ldN + col] = q0 + s < Q && col < N ? to_f(src[(q0 + s) * ss + col]) : 0.f;
+    }
+  };
+  auto load_slab_cum = [&](int q0) {
+    for (int s = threadIdx.x; s < kTile; s += kThreads)
+      c_slab[s] = q0 + s < Q ? static_cast<float>(cumc[q0 + s] - cumc[t0]) : 0.f;
+  };
+  // a state (N, P) at `st` into U as [n][p] (ld ldP), or transposed [p][n] (ld ldN)
+  auto load_state = [&](const float* st, bool transpose) {
+    for (int idx = threadIdx.x; idx < L.kN * L.kP; idx += kThreads) {
+      const int n = idx / L.kP, pp = idx % L.kP;
+      const float v = n < N && pp < P ? st[n * P + pp] : 0.f;
+      if (transpose) U[pp * L.ldN + n] = v; else U[n * L.ldP + pp] = v;
+    }
+  };
+
+  load_f(xo, L.ldP, P, L.kP, xb, p.x_ss, t0);
+  load_b(bo, bb, p.b_ss, t0);
+  load_f(yo, L.ldP, P, L.kP, yb, y_ss, t0);
+  const double cum_last = cumc[Q - 1];
+  for (int s = threadIdx.x; s < kTile; s += kThreads) {
+    const bool ok = t0 + s < Q;
+    c_own[s] = ok ? static_cast<float>(cumc[t0 + s] - cumc[t0]) : 0.f;
+    w_own[s] = ok ? expf(static_cast<float>(cum_last - cumc[t0 + s])) : 0.f;
+    e_own[s] = ok ? expf(static_cast<float>(cumc[t0 + s])) : 0.f;
+  }
+
+  // ---- phase A: dx and dB of the block's rows s ---------------------------
+  float accX[2][4][4], accB[2][4][4];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) { zero(accX[k]); zero(accB[k]); }
+  // cross-chunk terms first, then scaled by w_s: w_s G_c^T B_s and w_s G_c x_s
+  const float* Gc = p.dstates + (bh * p.nc + c) * NP;
+  load_state(Gc, false);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (k < nP) mm_rk(accX[k], bo, L.ldN, U + k * kTile, L.ldP, L.kN);
+  __syncthreads();
+  load_state(Gc, true);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (k < nN) mm_rk(accB[k], xo, L.ldP, U + k * kTile, L.ldN, L.kP);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float wv = w_own[ty * 4 + i];
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) { accX[k][i][j] *= wv; accB[k][i][j] *= wv; }
+  }
+  // within the chunk: the slabs t >= s
+  for (int ts = r; ts < nT; ++ts) {
+    const int q0 = ts * kTile;
+    __syncthreads();                      // U and the last slab are consumed
+    load_b(S1, cb, p.c_ss, q0);           // C rows t (ld ldN <= ldS)
+    load_f(S2, L.ldS, P, L.kP, yb, y_ss, q0);
+    load_slab_cum(q0);
+    __syncthreads();
+    float v[4][4];
+    zero(v);
+    mm_rr(v, S1, L.ldN, bo, L.ldN, L.kN);               // C_t . B_s
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = ty * 4 + i, s = tx + 16 * j;
+        const bool ok = t0 + s <= q0 + t && q0 + t < Q;
+        T1[t * kLdL + s] = ok ? v[i][j] * __expf(c_slab[t] - c_own[s]) : 0.f;
+      }
+    zero(v);
+    mm_rr(v, S2, L.ldS, xo, L.ldP, L.kP);               // dy_t . x_s
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = ty * 4 + i, s = tx + 16 * j;
+        const bool ok = t0 + s <= q0 + t && q0 + t < Q;
+        T2[t * kLdL + s] = ok ? v[i][j] * __expf(c_slab[t] - c_own[s]) : 0.f;
+      }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (k < nP) mm_kk(accX[k], T1, kLdL, S2 + k * kTile, L.ldS, kTile);
+      if (k < nN) mm_kk(accB[k], T2, kLdL, S1 + k * kTile, L.ldN, kTile);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = t0 + ty * 4 + i;
+    if (s >= Q) continue;
+    float* dxr = p.dx + ((static_cast<int64_t>(b) * p.S + r0 + s) * p.H + h) * P;
+    float* dbr = p.dbh + ((static_cast<int64_t>(b) * p.S + r0 + s) * p.H + h) * N;
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k * kTile + tx * 4 + j;
+        if (k < nP && col < P) dxr[col] = accX[k][i][j];
+        if (k < nN && col < N) dbr[col] = accB[k][i][j];
+      }
+  }
+
+  // ---- phase B: dC of the block's rows t ----------------------------------
+  float accC[2][4][4];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) zero(accC[k]);
+  if (c > 0) {                            // e_t h_c dy_t; the state entering chunk 0 is 0
+    __syncthreads();
+    load_state(p.states + (bh * p.nc + c) * NP, true);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (k < nN) mm_rk(accC[k], yo, L.ldP, U + k * kTile, L.ldN, L.kP);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float ev = e_own[ty * 4 + i];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) accC[k][i][j] *= ev;
+    }
+  }
+  // within the chunk: the slabs s <= t
+  for (int ss = 0; ss <= r; ++ss) {
+    const int q0 = ss * kTile;
+    __syncthreads();
+    load_b(S1, bb, p.b_ss, q0);           // B rows s
+    load_f(S2, L.ldS, P, L.kP, xb, p.x_ss, q0);
+    load_slab_cum(q0);
+    __syncthreads();
+    float v[4][4];
+    zero(v);
+    mm_rr(v, yo, L.ldP, S2, L.ldS, L.kP);               // dy_t . x_s
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = ty * 4 + i, s = tx + 16 * j;
+        const bool ok = q0 + s <= t0 + t && t0 + t < Q;
+        T2[t * kLdL + s] = ok ? v[i][j] * __expf(c_own[t] - c_slab[s]) : 0.f;
+      }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (k < nN) mm_rk(accC[k], T2, kLdL, S1 + k * kTile, L.ldN, kTile);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty * 4 + i;
+    if (t >= Q) continue;
+    float* dcr = p.dch + ((static_cast<int64_t>(b) * p.S + r0 + t) * p.H + h) * N;
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k * kTile + tx * 4 + j;
+        if (k < nN && col < N) dcr[col] = accC[k][i][j];
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 4. reduce_rows: dB, dC over each group's heads; d cum per head
+// ---------------------------------------------------------------------------
+template <typename TB>
+__global__ void __launch_bounds__(kThreads) reduce_rows_kernel(const BwdParams p) {
+  const int s = blockIdx.x, b = blockIdx.y;
+  const int N = p.N, H = p.H;
+  const int64_t row = static_cast<int64_t>(b) * p.S + s;
+  const float* dbr = p.dbh + row * H * N;
+  const float* dcr = p.dch + row * H * N;
+  const TB* bb = static_cast<const TB*>(p.b) + b * p.b_sb + s * p.b_ss;
+  const TB* cb = static_cast<const TB*>(p.c) + b * p.c_sb + s * p.c_ss;
+  TB* dbo = static_cast<TB*>(p.db) + row * p.G * N;
+  TB* dco = static_cast<TB*>(p.dc) + row * p.G * N;
+  for (int idx = threadIdx.x; idx < p.G * N; idx += kThreads) {
+    const int g = idx / N, n = idx % N;
+    float sb = 0.f, sc = 0.f;
+    for (int h = g * p.rep; h < (g + 1) * p.rep; ++h) {
+      sb += dbr[h * N + n];
+      sc += dcr[h * N + n];
+    }
+    dbo[idx] = from_f<TB>(sb);
+    dco[idx] = from_f<TB>(sc);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int h = warp; h < H; h += kWarps) {
+    const int g = h / p.rep;
+    float acc = 0.f;
+    for (int n = lane; n < N; n += 32)
+      acc += to_f(cb[g * p.c_sg + n]) * dcr[h * N + n] - to_f(bb[g * p.b_sg + n]) * dbr[h * N + n];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) p.dcum[(static_cast<int64_t>(b) * H + h) * p.S + s] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 5. dA_scan: d dA_s = sum_{t >= s} d cum_t + <h_{c+1}, G_c>, in fp64
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads) dA_scan_kernel(const BwdParams p) {
+  extern __shared__ double suf[];         // Q
+  __shared__ double warp_tot[kWarps];
+  __shared__ float red[kWarps];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int Q = p.Q;
+  const int64_t bh = static_cast<int64_t>(b) * p.H + h;
+  const int64_t NP = static_cast<int64_t>(p.N) * p.P;
+  const float* Gc = p.dstates + (bh * p.nc + c) * NP;
+  const float* hn = c + 1 < p.nc ? p.states + (bh * p.nc + c + 1) * NP
+                                 : (p.dstate != nullptr ? p.state + bh * NP : nullptr);
+  float part = 0.f;
+  if (hn != nullptr)
+    for (int64_t i = threadIdx.x; i < NP; i += kThreads) part = fmaf(hn[i], Gc[i], part);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = part;
+  __syncthreads();
+  double term = 0.0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) term += red[w];
+  // the suffix sums as a prefix scan of the chunk's rows read backwards
+  chunk_cumsum(suf, warp_tot, p.dcum + bh * p.S + c * Q + Q - 1, -1, 0, Q);
+  for (int r = threadIdx.x; r < Q; r += kThreads) {
+    const int s = Q - 1 - r;
+    p.ddA[(static_cast<int64_t>(b) * p.S + c * Q + s) * p.H + h] =
+        static_cast<float>(suf[r] + term);
+  }
+}
+
+template <typename TB>
+cudaError_t launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
+  const int nN = (p.N + kTile - 1) / kTile, nP = (p.P + kTile - 1) / kTile;
+  const int nT = (p.Q + kTile - 1) / kTile;
+  chunk_dstate_kernel<TB><<<dim3(p.nc * nN * nP, p.H, B), kThreads,
+                            p.Q * sizeof(float), stream>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dstate_pass_kernel<<<dim3((p.N * p.P + kThreads - 1) / kThreads, p.H, B),
+                       kThreads, 0, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const GradSmem L(p.N, p.P);
+  static size_t allowed = 48 * 1024;      // per instantiation: the most allowed so far
+  e = allow_smem(chunk_grads_kernel<TB>, L.total, allowed);
+  if (e != cudaSuccess) return e;
+  chunk_grads_kernel<TB><<<dim3(p.nc * nT, p.H, B), kThreads, L.total, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  reduce_rows_kernel<TB><<<dim3(p.S, B), kThreads, 0, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dA_scan_kernel<<<dim3(p.nc, p.H, B), kThreads, p.Q * sizeof(double), stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // bc_dtype: 0 = float32, 1 = bfloat16. x, dA, y and state are float32.
@@ -644,4 +1162,50 @@ extern "C" int ssd_scan_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bc_dtype == 0) return launch<float>(p, B, s);
   return launch<__nv_bfloat16>(p, B, s);
+}
+
+// The backward of ssd_scan_fwd. x, B, C and their strides as the forward
+// took them; cum and states the forward's scratch after its launches; state
+// the forward's final state (read only when dstate is not null); dy a
+// contiguous fp32 (B, S, H, P); dstate a contiguous fp32 (B, H, N, P) or
+// null for zero. Writes dx (B, S, H, P) and ddA (B, S, H), fp32, and dB, dC
+// (B, S, G, N) in B's type, all contiguous. dstates ((B, H, S / Q, N, P)),
+// dbh and dch ((B, S, H, N)) and dcum ((B, H, S)), fp32, are scratch the
+// caller allocates. Makes five launches. Returns a cudaError_t as int.
+extern "C" int ssd_scan_bwd(
+    const void* x, const void* b, const void* c, const void* cum,
+    const void* states, const void* state, const void* dy, const void* dstate,
+    void* dx, void* ddA, void* db, void* dc, void* dstates, void* dbh, void* dch,
+    void* dcum, int B, int S, int H, int G, int P, int N, int Q,
+    long long x_sb, long long x_ss, long long x_sh,
+    long long b_sb, long long b_ss, long long b_sg,
+    long long c_sb, long long c_ss, long long c_sg,
+    int bc_dtype, void* stream) {
+  if (B < 0 || B > 65535 || S < 1 || H < 1 || H > 65535 || G < 1 || H % G != 0 ||
+      P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 || Q > kMaxChunk ||
+      S % Q != 0 || bc_dtype < 0 || bc_dtype > 1 || cum == nullptr ||
+      states == nullptr || dy == nullptr || dstates == nullptr || dbh == nullptr ||
+      dch == nullptr || dcum == nullptr || (dstate != nullptr && state == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if (B == 0) return cudaSuccess;
+  BwdParams p;
+  p.x = static_cast<const float*>(x); p.b = b; p.c = c;
+  p.cum = static_cast<const double*>(cum);
+  p.states = static_cast<const float*>(states);
+  p.state = static_cast<const float*>(state);
+  p.dy = static_cast<const float*>(dy);
+  p.dstate = static_cast<const float*>(dstate);
+  p.dx = static_cast<float*>(dx); p.ddA = static_cast<float*>(ddA);
+  p.db = db; p.dc = dc;
+  p.dstates = static_cast<float*>(dstates);
+  p.dbh = static_cast<float*>(dbh); p.dch = static_cast<float*>(dch);
+  p.dcum = static_cast<float*>(dcum);
+  p.S = S; p.H = H; p.G = G; p.rep = H / G; p.P = P; p.N = N; p.Q = Q; p.nc = S / Q;
+  p.x_sb = x_sb; p.x_ss = x_ss; p.x_sh = x_sh;
+  p.b_sb = b_sb; p.b_ss = b_ss; p.b_sg = b_sg;
+  p.c_sb = c_sb; p.c_ss = c_ss; p.c_sg = c_sg;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bc_dtype == 0) return launch_bwd<float>(p, B, s);
+  return launch_bwd<__nv_bfloat16>(p, B, s);
 }

@@ -54,6 +54,10 @@ SIGNATURES = {
     # x, dA, B, C, y, state, cum, states, Bsz, S, H, G, P, N, chunk,
     # 12 strides, bc_dtype, stream
     "ssd_scan_fwd": [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _P],
+    # x, B, C, cum, states, state, dy, dstate, dx, ddA, dB, dC, and the
+    # scratch dstates, dbh, dch, dcum; Bsz, S, H, G, P, N, chunk, 9 strides
+    # (x, B, C), bc_dtype, stream
+    "ssd_scan_bwd": [_P] * 16 + [_I] * 7 + [_L] * 9 + [_I, _P],
 }
 
 

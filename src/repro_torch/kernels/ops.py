@@ -6,15 +6,16 @@ no fallback from one to the other: a CUDA tensor the kernel cannot take
 raises. ``LAUNCHES`` counts kernel launches, one per call that launched,
 and nothing else, so a run can show that its path went through the kernels.
 
-``rmsnorm`` always, and ``flash_attention`` where an input requires grad
-(and grad is enabled), go through ``torch.autograd.Function``s whose
-backward is a kernel too: ``_RMSNormFn`` saves x and scale and launches
-``rmsnorm_bwd``; ``_FlashAttentionFn`` saves q, k, v, o and the forward's
-lse and launches ``flash_attention_bwd`` (without grad the forward skips the
-lse output). Each backward call counts one in
-``LAUNCHES`` under its own name. On the CPU the same Functions run the plain
-forward and backward versions of ``ref.py``. ``ssd_scan`` has no backward
-kernel yet: a CUDA call that autograd would differentiate raises.
+``rmsnorm`` always, and ``flash_attention`` and ``ssd_scan`` where an input
+requires grad (and grad is enabled), go through ``torch.autograd.Function``s
+whose backward is a kernel too: ``_RMSNormFn`` saves x and scale and
+launches ``rmsnorm_bwd``; ``_FlashAttentionFn`` saves q, k, v, o and the
+forward's lse and launches ``flash_attention_bwd`` (without grad the forward
+skips the lse output); ``_SSDScanFn`` saves x, dA, B, C and the forward's
+scratch (cum, the chunk states, the final state) and launches
+``ssd_scan_bwd`` (without grad the scratch is dropped). Each backward call
+counts one in ``LAUNCHES`` under its own name. On the CPU the same Functions
+run the plain forward and backward versions (``ref.py``).
 """
 from __future__ import annotations
 
@@ -23,10 +24,10 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0,
-            "rmsnorm_bwd": 0, "ssd_scan": 0}
+            "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -177,6 +178,39 @@ def ssd_scan_plain(x, dA, Bm, Cm, *, chunk: int):
     return y, state.reshape(Bsz, H, N, P)
 
 
+class _SSDScanFn(torch.autograd.Function):
+    """(x fp32, dA, B, C) -> (y fp32, final state fp32) in the model layout.
+    The final state's gradient is None where it is not used (it is not
+    materialised), and the backward then takes zero for it."""
+
+    @staticmethod
+    def forward(ctx, x, dA, Bm, Cm, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        if _on_card(x, dA, Bm, Cm):
+            y, state, cum, states = ssd_scan_cuda(x, dA, Bm, Cm, chunk, True)
+            LAUNCHES["ssd_scan"] += 1
+            ctx.save_for_backward(x, dA, Bm, Cm, cum, states, state)
+        else:
+            y, state = ssd_scan_plain(x, dA, Bm, Cm, chunk=chunk)
+            ctx.save_for_backward(x, dA, Bm, Cm)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dA, Bm, Cm, *scratch = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if _on_card(x, dA, Bm, Cm, dy):
+            cum, states, state = scratch
+            dx, ddA, dB, dC = ssd_scan_bwd_cuda(x, dA, Bm, Cm, ctx.chunk, cum, states,
+                                                state, dy, dstate)
+            LAUNCHES["ssd_scan_bwd"] += 1
+        else:
+            dx, ddA, dB, dC = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, dstate, chunk=ctx.chunk)
+        return dx, ddA, dB, dC, None
+
+
 def ssd_scan(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int = 128, return_state: bool = False):
     """Mamba2 SSD chunked scan; ``chunk`` (capped at S) must divide S.
@@ -195,14 +229,13 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     Q = min(chunk, S)
     if Q < 1 or S % Q:
         raise ValueError(f"chunk {Q} must divide the sequence length {S}")
-    if _on_card(x, dA, Bm, Cm):
-        if _needs_grad(x, dA, Bm, Cm):
-            raise NotImplementedError(
-                "ssd_scan has no backward kernel yet: it comes with the ssm "
-                "training slice; call it under torch.no_grad() or "
-                "torch.inference_mode()")
-        # the kernel takes x in fp32, as the model hands it over
-        y, state = ssd_scan_cuda(x.float(), dA, Bm, Cm, Q, return_state)
+    if _needs_grad(x, dA, Bm, Cm):
+        # the kernels take x in fp32, as the model hands it over; the casts
+        # stay outside the Function, so autograd carries them
+        y, state = _SSDScanFn.apply(x.float(), dA, Bm, Cm, Q)
+        y = y.to(x.dtype)
+    elif _on_card(x, dA, Bm, Cm):
+        y, state, _, _ = ssd_scan_cuda(x.float(), dA, Bm, Cm, Q, return_state)
         y = y.to(x.dtype)
         LAUNCHES["ssd_scan"] += 1
     else:

@@ -2,7 +2,7 @@
 
 Torch copies of ``repro/kernels/ref.py``, and the plain backward versions the
 JAX package leaves to autodiff (``reference_rmsnorm_bwd``,
-``reference_attention_bwd``). The CPU path of every wrapper in ``ops.py``
+``reference_attention_bwd``, ``ssd_scan_bwd``). The CPU path of every wrapper in ``ops.py``
 runs these, and ``chip_smoke.py`` holds each CUDA kernel against them on
 the card. ``reference_ssd`` is the sequential recurrence, independent of
 both the chunked plain version (``ops.ssd_scan_plain``) and the kernel.
@@ -150,6 +150,97 @@ def ssd_chunk_passes(x, dA, Bm, Cm, *, chunk: int):
     y = torch.einsum("bcgts,bctsgr,bcsgrp->bctgrp", CB, Lmat, x32)
     y = y + torch.einsum("bctgn,bctgr,bcgrnp->bctgrp", C32, cum.exp(), entering)
     return y.reshape(Bsz, S, H, P).to(x.dtype), run.reshape(Bsz, H, N, P)
+
+
+def ssd_scan_bwd(x, dA, Bm, Cm, dy, dstate=None, *, chunk: int,
+                 carry_state_grad: bool = True):
+    """Gradients of the chunked SSD scan (``ops.ssd_scan_plain``) in the CUDA
+    ``ssd_scan_bwd``'s decomposition, plain PyTorch in fp32, as
+    ``ops.ssd_scan_plain`` computes the forward. The autograd Function's CPU
+    backward; ``chip_smoke.py`` holds the kernel against it.
+
+    Model layout: x (Bsz,S,H,P) dt-scaled, dA (Bsz,S,H), B/C (Bsz,S,G,N),
+    dy (Bsz,S,H,P), dstate (Bsz,H,N,P) the gradient of the final state or
+    None; ``chunk`` divides S. Per chunk, with cum the running sum of dA in
+    the chunk, e_t = exp(cum_t), w_s = exp(cum_last - cum_s), h_c the state
+    entering chunk c and G_c the gradient of the state leaving it:
+      1. D_c = sum_t e_t C_t dy_t^T;
+      2. in reverse over the chunks, G_last = dstate, G_{c-1} = exp(cum_last) G_c + D_c;
+      3. per head, with L_ts = exp(cum_t - cum_s) for s <= t (else 0):
+         dx_s = sum_t (C_t.B_s) L_ts dy_t + w_s G_c^T B_s,
+         dB_s = sum_t L_ts (dy_t.x_s) C_t + w_s G_c x_s,
+         dC_t = sum_s L_ts (dy_t.x_s) B_s + e_t h_c dy_t;
+      4. dB and dC summed over each group's heads; d cum_t = C_t.dC_t - B_t.dB_t
+         per head (the within-chunk terms, the cross-chunk ones and the
+         decays w: each M_ts = (C_t.B_s)(dy_t.x_s) L_ts enters C_t.dC_t and
+         B_s.dB_s once);
+      5. d dA_s = sum_{t >= s in the chunk} d cum_t + <h_{c+1}, G_c>, the last
+         row's cum scaling the whole leaving state; summed in fp64.
+    cum itself is summed in fp64, as the kernels sum it.
+    ``carry_state_grad=False`` sets every G_c to zero: the control that
+    shows a check can see a missing state gradient. Returns (dx fp32,
+    d dA fp32, dB, dC in B's and C's dtypes).
+    """
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    R, Q = H // G, chunk
+    nc = S // Q
+    x_ = x.float().reshape(Bsz, nc, Q, G, R, P)
+    dy_ = dy.float().reshape(Bsz, nc, Q, G, R, P)
+    # cum in fp64, as the kernels sum it: over a chunk of thousands of rows it
+    # reaches thousands, where fp32 differences would leave 1e-3 in the decays
+    cum = dA.double().reshape(Bsz, nc, Q, G, R).cumsum(dim=2)
+    B_ = Bm.float().reshape(Bsz, nc, Q, G, N)
+    C_ = Cm.float().reshape(Bsz, nc, Q, G, N)
+
+    # the forward's states: entering each chunk, and leaving it
+    w = (cum[:, :, -1:] - cum).exp().float()
+    e = cum.exp().float()
+    decay = cum[:, :, -1].exp().float()[..., None, None]        # (Bsz,nc,G,R,1,1)
+    own = torch.einsum("bcsgn,bcsgr,bcsgrp->bcgrnp", B_, w, x_)
+    run = torch.zeros_like(own[:, 0])
+    entering = []
+    for c in range(nc):
+        entering.append(run)
+        run = run * decay[:, c] + own[:, c]
+    leaving = torch.stack(entering[1:] + [run], dim=1)
+    entering = torch.stack(entering, dim=1)                     # (Bsz,nc,G,R,N,P)
+
+    # 1-2. the state gradients
+    D = torch.einsum("bctgn,bctgr,bctgrp->bcgrnp", C_, e, dy_)
+    run = (torch.zeros_like(D[:, 0]) if dstate is None
+           else dstate.float().reshape(Bsz, G, R, N, P))
+    grads = [None] * nc
+    for c in reversed(range(nc)):
+        grads[c] = run
+        run = run * decay[:, c] + D[:, c]
+    Gst = torch.stack(grads, dim=1)                             # (Bsz,nc,G,R,N,P)
+    if not carry_state_grad:
+        Gst = torch.zeros_like(Gst)
+
+    # 3. per head
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    seg = cum[:, :, :, None] - cum[:, :, None]                  # (Bsz,nc,Qt,Qs,G,R)
+    Lmat = torch.where(tri[:, :, None, None], seg.exp(), 0.0).float()
+    del seg
+    CB = torch.einsum("bctgn,bcsgn->bctsg", C_, B_)
+    LDX = Lmat * torch.einsum("bctgrp,bcsgrp->bctsgr", dy_, x_)
+    dx = (torch.einsum("bctsg,bctsgr,bctgrp->bcsgrp", CB, Lmat, dy_)
+          + torch.einsum("bcsgr,bcsgn,bcgrnp->bcsgrp", w, B_, Gst))
+    dBh = (torch.einsum("bctsgr,bctgn->bcsgrn", LDX, C_)
+           + torch.einsum("bcsgr,bcsgrp,bcgrnp->bcsgrn", w, x_, Gst))
+    dCh = (torch.einsum("bctsgr,bcsgn->bctgrn", LDX, B_)
+           + torch.einsum("bctgr,bctgrp,bcgrnp->bctgrn", e, dy_, entering))
+
+    # 4. over the heads of each group; d cum per head
+    dcum = (torch.einsum("bctgn,bctgrn->bctgr", C_, dCh)
+            - torch.einsum("bctgn,bctgrn->bctgr", B_, dBh))
+    # 5. the reverse running sum in the chunk, in fp64
+    last = torch.einsum("bcgrnp,bcgrnp->bcgr", leaving, Gst)
+    ddA = dcum.double().flip(2).cumsum(2).flip(2) + last.double()[:, :, None]
+    return (dx.reshape(Bsz, S, H, P), ddA.float().reshape(Bsz, S, H),
+            dBh.sum(4).reshape(Bsz, S, G, N).to(Bm.dtype),
+            dCh.sum(4).reshape(Bsz, S, G, N).to(Cm.dtype))
 
 
 def attention_bwd_tiles(q, k, v, o, lse, do, *, causal: bool = True, q_step: int = 64,

@@ -47,7 +47,7 @@ def train_loop(state: Dict[str, Any], step_fn, batches: Iterable, *, steps: int,
     return state
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--steps", type=int, default=50)
@@ -56,13 +56,19 @@ def main(argv=None) -> None:
                       help="the reduced config in float32, CPU-sized (default)")
     size.add_argument("--full", dest="full", action="store_true",
                       help="the arch's own config and TrainConfig")
+    # the group's first action would make its own default (True) the dest's
+    ap.set_defaults(full=False)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--ckpt-dir", default="out/train_ckpt")
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
 
     from repro_torch import device as dev
     from repro_torch.data.pipeline import synthetic_batches

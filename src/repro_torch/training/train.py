@@ -20,6 +20,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import device as dev
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as O
 
@@ -91,6 +92,30 @@ def make_train_step(cfg, tcfg):
         return state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+def kernel_launches_per_step(cfg, remat: str) -> Dict[str, int]:
+    """The card's launches of each kernel of ``ops.LAUNCHES`` in one train
+    step of ``cfg`` (``accum_steps`` 1) under ``remat``. Under "full" and
+    "dots" each layer's forward kernels run again in the recompute; the
+    final norm, and the hybrid family's shared attention block, are outside
+    it (as in the JAX package, ``repro/models/transformer.py:316-320``). A
+    forward of n layers launches: dense flash n, rmsnorm 2n + 1; ssm
+    ssd_scan n, rmsnorm 2n + 1; hybrid (n mamba layers, g shared blocks)
+    ssd_scan n, flash g, rmsnorm 2n + 2g + 1. Each backward kernel runs once
+    per forward call outside the recompute."""
+    twice = 1 if remat == "none" else 2
+    n = cfg.num_layers
+    g = T.hybrid_split(cfg)[0] if cfg.family == "hybrid" else 0
+    fwd = {"dense": {"flash_attention": (n, 0), "rmsnorm": (2 * n, 1)},
+           "ssm": {"ssd_scan": (n, 0), "rmsnorm": (2 * n, 1)},
+           "hybrid": {"ssd_scan": (n, 0), "flash_attention": (0, g),
+                      "rmsnorm": (2 * n, 2 * g + 1)}}[cfg.family]
+    counts = {name: 0 for name in ops.LAUNCHES}
+    for name, (in_remat, outside) in fwd.items():
+        counts[name] = twice * in_remat + outside
+        counts[name + "_bwd"] = in_remat + outside
+    return counts
 
 
 def make_eval_step(cfg, tcfg):

@@ -15,6 +15,7 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import transformer as T
 from repro_torch.training import train as TR
 
@@ -163,13 +164,25 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     qb = torch.zeros(1, 1, 8, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="16-byte"):          # row stride 68
         ops.flash_attention(qb, qb, qb)
-    # under autograd: ssd_scan has no backward kernel, the flash backward
+    # the ssd_scan backward takes what the forward takes (P and N up to 128)
+    # and a final-state gradient of the state's shape; the flash backward
     # takes head dims up to 128, the rmsnorm backward dy in x's dtype
-    x = torch.zeros(1, 64, 2, 16, device=cuda, requires_grad=True)
+    x = torch.zeros(1, 64, 2, 16, device=cuda)
     dA = torch.zeros(1, 64, 2, device=cuda)
     bc = torch.zeros(1, 64, 1, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="ssm training slice"):
-        ops.ssd_scan(x, dA, bc, bc)
+    _, st, cum, states = ssd.ssd_scan_cuda(x, dA, bc, bc, 64, True)
+    with pytest.raises(ValueError, match="dstate"):
+        ssd.ssd_scan_bwd_cuda(x, dA, bc, bc, 64, cum, states, st, torch.zeros_like(x),
+                              torch.zeros(1, 2, 16, 15, device=cuda))
+    wide = torch.zeros(1, 64, 1, 256, device=cuda)
+    with pytest.raises(ValueError, match="N <= 128"):
+        ssd.ssd_scan_bwd_cuda(x, dA, wide, wide, 64, cum, states, st,
+                              torch.zeros_like(x), None)
+    xw = torch.zeros(1, 64, 2, 130, device=cuda)
+    with pytest.raises(ValueError, match="P <= 128"):
+        ssd.ssd_scan_bwd_cuda(xw, dA, bc, bc, 64, cum, states, st, torch.zeros_like(xw), None)
+    with pytest.raises(ValueError, match="N <= 128"):   # under autograd, before any launch
+        ops.ssd_scan(x.requires_grad_(True), dA, wide, wide)
     qw = torch.zeros(1, 2, 8, 192, device=cuda, requires_grad=True)
     with pytest.raises(ValueError, match="slice"):
         ops.flash_attention(qw, qw, qw)
@@ -333,24 +346,25 @@ def test_autograd_on_card_matches_cpu(cuda, dtype):
 
 
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])
-def test_train_steps_on_card_match_cpu(cuda, remat):
-    """Reduced stablelm in fp32: two steps on the card through the kernels
+@pytest.mark.parametrize("aid,kw,S", [
+    ("stablelm-1.6b", {"num_layers": 3, "num_kv_heads": 2}, 64),
+    ("mamba2-370m", {"num_layers": 3}, 64),
+    ("zamba2-1.2b", {"num_layers": 5}, 64)], ids=["stablelm", "mamba2", "zamba2"])
+def test_train_steps_on_card_match_cpu(cuda, remat, aid, kw, S):
+    """Reduced models in fp32: two steps on the card through the kernels
     and on the CPU through the plain versions, from the same init; the
-    card's launches per step are the path's exactly (under "full" and
-    "dots" each layer's forward kernels launch again in the recompute)."""
-    cfg = reduced(get_arch("stablelm-1.6b").model).replace(
-        num_layers=3, num_kv_heads=2, param_dtype="float32", compute_dtype="float32")
-    tcfg = dataclasses.replace(get_arch("stablelm-1.6b").train, remat=remat)
-    n = cfg.num_layers
-    twice = 1 if remat == "none" else 2
+    card's launches per step are the path's exactly."""
+    cfg = reduced(get_arch(aid).model).replace(
+        param_dtype="float32", compute_dtype="float32", **kw)
+    tcfg = dataclasses.replace(get_arch(aid).train, remat=remat)
     cpu_state = TR.init_train_state(cfg, tcfg, 0, device="cpu")
     card_state = bridge.state_from_jax(
         bridge.unflatten(bridge.state_to_flat(cpu_state)), cfg, cuda)
     step = TR.make_train_step(cfg, tcfg)
-    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, S + 1),
+                         generator=torch.Generator().manual_seed(0))
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-    expect = {"flash_attention": twice * n, "flash_attention_bwd": n,
-              "rmsnorm": twice * 2 * n + 1, "rmsnorm_bwd": 2 * n + 1, "ssd_scan": 0}
+    expect = TR.kernel_launches_per_step(cfg, remat)
     for _ in range(2):
         ops.reset_launches()
         card_state, m_card = step(card_state, TR.to_device(batch, cuda))
@@ -358,3 +372,94 @@ def test_train_steps_on_card_match_cpu(cuda, remat):
         cpu_state, m_cpu = step(cpu_state, TR.to_device(batch, "cpu"))
         for key in ("loss", "grad_norm"):
             torch.testing.assert_close(m_card[key].cpu(), m_cpu[key], atol=1e-4, rtol=1e-4)
+
+
+SSD_CASES = [
+    (2, 512, 8, 1, 64, 128, 256, 1.0), (1, 256, 8, 2, 64, 64, 256, 0.01),
+    (2, 128, 4, 1, 64, 128, 256, 1.0), (1, 192, 3, 3, 48, 40, 64, 0.1),
+    (1, 64, 2, 1, 16, 8, 16, 1.0),
+    (1, 4096, 4, 1, 64, 128, 256, 0.01),    # the state carried over 16 chunks
+    (1, 4096, 2, 1, 64, 64, 4096, 1.0),     # chunk = S = 4096
+    (1, 256, 8, 1, 64, 128, 256, 1.0),      # batch 1, a single chunk
+    (2, 512, 8, 2, 64, 64, 256, 1.0),       # G 2, four heads per group
+    (1, 300, 6, 2, 128, 128, 100, 0.1),     # P = N = 128, ragged 64-row tiles
+    (1, 128, 2, 1, 30, 20, 64, 1.0)]        # P not a multiple of 4
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.parametrize("B,S,H,G,P,N,chunk,decay", SSD_CASES)
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_dstate", [False, True])
+def test_ssd_scan_bwd_kernel(cuda, B, S, H, G, P, N, chunk, decay, bc_dtype, with_dstate):
+    """The backward against ``ref.ssd_scan_bwd`` on the forward kernel's
+    scratch: each gradient by norm (1e-4, and 1e-3 on dB and dC with bf16
+    B/C, where they come back in bf16) and elementwise at the forward's
+    10x tolerance of its dtype (d dA, a sum of up to ``chunk`` rows, with
+    its atol scaled by sqrt(chunk)); two runs give equal bits (no
+    atomics)."""
+    chunk = min(chunk, S)
+    gen = torch.Generator(device=cuda).manual_seed(S + H + N + 1)
+    x, dA, Bm, Cm = _ssd_inputs(gen, B, S, H, G, P, N, torch.float32, bc_dtype, cuda, decay)
+    dy = _randn(gen, (B, S, H, P), torch.float32, cuda)
+    ds = _randn(gen, (B, H, N, P), torch.float32, cuda) if with_dstate else None
+    _, st, cum, states = ssd.ssd_scan_cuda(x, dA, Bm, Cm, chunk, True)
+    got = ssd.ssd_scan_bwd_cuda(x, dA, Bm, Cm, chunk, cum, states, st, dy, ds)
+    want = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=chunk)
+    limits = (1e-4, 1e-4) + ((1e-4, 1e-4) if bc_dtype == torch.float32 else (1e-3, 1e-3))
+    for i, (g, w, like) in enumerate(zip(got, want, (x, dA, Bm, Cm))):
+        assert g.shape == like.shape and g.dtype == like.dtype and g.is_contiguous()
+        assert _rel(g, w) <= limits[i]
+        tol = 10 * TOL[g.dtype]
+        atol = tol * chunk ** 0.5 if i == 1 else tol
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=tol)
+    again = ssd.ssd_scan_bwd_cuda(x, dA, Bm, Cm, chunk, cum, states, st, dy, ds)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_ssd_scan_bwd_sees_the_carried_state_gradient(cuda):
+    """Slow decay over 8 chunks with a final-state gradient: the kernel is
+    within 1e-4 of the plain backward by norm, and the plain backward
+    without the carried state gradient is not, so the check can see a
+    kernel that drops it."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x, dA, Bm, Cm = _ssd_inputs(gen, 2, 2048, 8, 1, 64, 128, torch.float32,
+                                torch.float32, cuda, 0.01)
+    dy = _randn(gen, (2, 2048, 8, 64), torch.float32, cuda)
+    ds = _randn(gen, (2, 8, 128, 64), torch.float32, cuda)
+    _, st, cum, states = ssd.ssd_scan_cuda(x, dA, Bm, Cm, 256, True)
+    got = ssd.ssd_scan_bwd_cuda(x, dA, Bm, Cm, 256, cum, states, st, dy, ds)
+    want = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=256)
+    control = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=256, carry_state_grad=False)
+    assert max(_rel(g, w) for g, w in zip(got, want)) <= 1e-4
+    assert _rel(control[0], want[0]) > 1e-4
+
+
+@pytest.mark.parametrize("three_d", [False, True])
+def test_ssd_scan_autograd_launches_the_backward_kernel(cuda, three_d):
+    """``ops.ssd_scan`` under autograd on the card: one ``ssd_scan`` and one
+    ``ssd_scan_bwd`` launch, and gradients equal to the CPU's (the plain
+    versions through the same Function), for the model layout and the
+    Pallas contract, with and without a final-state gradient."""
+    gen = torch.Generator().manual_seed(3)
+    shape = (3, 192, 16) if three_d else (2, 192, 4, 16)
+    base = [torch.randn(shape, generator=gen),
+            -0.05 * torch.rand(shape[:-1], generator=gen),
+            torch.randn(shape[:2] + ((8,) if three_d else (2, 8)), generator=gen),
+            torch.randn(shape[:2] + ((8,) if three_d else (2, 8)), generator=gen)]
+    dy = torch.randn(shape, generator=gen)
+    ds = torch.randn(shape[:1] + (() if three_d else (4,)) + (8, 16), generator=gen)
+
+    def run(device):
+        leaves = [t.to(device).requires_grad_(True) for t in base]
+        y, st = ops.ssd_scan(*leaves, chunk=64, return_state=True)
+        torch.autograd.backward([y, st], [dy.to(device), ds.to(device)])
+        return [t.grad.cpu() for t in leaves]
+
+    ops.reset_launches()
+    got = run(cuda)
+    assert ops.LAUNCHES["ssd_scan"] == 1 and ops.LAUNCHES["ssd_scan_bwd"] == 1
+    for g, w in zip(got, run("cpu")):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3)

@@ -253,3 +253,98 @@ def test_chunk_passes_match_pallas_and_the_recurrence(G, chunk):
                                               chunk=chunk)
     _close(y, y_plain.numpy(), TOL)
     _close(state, state_plain.numpy(), TOL)
+
+
+def _bwd_inputs(seed, B, S_, H, G, P, N, decay):
+    """x, dA (slow decay: -decay * softplus), B, C, dy and a final-state
+    gradient from numpy, as float32 tensors."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, S_, H, P)),
+            -decay * np.log1p(np.exp(rng.standard_normal((B, S_, H)))),
+            0.5 * rng.standard_normal((B, S_, G, N)),
+            0.5 * rng.standard_normal((B, S_, G, N)),
+            rng.standard_normal((B, S_, H, P)),
+            rng.standard_normal((B, H, N, P))]
+    return [torch.from_numpy(a.astype(np.float32)) for a in arrs]
+
+
+def _rel_close(got, want, tol):
+    """Each gradient within ``tol`` of its largest value."""
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.detach().float().numpy(), w.float().numpy(),
+                                   rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("G,S_,chunk,decay", [(1, 96, 32, 0.01), (2, 64, 16, 0.01),
+                                               (2, 96, 32, 1.0)])
+@pytest.mark.parametrize("with_dstate", [False, True])
+def test_ssd_scan_bwd_matches_autograd(G, S_, chunk, decay, with_dstate):
+    """The kernel's decomposition in plain PyTorch (``ref.ssd_scan_bwd``)
+    against torch autograd through the chunked plain forward, over three or
+    more chunks, with slow decay and a final-state gradient."""
+    x, dA, Bm, Cm, dy, ds = _bwd_inputs(40 + G + S_, 2, S_, 4, G, 5, 6, decay)
+    ds = ds if with_dstate else None
+    leaves = [t.clone().requires_grad_(True) for t in (x, dA, Bm, Cm)]
+    y, st = ops.ssd_scan_plain(*leaves, chunk=chunk)
+    loss = (y * dy).sum() + ((st * ds).sum() if with_dstate else 0.0)
+    want = torch.autograd.grad(loss, leaves)
+    got = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=chunk)
+    for g, like in zip(got, (x, dA, Bm, Cm)):
+        assert g.shape == like.shape and g.dtype == like.dtype
+    _rel_close(got, want, 1e-5)
+    # the same gradients through ops.ssd_scan's autograd Function
+    leaves = [t.clone().requires_grad_(True) for t in (x, dA, Bm, Cm)]
+    y, st = ops.ssd_scan(*leaves, chunk=chunk, return_state=True)
+    loss = (y * dy).sum() + ((st * ds).sum() if with_dstate else 0.0)
+    _rel_close(torch.autograd.grad(loss, leaves), want, 1e-5)
+
+
+def test_ssd_scan_bwd_control_misses_the_state_gradient():
+    """Without the carried state gradient the plain backward is far from
+    autograd's dx at slow decay: the check that ``chip_smoke.py`` and the
+    card tests make with this control can see a kernel that drops it."""
+    x, dA, Bm, Cm, dy, ds = _bwd_inputs(7, 2, 96, 4, 1, 5, 6, 0.01)
+    full = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=32)
+    ctl = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=32, carry_state_grad=False)
+    rel = ((ctl[0] - full[0]).norm() / full[0].norm()).item()
+    assert rel > 1e-2
+
+
+def test_ssd_scan_bwd_bf16_control_reads_above_the_limits():
+    """With bf16 B and C, the plain backward from x and dy rounded to bf16
+    (products of bf16 operands) is further from the fp32 one than the norm
+    limits that ``chip_smoke.py`` and the card tests hold the kernel to
+    (1e-4 on dx and d dA, 1e-3 on dB and dC): the check can see a kernel
+    that computes in bf16."""
+    x, dA, Bm, Cm, dy, _ = _bwd_inputs(5, 2, 128, 4, 1, 32, 64, 1.0)
+    Bm, Cm = Bm.bfloat16(), Cm.bfloat16()
+    want = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, None, chunk=64)
+    ctl = ref.ssd_scan_bwd(x.bfloat16().float(), dA, Bm, Cm, dy.bfloat16().float(),
+                           None, chunk=64)
+    for c, w, limit in zip(ctl, want, (1e-4, 1e-4, 1e-3, 1e-3)):
+        assert ((c.float() - w.float()).norm() / w.float().norm()).item() > limit
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_chunked_grads_match_jax(G):
+    """The port's ``ssd_chunked`` under autograd (``ops.ssd_scan``'s Function,
+    the plain backward on the CPU) against ``jax.grad`` of the JAX
+    ``ssd_chunked``, with respect to xh, dt, a_log, B and C, for a random
+    cotangent on y; a_log = log(0.01), so that the state carried across
+    the three chunks weighs in."""
+    xh, dt, a_log, Bm, Cm = _chunked_inputs(50 + G, 2, 48, 4, G, 8, 16)
+    a_log = np.full_like(a_log, np.log(0.01))
+    arrs = (xh, dt, a_log, Bm, Cm)
+    cot = np.random.default_rng(60 + G).standard_normal(xh.shape).astype(np.float32)
+
+    def jloss(*a):
+        return jnp.sum(JS.ssd_chunked(*a, chunk=16)[0] * cot)
+
+    want = jax.grad(jloss, argnums=tuple(range(5)))(*map(jnp.asarray, arrs))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    y, _ = S.ssd_chunked(*leaves, chunk=16)
+    got = torch.autograd.grad((y * torch.from_numpy(cot)).sum(), leaves)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * float(np.abs(w).max()))

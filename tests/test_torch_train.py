@@ -1,9 +1,10 @@
 """The port's training path on the CPU against the JAX package's, from one
 bridged state: the synthetic data, the loss, clipping, the AdamW update from
 identical gradients, the gradients of one step leaf by leaf, and whole steps
-by loss and grad norm under every remat mode and with microbatches. The
-kernels run as their plain versions here (autograd Functions with the plain
-forward and backward)."""
+by loss and grad norm under every remat mode and with microbatches, for the
+dense family and for reduced mamba2 (ssm) and zamba2 (hybrid). The kernels
+run as their plain versions here (autograd Functions with the plain forward
+and backward)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,15 +26,29 @@ from repro_torch.training import train as TR
 # Reduced widths with three layers and GQA (4 query heads on 2 KV heads).
 CFG_KW = dict(num_layers=3, num_kv_heads=2, param_dtype="float32",
               compute_dtype="float32")
+# Reduced ssm and hybrid models: mamba2 with three layers, zamba2 with five
+# (two groups of two and a leftover layer), each over sequences that its
+# reduced chunk of 16 divides.
+SSM_KW = {"mamba2-370m": dict(num_layers=3, param_dtype="float32", compute_dtype="float32"),
+          "zamba2-1.2b": dict(num_layers=5, param_dtype="float32", compute_dtype="float32")}
+SSM_SEQ = 32
 # Loss and grad norm after whole steps, and the AdamW update itself: fp32
 # in another summation order (relative).
 STEP_RTOL = 1e-4
 
 
-def _cfgs(**kw):
-    kw = {**CFG_KW, **kw}
-    return (reduced(get_arch("stablelm-1.6b").model).replace(**kw),
-            jreduced(jget_arch("stablelm-1.6b").model).replace(**kw))
+def _cfgs(aid="stablelm-1.6b", **kw):
+    kw = {**(CFG_KW if aid == "stablelm-1.6b" else SSM_KW[aid]), **kw}
+    return (reduced(get_arch(aid).model).replace(**kw),
+            jreduced(jget_arch(aid).model).replace(**kw))
+
+
+def _seq(aid):
+    return 24 if aid == "stablelm-1.6b" else SSM_SEQ
+
+
+ARCHS = pytest.mark.parametrize("aid", ["stablelm-1.6b", "mamba2-370m", "zamba2-1.2b"],
+                                ids=["stablelm", "mamba2", "zamba2"])
 
 
 def _tcfgs(**kw):
@@ -150,13 +165,14 @@ def test_bridged_state_round_trips():
         np.testing.assert_array_equal(back[k], src[k], k)
 
 
-def test_one_step_grads_match_jax_leaf_by_leaf():
+@ARCHS
+def test_one_step_grads_match_jax_leaf_by_leaf(aid):
     """Gradients of the loss from one bridged state, each leaf within 1e-4
     of that leaf's largest JAX gradient."""
-    cfg, jcfg = _cfgs()
+    cfg, jcfg = _cfgs(aid)
     tcfg, jtcfg = _tcfgs()
     jstate, state = _bridged(cfg, jcfg, jtcfg)
-    batch = _batches(1)[0]
+    batch = _batches(1, seq=_seq(aid))[0]
     jgrads = jax.grad(lambda p: JTR.make_loss_fn(jcfg, jtcfg)(p, batch)[0])(
         jstate["params"])
     params = state["params"]
@@ -172,17 +188,20 @@ def test_one_step_grads_match_jax_leaf_by_leaf():
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4 * scale, err_msg=k)
 
 
-@pytest.mark.parametrize("remat", ["none", "full", "dots"])
-@pytest.mark.parametrize("accum", [1, 2])
-def test_three_steps_match_jax(remat, accum):
+@pytest.mark.parametrize("aid,remat,accum", [
+    *(pytest.param("stablelm-1.6b", r, a, id=f"{a}-{r}")
+      for a in (1, 2) for r in ("none", "full", "dots")),
+    *(pytest.param(aid, r, 1, id=f"{aid.split('-')[0]}-{r}")
+      for aid in ("mamba2-370m", "zamba2-1.2b") for r in ("none", "full"))])
+def test_three_steps_match_jax(aid, remat, accum):
     """Loss and grad norm of three whole steps (AdamW, clipping) on the JAX
     package's data, from one bridged state."""
-    cfg, jcfg = _cfgs()
+    cfg, jcfg = _cfgs(aid)
     tcfg, jtcfg = _tcfgs(remat=remat, accum_steps=accum)
     jstate, state = _bridged(cfg, jcfg, jtcfg)
     jstep = jax.jit(JTR.make_train_step(jcfg, jtcfg))
     step = TR.make_train_step(cfg, tcfg)
-    for batch in _batches(3, batch=4):
+    for batch in _batches(3, batch=4, seq=_seq(aid)):
         jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
         state, m = step(state, TR.to_device(batch, "cpu"))
         np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=STEP_RTOL)
@@ -191,9 +210,10 @@ def test_three_steps_match_jax(remat, accum):
     assert int(state["step"]) == int(jstate["step"]) == 3
 
 
-def test_remat_modes_give_equal_grads():
-    cfg, _ = _cfgs()
-    batch = TR.to_device(_batches(1)[0], "cpu")
+@ARCHS
+def test_remat_modes_give_equal_grads(aid):
+    cfg, _ = _cfgs(aid)
+    batch = TR.to_device(_batches(1, seq=_seq(aid))[0], "cpu")
     grads = {}
     for remat in ("none", "full", "dots"):
         tcfg, _ = _tcfgs(remat=remat)
@@ -255,6 +275,25 @@ def test_eval_step_matches_jax():
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
 
 
+@pytest.mark.parametrize("aid,remat,want", [
+    ("stablelm-1.6b", "full", {"flash_attention": 48, "flash_attention_bwd": 24,
+                               "rmsnorm": 97, "rmsnorm_bwd": 49}),
+    ("mamba2-370m", "full", {"ssd_scan": 96, "ssd_scan_bwd": 48,
+                             "rmsnorm": 193, "rmsnorm_bwd": 97}),
+    ("mamba2-370m", "none", {"ssd_scan": 48, "ssd_scan_bwd": 48,
+                             "rmsnorm": 97, "rmsnorm_bwd": 97}),
+    ("zamba2-1.2b", "full", {"ssd_scan": 76, "ssd_scan_bwd": 38, "flash_attention": 6,
+                             "flash_attention_bwd": 6, "rmsnorm": 165, "rmsnorm_bwd": 89})])
+def test_kernel_launches_per_step_at_full_width(aid, remat, want):
+    """The launch rule of a train step at the archs' own depths: under remat
+    "full" each layer's forward kernels run twice, the final norm and
+    zamba2's six shared blocks once; every kernel it does not name is 0."""
+    got = TR.kernel_launches_per_step(get_arch(aid).model, remat)
+    assert got == {**{name: 0 for name in got}, **want}
+    assert set(got) == {"flash_attention", "flash_attention_bwd", "rmsnorm",
+                        "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd"}
+
+
 def test_train_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
@@ -278,6 +317,26 @@ def test_launch_train_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     assert "resuming from checkpoint step 2" in out and "done at step 3" in out
 
 
+def test_launch_train_ssm_runs_and_resumes_on_the_cpu(tmp_path, capsys):
+    """The reduced mamba2 through the launcher: its train steps (the ssd_scan
+    backward as the plain version), checkpoints and a resume."""
+    args = ["--arch", "mamba2-370m", "--steps", "2", "--batch", "2", "--seq", "32",
+            "--ckpt-every", "1", "--log-every", "1", "--ckpt-dir", str(tmp_path),
+            "--device", "cpu"]
+    launch_train.main(args)
+    out = capsys.readouterr().out
+    assert "step     2 loss" in out and "done at step 2" in out
+    launch_train.main(args[:3] + ["3"] + args[4:])
+    out = capsys.readouterr().out
+    assert "resuming from checkpoint step 2" in out and "done at step 3" in out
+
+
+def test_launch_train_defaults_to_the_reduced_config():
+    assert launch_train.parser().parse_args([]).full is False
+    assert launch_train.parser().parse_args(["--reduced"]).full is False
+    assert launch_train.parser().parse_args(["--full"]).full is True
+
+
 def test_launch_train_reduced_and_full_exclude_each_other(capsys):
     with pytest.raises(SystemExit):
         launch_train.main(["--reduced", "--full", "--device", "cpu"])
@@ -291,3 +350,7 @@ def test_launch_train_configs():
     cfg, tcfg = launch_train.configs("stablelm-1.6b", full=False)
     assert cfg.param_dtype == "float32" and tcfg.remat == "none"
     assert tcfg.learning_rate == 1e-3
+    for aid, n in (("mamba2-370m", 48), ("zamba2-1.2b", 38)):
+        cfg, tcfg = launch_train.configs(aid, full=True)
+        assert (cfg.num_layers, cfg.ssm_chunk, cfg.param_dtype) == (n, 256, "bfloat16")
+        assert (tcfg.optimizer, tcfg.remat, tcfg.accum_steps) == ("adamw", "full", 1)
