@@ -24,11 +24,14 @@ its seconds:
                 the backward through ``F.rms_norm`` and
                 ``F.scaled_dot_product_attention`` under autograd (forward
                 and backward, less the forward alone; none for ssd_scan);
-                each names the path of ``rmsnorm.plan_bwd`` or the route and
-                tile of ``flash_attention.plan_bwd`` that ran, and fails on
-                another; each ``ssd_scan_bwd`` gradient is also held by
-                norm, and the slow-decay case against a control without the
-                carried state gradient;
+                each names the path of ``rmsnorm.plan_bwd``, the route and
+                tile of ``flash_attention.plan_bwd`` or the chunk_grads
+                instance (route, heads a block, ring; the profiler's kernel
+                name) that ran, and fails on another; each
+                ``ssd_scan_bwd`` case records its five
+                launches' device times (``torch.profiler``), each gradient
+                is also held by norm, and the slow-decay case against a
+                control without the carried state gradient;
 4. consistency  stablelm-1.6b, mamba2-370m and zamba2-1.2b at full width in
                 float32: decode logits at every prompt position equal the
                 full forward's (the ssm/hybrid archs over two 256-row
@@ -81,10 +84,11 @@ TRAIN_TOL = 1e-4
 # one: (atol, rtol), as tests/test_torch_cuda.py holds it.
 LSE_TOL = (1e-3, 1e-4)
 # ||got - want|| / ||want|| of the ssd_scan_bwd gradients (dx, d dA, dB, dC),
-# by B/C's dtype. A sound kernel reads about 6e-7 and 4e-6 on dx and d dA,
-# and with bf16 B and C, where dB and dC are rounded to bf16, 2e-5 to 4e-5 on
-# those; the plain backward from x and dy rounded to bf16, the control of
-# the bf16 cases, reads about 2e-3 on dx and d dA and 3e-3 on dB and dC.
+# by B/C's dtype. The kernel's split products read about 4e-6 on dx and d dA,
+# and with bf16 B and C, where dB and dC are rounded to bf16, 1e-4 on those
+# (with fp32 B and C, three pieces, 1e-6 to 3e-6); the plain backward from x
+# and dy rounded to bf16, the control of the bf16 cases, reads about 2e-3 on
+# dx and d dA and 3e-3 on dB and dC.
 SSD_GRAD_NORM_TOL = {"float32": (1e-4, 1e-4, 1e-4, 1e-4),
                      "bfloat16": (1e-4, 1e-4, 1e-3, 1e-3)}
 # ||got - want|| / ||want|| of each flash gradient. A sound bf16 kernel reads
@@ -154,39 +158,97 @@ def device_ms(torch, fn, per_call_ms: float, min_total_ms: float = 30.0) -> floa
     return ms
 
 
+def split_tc_s(rows: int, products) -> float:
+    """Least time of the chunked SSD form's products on the bf16 tensor cores,
+    each (flops per row and head, terms) counted with the split terms that
+    fp32-grade results need: 3 where both operands are fp32 (hi.hi + lo.hi +
+    hi.lo of bf16 hi/lo parts), 2 where one is a bf16 B or C, 1 for C B^T of
+    bf16 B and C; fp32 B and C count as split operands."""
+    return rows * sum(f * t for f, t in products) / PEAK_FLOPS["bfloat16"]
+
+
+def _bc_terms(bc_dtype: str):
+    """Split terms of C B^T, and of a product of B or C by an fp32 operand."""
+    return (1, 2) if bc_dtype == "bfloat16" else (3, 3)
+
+
 def ssd_ops_s(BH: int, S: int, P: int, N: int, Q: int, bc_dtype: str,
               heads_per_group: int = 1):
-    """Least time for the operations of one SSD scan, and the form it counts:
-    the smaller of the sequential recurrence's 5*N*P fp32 flops per row and
-    head (state decay and rank-1 update, then C . state) and the chunked
+    """Least time for the operations of one SSD scan, and the count that gave
+    it: the smallest of the sequential recurrence's 5*N*P fp32 flops per row
+    and head (state decay and rank-1 update, then C . state); the chunked
     form's, whose C B^T term (Q*N per row, once per group of heads) may run
     at B/C's own rate (tensor cores for bf16) and whose rest (Q*P + 4*N*P
-    per row and head) is fp32."""
+    per row and head) is fp32; and the chunked form's products all on the
+    bf16 tensor cores with their split terms (``split_tc_s``): C B^T, (C B^T
+    o L) x (3 terms) and the four state products B^T (w o x) and C state."""
     rows = BH * S
     recurrence = 5 * rows * N * P / PEAK_FLOPS["float32"]
     chunked = rows * (Q * N / heads_per_group / PEAK_FLOPS[bc_dtype]
                       + (Q * P + 4 * N * P) / PEAK_FLOPS["float32"])
-    return min((recurrence, "recurrence"), (chunked, "chunked"))
+    cb, with_bc = _bc_terms(bc_dtype)
+    tensor = split_tc_s(rows, [(Q * N / heads_per_group, cb), (Q * P, 3),
+                               (4 * N * P, with_bc)])
+    return min((recurrence, "recurrence"), (chunked, "chunked"),
+               (tensor, "chunked_tensor_cores"))
 
 
 def ssd_bwd_ops_s(BH: int, S: int, P: int, N: int, Q: int, bc_dtype: str,
                   heads_per_group: int = 1):
-    """Least time for the operations of one SSD scan backward, and the form
-    it counts: the smaller of the reverse recurrence's fp32 work, 14*N*P
+    """Least time for the operations of one SSD scan backward, and the count
+    that gave it: the smallest of the reverse recurrence's fp32 work, 14*N*P
     flops per row and head (the forward state again, its decay and rank-1
     update without y, 3*N*P; the state gradient's decay and rank-1 update,
-    3*N*P; dx, dB and dC, 6*N*P; the decay's gradient, 2*N*P), and the
-    chunked form's as ``ssd_scan_bwd``
-    runs it: per row and head 2*Q*P + 2*Q*N fp32 flops within the chunk (dy
-    x^T and (C B^T o L)^T dy, (dy x^T o L)^T C and (dy x^T o L) B over the
-    causal half) and 8*N*P across chunks (the state-gradient term and the
-    three cross-chunk products), with C B^T's Q*N per row once per group at
-    B/C's own rate."""
+    3*N*P; dx, dB and dC, 6*N*P; the decay's gradient, 2*N*P); the chunked
+    form's with fp32 products: per row and head 2*Q*P + 2*Q*N within the
+    chunk (dy x^T and (C B^T o L)^T dy, (dy x^T o L)^T C and (dy x^T o L) B
+    over the causal half) and 8*N*P across chunks (the state-gradient term
+    and the three cross-chunk products), with C B^T's Q*N per row once per
+    group at B/C's own rate; and the same products on the bf16 tensor cores
+    with their split terms (``split_tc_s``): dy x^T and T1^T dy 3 terms, the
+    two products with C and B and D_c and G_c^T B those of B/C, G_c x and
+    h_c dy 3."""
     rows = BH * S
     recurrence = 14 * rows * N * P / PEAK_FLOPS["float32"]
     chunked = rows * (Q * N / heads_per_group / PEAK_FLOPS[bc_dtype]
                       + (2 * Q * P + 2 * Q * N + 8 * N * P) / PEAK_FLOPS["float32"])
-    return min((recurrence, "recurrence"), (chunked, "chunked"))
+    cb, with_bc = _bc_terms(bc_dtype)
+    tensor = split_tc_s(rows, [(Q * N / heads_per_group, cb), (2 * Q * P, 3),
+                               (2 * Q * N, with_bc), (4 * N * P, with_bc),
+                               (4 * N * P, 3)])
+    return min((recurrence, "recurrence"), (chunked, "chunked"),
+               (tensor, "chunked_tensor_cores"))
+
+
+# ssd_scan_bwd's five launches, by a mark in each kernel's name
+SSD_BWD_LAUNCHES = ("chunk_dstate", "dstate_pass", "chunk_grads", "reduce_rows", "dA_scan")
+
+
+def launch_ms(torch, fn, marks, reps: int = 3):
+    """Device ms per call of each of fn's kernels, by the first of ``marks``
+    its name holds, the names of the kernels under each mark, and the
+    traces taken, from ``torch.profiler`` over ``reps`` calls after one
+    warm-up call. A trace without a kernel of every mark (the profiler at
+    times drops a kernel) is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for tries in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out, names = {m: 0.0 for m in marks}, {m: set() for m in marks}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            mark = next((m for m in marks if m in e.name), None)
+            if mark is not None:
+                out[mark] += e.time_range.elapsed_us() / 1e3 / reps
+                names[mark].add(e.name)
+        if all(names.values()):
+            break
+    return out, {m: sorted(v) for m, v in names.items()}, tries
 
 
 def timed_grads(torch, fwd, inputs, grad_out):
@@ -249,8 +311,7 @@ def main() -> int:
     lib = build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_s": lib.build_s, "library": str(lib.path.relative_to(ROOT)),
-          "ptxas": [ln.strip() for ln in lib.log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "ptxas": build.ptxas_summary(lib.log)})
 
     # 3. kernels --------------------------------------------------------------
     t_phase = time.perf_counter()
@@ -570,7 +631,7 @@ def main() -> int:
                   ["tensor_cores", [64, 64]])
 
     def ssd_bwd_case(case, B, S, H, G, Pd, N, chunk, bc_dtype, decay=1.0,
-                     dstate=False, control=False):
+                     dstate=False, control=False, instance=None):
         """Inputs as ``ssd_case`` gives them; cum, the chunk states and the
         final state from the kernel's forward, as in training; dy (and, with
         ``dstate``, the final state's gradient) random. Each gradient held
@@ -584,7 +645,12 @@ def main() -> int:
         plain backward with the carried state gradient set to zero must read
         above the limit on dx, which shows that the check sees the
         cross-chunk path. Bound: ``ssd_bwd_ops_s``, or the bytes of x, B, C,
-        cum, states, dy (dstate, state) read and dx, d dA, dB, dC written."""
+        cum, states, dy (dstate, state) read and dx, d dA, dB, dC written.
+        The chunk_grads that ran (``torch.profiler``'s kernel name) must be
+        ``instance``, which names the route by B/C's type and the blocking
+        that ``ssd_scan.plan_bwd`` should pick; the record names the plan,
+        each of the five launches' device time and the share of its
+        elementwise tolerance each gradient uses at most."""
         x = randn(B, S, H, Pd, dtype="float32")
         dA = -decay * F.softplus(randn(B, S, H, dtype="float32"))
         Bm, Cm = (0.5 * randn(B, S, G * N, dtype=bc_dtype).reshape(B, S, G, N)
@@ -600,10 +666,17 @@ def main() -> int:
         def rel(got, want):
             return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
+        t32, tbc = 10 * TOL["float32"], 10 * TOL[bc_dtype]
+        tols = [(t32, t32), (t32 * chunk ** 0.5, t32), (tbc, tbc), (tbc, tbc)]
+
         def judge(outs, wants):
             again = run()
             got = [rel(g, w) for g, w in zip(outs, wants)]
             rec = {"rel_norm_err": got, "rel_norm_tol": limits,
+                   # the largest share of its elementwise tolerance a value uses
+                   "tol_share": [((g.float() - w.float()).abs()
+                                  / (at + rt * w.float().abs())).max().item()
+                                 for g, w, (at, rt) in zip(outs, wants, tols)],
                    "equal_bits": all(bool(torch.equal(a, b)) for a, b in zip(outs, again))}
             ok = all(e <= lim for e, lim in zip(got, limits)) and rec["equal_bits"]
             if bc_dtype == "bfloat16":
@@ -621,16 +694,30 @@ def main() -> int:
                 ok = ok and rec["no_state_grad_control_rel_norm_err"][0] > limits[0]
             return {**rec, "ok": ok}
 
-        t32, tbc = 10 * TOL["float32"], 10 * TOL[bc_dtype]
         isz = Bm.element_size()
         nbytes = (3 * x.numel() * 4 + 4 * Bm.numel() * isz + 8 * cum.numel()
                   + 4 * states.numel() + 4 * dA.numel()
                   + (2 * 4 * ds.numel() if dstate else 0))
         ops_s, ops_form = ssd_bwd_ops_s(B * H, S, Pd, N, chunk, bc_dtype, H // G)
+        launched = {}
+
+        def chunk_grads_instance():
+            """The chunk_grads instance that ran, by the profiler's name."""
+            launched["ms"], names, launched["profiler_tries"] = launch_ms(
+                torch, run, SSD_BWD_LAUNCHES)
+            return sorted({build.kernel_instance(n) for n in names["chunk_grads"]})
+
+        def record():
+            plan = ssd.BWD_PLAN
+            return {"plan": {"route": plan.route, "heads_per_block": plan.heads_per_block,
+                             "ring": plan.ring, "widths": list(plan.widths),
+                             "smem": plan.smem, "terms": plan.terms},
+                    "launch_ms": launched["ms"], "profiler_tries": launched["profiler_tries"]}
+
         check_case("ssd_scan_bwd", case, "float32", run,
                    lambda: ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=chunk),
-                   None, judge=judge,
-                   tols=[(t32, t32), (t32 * chunk ** 0.5, t32), (tbc, tbc), (tbc, tbc)],
+                   None, judge=judge, record=record,
+                   route=(chunk_grads_instance, [instance]), tols=tols,
                    nbytes=nbytes, ops_s=ops_s, bound_ops=ops_form,
                    cuda_launches_per_call=ssd.CUDA_LAUNCHES_BWD,
                    shape={"B": B, "S": S, "H": H, "G": G, "P": Pd, "N": N,
@@ -638,12 +725,19 @@ def main() -> int:
                    dstate=dstate)
 
     # the train path's shapes (x fp32, B/C bf16 as the model hands them over)
-    ssd_bwd_case("mamba2_train_bwd", TRAIN_BATCH, TRAIN_SEQ, 32, 1, 64, 128, 256, "bfloat16")
-    ssd_bwd_case("zamba2_train_bwd", TRAIN_BATCH, TRAIN_SEQ, 64, 1, 64, 64, 256, "bfloat16")
+    # instance: the chunk_grads that must run, <B/C type, P and N padded,
+    # heads a block, ring> (fewer heads where the grid is small)
+    bf, f32 = "chunk_grads_kernel<bf16,", "chunk_grads_kernel<float,"
+    ssd_bwd_case("mamba2_train_bwd", TRAIN_BATCH, TRAIN_SEQ, 32, 1, 64, 128, 256, "bfloat16",
+                 instance=bf + "64,128,2,true>")
+    ssd_bwd_case("zamba2_train_bwd", TRAIN_BATCH, TRAIN_SEQ, 64, 1, 64, 64, 256, "bfloat16",
+                 instance=bf + "64,64,4,true>")
     ssd_bwd_case("slow_decay_bwd", 2, 2048, 8, 1, 64, 128, 256, "float32", decay=0.01,
-                 dstate=True, control=True)
-    ssd_bwd_case("grouped_bwd", 2, 512, 8, 2, 64, 64, 256, "bfloat16", dstate=True)
-    ssd_bwd_case("ragged_bwd", 1, 128, 2, 1, 30, 20, 64, "float32", decay=0.1, dstate=True)
+                 dstate=True, control=True, instance=f32 + "64,128,1,true>")
+    ssd_bwd_case("grouped_bwd", 2, 512, 8, 2, 64, 64, 256, "bfloat16", dstate=True,
+                 instance=bf + "64,64,1,true>")
+    ssd_bwd_case("ragged_bwd", 1, 128, 2, 1, 30, 20, 64, "float32", decay=0.1, dstate=True,
+                 instance=f32 + "64,64,1,true>")
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase})
 
     # 4. consistency ----------------------------------------------------------

@@ -2,20 +2,23 @@
 """Times variants of one of the port's CUDA kernels against each other on one card.
 
     PYTHONPATH=src python scripts/flash_variants.py
-        [--kernel flash|rmsnorm|ssd_scan|flash_bwd|rmsnorm_bwd]
+        [--kernel flash|rmsnorm|ssd_scan|flash_bwd|rmsnorm_bwd|ssd_scan_bwd]
         NAME=SOURCE[:FLAG,FLAG...] ... [--order NAME,NAME,...] [--legacy NAME,...]
+        [--blocks-per-sm N] [--ssd-heads NAME=N,...]
 
 Each variant is a CUDA source with the kernel's C entry points
 (``flash_attention_fwd_bf16``, ``rmsnorm_fwd``, ``ssd_scan_fwd``,
-``flash_attention_bwd_bf16`` and ``_f32``, or ``rmsnorm_bwd`` of
-``src/repro_torch/csrc/``): that file, an edited or earlier copy of it, or it
+``flash_attention_bwd_bf16`` and ``_f32``, ``rmsnorm_bwd`` or
+``ssd_scan_bwd`` of ``src/repro_torch/csrc/``): that file, an edited or earlier copy of it, or it
 with ``-D`` flags, built by nvcc with the port's flags into
 ``build/variants/``. ``--legacy`` names the variants whose source has the
 earlier entry points: ``rmsnorm_fwd`` without the path, grid and vector
 arguments, ``ssd_scan_fwd`` without the two scratch tensors,
 ``flash_attention_fwd_bf16`` without the lse pointer, ``rmsnorm_bwd``
 without the path and vector arguments (its grid then one block per SM
-pair of rows, as it was); the flash backward's entry points did not change
+pair of rows, as it was), ``ssd_scan_bwd`` without the heads per block
+and the ring (the fp32-FMA design's, with per-head dB and dC scratch); the flash
+backward's entry points did not change
 (its scratch grew to 2 x B x H x Sq, which the earlier source also takes).
 An earlier source comes from git, e.g. ``git show
 <rev>:src/repro_torch/csrc/ssd_scan.cu > build/old/ssd_scan.cu``, made
@@ -38,7 +41,15 @@ that drift on the card falls on both sides) at the main-path shapes:
   o and lse from the library's forward, with the backward through
   ``F.scaled_dot_product_attention`` timed in each turn;
 - rmsnorm_bwd: (8192, 2048) in bf16 and in fp32, with ``F.rms_norm``'s
-  backward timed in each turn.
+  backward timed in each turn;
+- ssd_scan_bwd: ``chip_smoke.py``'s backward cases (the mamba2 and zamba2
+  train shapes (2, 4096) with bf16 B/C, slow decay in fp32, grouped,
+  ragged), cum and the chunk states from the port's forward; heads a block
+  and the ring from ``ssd_scan.plan_bwd`` for the card, or with
+  ``--ssd-heads N`` at most N heads a block for every case (one: C B^T per
+  head), so that ``new=SRC cap1=SRC --ssd-heads cap1=1`` times both in
+  turns. A variant of the kernel's code is an edited copy of the source
+  (under ``build/``), timed against the source as another NAME=SOURCE.
 
 Prints one JSON line per turn with each shape's device time (CUDA-graph
 replay, as ``chip_smoke.py``) and max abs error against the plain version,
@@ -53,7 +64,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
-KERNELS = ("flash", "rmsnorm", "ssd_scan", "flash_bwd", "rmsnorm_bwd")
+KERNELS = ("flash", "rmsnorm", "ssd_scan", "flash_bwd", "rmsnorm_bwd", "ssd_scan_bwd")
 # (B, H, S, hd, lse written)
 FLASH_SHAPES = {"serve_forward": (4, 32, 128, 64, False), "s1024": (4, 32, 1024, 64, False),
                 "zamba2_forward": (4, 32, 1024, 128, False),
@@ -79,12 +90,20 @@ FLASH_BWD_SHAPES = {"train_bwd": (2, 32, 32, 4096, 64, "bfloat16", True),
                     "non_causal_ragged_bwd": (2, 8, 8, 1000, 64, "bfloat16", False)}
 RMSNORM_BWD_SHAPES = {"train_bwd": (8192, 2048, "bfloat16"),
                       "train_bwd_fp32": (8192, 2048, "float32")}
+# (B, S, H, G, P, N, chunk, B/C dtype, decay, final-state gradient)
+SSD_BWD_SHAPES = {
+    "mamba2_train_bwd": (2, 4096, 32, 1, 64, 128, 256, "bfloat16", 1.0, False),
+    "zamba2_train_bwd": (2, 4096, 64, 1, 64, 64, 256, "bfloat16", 1.0, False),
+    "slow_decay_bwd": (2, 2048, 8, 1, 64, 128, 256, "float32", 0.01, True),
+    "grouped_bwd": (2, 512, 8, 2, 64, 64, 256, "bfloat16", 1.0, True),
+    "ragged_bwd": (1, 128, 2, 1, 30, 20, 64, "float32", 0.1, True)}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 LEGACY_SIGNATURES = {"rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
                      "ssd_scan_fwd": [_P] * 6 + [_I] * 7 + [_L] * 12 + [_I, _P],
                      "flash_attention_fwd_bf16": [_P] * 4 + [_I] * 7 + [_L] * 9
                      + [_F, _I, _I, _I, _P],
-                     "rmsnorm_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P]}
+                     "rmsnorm_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P],
+                     "ssd_scan_bwd": [_P] * 16 + [_I] * 7 + [_L] * 9 + [_I, _P]}
 
 
 def _timer(torch, cs, fn):
@@ -244,6 +263,57 @@ def ssd_cases(torch, gen, cuda, cs):
     return cases
 
 
+def ssd_bwd_cases(torch, gen, cuda, cs):
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import ssd_scan as ssd
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cases = {}
+    for case, (B, S, H, G, P, N, Q, bc, decay, with_ds) in SSD_BWD_SHAPES.items():
+        x = torch.randn((B, S, H, P), generator=gen, device=cuda)
+        dA = -decay * F.softplus(torch.randn((B, S, H), generator=gen, device=cuda))
+        Bm, Cm = ((0.5 * torch.randn((B, S, G * N), generator=gen, device=cuda))
+                  .to(dtypes[bc]).reshape(B, S, G, N) for _ in range(2))
+        dy = torch.randn((B, S, H, P), generator=gen, device=cuda)
+        ds = torch.randn((B, H, N, P), generator=gen, device=cuda) if with_ds else None
+        _, st, cum, states = ssd.ssd_scan_cuda(x, dA, Bm, Cm, Q, True)
+        f32 = dict(dtype=torch.float32, device=cuda)
+        outs = (torch.empty_like(x), torch.empty((B, S, H), **f32),
+                torch.empty_like(Bm), torch.empty_like(Cm))
+        # scratch as large as the per-head layout, which holds every variant's
+        scratch = (torch.empty((B, H, S // Q, N, P), **f32), torch.empty((B, S, H, N), **f32),
+                   torch.empty((B, S, H, N), **f32), torch.empty((B, H, S), **f32))
+
+        def make(bind, legacy, most_heads=None, x=x, Bm=Bm, Cm=Cm, cum=cum, states=states,
+                 st=st, dy=dy, ds=ds, outs=outs, scratch=scratch, dims=(B, S, H, G, P, N, Q),
+                 code=build.DTYPE_CODE[dtypes[bc]], bc_dtype=dtypes[bc]):
+            fn = bind("ssd_scan_bwd")
+            heads = ()
+            if not legacy:
+                b_, s_, h_, g_, p_, n_, q_ = dims
+                plan = ssd.plan_bwd(n_, p_, q_, h_ // g_, bc_dtype,
+                                    tiles=b_ * g_ * (s_ // q_) * -(-q_ // ssd.TILE), sms=sms)
+                hb, ring = plan.heads_per_block, plan.ring
+                if most_heads is not None and hb > most_heads:
+                    hb = max(k for k in (1, 2, 4) if k <= most_heads)
+                    ring = ssd.grad_smem(plan.route == "bf16_bc", *plan.widths, hb,
+                                         True) <= ssd.MAX_BLOCK_SMEM
+                heads = (hb, int(ring))
+            ptrs = [t.data_ptr() for t in (x, Bm, Cm, cum, states)] + [
+                None if ds is None else st.data_ptr(), dy.data_ptr(),
+                None if ds is None else ds.data_ptr()] + [
+                t.data_ptr() for t in outs + scratch]
+            strides = [v for t in (x, Bm, Cm) for v in t.stride()[:3]]
+            return lambda: fn(*ptrs, *dims, *strides, *heads, code,
+                              torch.cuda.current_stream().cuda_stream)
+
+        cases[case] = (make, lambda outs=outs: outs,
+                       lambda x=x, dA=dA, Bm=Bm, Cm=Cm, dy=dy, ds=ds, Q=Q:
+                       ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=Q), None)
+    return cases
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("variants", nargs="+", help="NAME=SOURCE[:FLAG,FLAG...]")
@@ -254,6 +324,9 @@ def main(argv=None) -> int:
     ap.add_argument("--blocks-per-sm", type=int, default=None,
                     help="rmsnorm: size the warp path's grid to this many "
                          "blocks per SM in place of the plan's")
+    ap.add_argument("--ssd-heads", default="",
+                    help="ssd_scan_bwd: NAME=N,... at most N heads a chunk_grads "
+                         "block for that variant")
     args = ap.parse_args(argv)
 
     import torch
@@ -274,20 +347,23 @@ def main(argv=None) -> int:
         libs[name] = out_dir / f"{args.kernel}-{name}.so"
         cmds.append([build._nvcc(), *build.NVCC_FLAGS, "-shared",
                      *[f for f in flags.split(",") if f], src, "-o", str(libs[name])])
-    log = build._run_all(cmds)
+    logs = dict(zip(libs, build._run_each(cmds)))
     names = list(libs)
     order = args.order.split(",") if args.order else names + names[::-1]
     legacy = set(filter(None, args.legacy.split(",")))
+    heads_cap = {k: int(v) for k, _, v in
+                 (item.partition("=") for item in filter(None, args.ssd_heads.split(",")))}
 
     cuda = torch.device("cuda", 0)
     gen = torch.Generator(device=cuda).manual_seed(0)
     make_cases = {"flash": flash_cases, "rmsnorm": rmsnorm_cases, "ssd_scan": ssd_cases,
-                  "flash_bwd": flash_bwd_cases, "rmsnorm_bwd": rmsnorm_bwd_cases}
+                  "flash_bwd": flash_bwd_cases, "rmsnorm_bwd": rmsnorm_bwd_cases,
+                  "ssd_scan_bwd": ssd_bwd_cases}
     cases = (rmsnorm_cases(torch, gen, cuda, cs, args.blocks_per_sm)
              if args.kernel == "rmsnorm" else make_cases[args.kernel](torch, gen, cuda, cs))
-    print(json.dumps({"card": dev.card_line(), "kernel": args.kernel,
-                      "ptxas": [ln.strip() for ln in log.splitlines()
-                                if "registers" in ln or "spill" in ln]}), flush=True)
+    print(json.dumps({"card": dev.card_line(), "kernel": args.kernel}), flush=True)
+    for name, log in logs.items():
+        print(json.dumps({"variant": name, "ptxas": build.ptxas_summary(log)}), flush=True)
     wants = {}                                   # each case's plain result, made once
     for turn, name in enumerate(order):
         lib = ctypes.CDLL(str(libs[name]))
@@ -300,8 +376,11 @@ def main(argv=None) -> int:
             return fn
 
         row = {"turn": turn, "variant": name}
+        extra = {}
+        if args.kernel == "ssd_scan_bwd":
+            extra["most_heads"] = row["most_heads"] = heads_cap.get(name)
         for case, (make, result, plain, library) in cases.items():
-            run = make(bind, name in legacy)
+            run = make(bind, name in legacy, **extra)
             if run is None:
                 row[case] = "n/a: not in this source's entry point"
                 continue

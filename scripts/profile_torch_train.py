@@ -3,13 +3,17 @@
 
     PYTHONPATH=src python scripts/profile_torch_train.py
         [--arch stablelm-1.6b|mamba2-370m|zamba2-1.2b]
-        [--batch 2] [--seq 4096] [--steps 1]
+        [--batch 2] [--seq 4096] [--steps 1] [--timed 0]
 
 The arch's own config and TrainConfig (bf16, AdamW, its remat) at full width
 on seeded random weights and one fixed batch of ``synthetic_batches``; the
 default shape is train_4k's sequence with its global batch of 256 cut to 2,
 what one card holds. One warm-up step, then ``--steps`` steps under
-``torch.profiler``. Prints one JSON object: host wall time per step, the
+``torch.profiler``, then ``--timed`` steps without it, each ended by
+``torch.cuda.synchronize()`` and timed on the host's clock (what a step
+takes when nothing traces it; the port's package is the one beside the
+script, so a copy of the script in another checkout times that checkout).
+Prints one JSON object: host wall time per step, those unprofiled steps, the
 card's busy share over that window (union of kernel intervals over wall
 time), device time per step by kernel name, and the same summed into groups
 (the port's kernels by name; library matrix products; the rest). Needs a
@@ -62,6 +66,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=1)
+    ap.add_argument("--timed", type=int, default=0)
     args = ap.parse_args(argv)
 
     import torch
@@ -86,6 +91,12 @@ def main(argv=None) -> int:
             state, m = step(state, batch)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    timed_s = []
+    for _ in range(args.timed):
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        timed_s.append(time.perf_counter() - t1)
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -104,7 +115,7 @@ def main(argv=None) -> int:
         "arch": cfg.name, "dtype": cfg.compute_dtype, "remat": tcfg.remat,
         "optimizer": tcfg.optimizer, "batch": args.batch, "seq": args.seq,
         "steps": per, "card": dev.card_line(), "loss": float(m["loss"]),
-        "wall_s_per_step": wall_s / per,
+        "wall_s_per_step": wall_s / per, "unprofiled_step_s": timed_s,
         "device_busy_s_per_step": busy_us / 1e6 / per,
         "device_busy_share": busy_us / 1e6 / wall_s,
         "kernel_launches_per_step": len(kernels) / per,

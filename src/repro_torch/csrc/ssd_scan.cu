@@ -68,28 +68,60 @@
 // where the last row's term, sum_s w_s B_s^T G_c x_s + exp(cum_Q) <h_c, G_c>,
 // is the state leaving the chunk dotted with its gradient.
 //
-// What bounds it: operations. Counted from this code, per row and head:
-// D_c 2*N*P flops, the three cross-chunk products 6*N*P, the within-chunk
-// products 2*Q*P + 2*Q*N over the causal half (dy x^T and (CB o L)^T dy;
-// (DX o L)^T C and (DX o L) B), and C B^T's Q*N per row and group; the
-// reverse recurrence would need about 16*N*P.
+// What bounds it: operations, on the tensor cores. Per row and head the
+// chunked form runs dy x^T and (C B^T o L)^T dy (Q*P flops each over the
+// causal half), (dy x^T o L)^T C and (dy x^T o L) B (Q*N each), four
+// cross-chunk products (2*N*P each: D_c, G_c^T B, G_c x, h_c dy) and C B^T's
+// Q*N per row once per group; counted with two split terms where B or C is
+// a factor and three elsewhere, that is 0.10 ms at the mamba2 train shape at
+// 989 TF/s, against its bytes' 0.08 ms (the reverse recurrence would need
+// 14*N*P fp32 flops, 0.45 ms).
+//
+// Split products: every product runs on mma.sync m16n8k16 (bf16 operands,
+// fp32 sums) from ldmatrix fragments. An fp32 operand is held as bf16
+// pieces, hi = bf16(a) and each next piece bf16 of what the ones before
+// leave; a product adds the pieces' products i.j with i + j below the larger
+// piece count (Pieces below). With bf16 B and C (one exact piece): dy x^T
+// and the four cross-chunk products in three pieces (six terms; three by B
+// or C), because d cum = C.dC - B.dB cancels and d dA sums up to a chunk of
+// it; T1^T dy, T2^T C and T2 B, which only reach dx, dB and dC, in two. With
+// fp32 B and C every operand in three. ref.ssd_bwd_tiles emulates these
+// products on the CPU: 4e-6 to 7e-6 of the gradients' norms and within the
+// fp32 elementwise tolerances at slow decay, where two pieces throughout
+// read above them and bf16 x and dy 2e-3.
 //
 // Design: five launches, each parallel over chunks (or rows), no atomics, so
 // two runs give equal bits.
-//  1. chunk_dstate, one block per (batch, chunk, head, 64 x 64 tile of the
-//     state): D_c = (C o e)^T dy, into `dstates` (Bsz, H, nc, N, P).
+//  1. chunk_dstate, one block per (batch, chunk, 64 columns of P, head), a
+//     warp per 16 rows of N: D_c = C^T (e o dy) into `dstates`, the next
+//     64-row slab copied by cp.async while the current one is multiplied.
 //  2. dstate_pass, one thread per (batch, head, n, p): walks the chunks in
 //     reverse and overwrites D_c with G_c.
-//  3. chunk_grads, one block per (batch, chunk, head, 64-row tile r): dx and
-//     dB of rows r over the column slabs t >= r, then dC of rows r over the
-//     slabs s <= r, so every block runs nT + 1 slabs. Each slab forms the
-//     masked, decayed C B^T and dy x^T tiles in shared memory, all in fp32
-//     FMAs with a 4 x 4 patch a thread; the block's own x, B and dy rows stay
-//     in shared memory throughout. dB and dC are per head, fp32, (Bsz, S, H, N).
-//  4. reduce_rows, one block per (batch, row): dB and dC summed over the heads
-//     of each group in head order, cast to B's type, and d cum per head.
+//  3. chunk_grads, one block per (batch, chunk, 64-row tile r, group, block
+//     of 1, 2 or 4 heads of the group), 16 warps: dx and dB of rows r over
+//     the column slabs t >= r (phase A), then dC of rows r over the slabs
+//     s <= r (phase B), so every block runs nT + 1 slabs.
+//     C B^T is formed once per slab for the block's heads; dy x^T in each
+//     phase (a scratch of phase A's dC partials would move more bytes than
+//     the products it saves). Each (slab, head) item's raw rows arrive by
+//     cp.async while the item before is multiplied, and are split into
+//     pieces once; T1 = (C B^T) o L and T2 = (dy x^T) o L go through shared
+//     memory in pieces (fp32 with fp32 B/C, split as loaded). The (N, P)
+//     states of the cross-chunk terms stream through the same region. dB and
+//     dC are summed over the block's heads in registers; d cum per head
+//     comes from row sums of M = (C B^T) o (dy x^T) o L and the cross-chunk
+//     terms' dot products, one writer per slot. One block an SM (187 KB of
+//     shared memory at the mamba2 shape, 221 KB at zamba2's). The caller
+//     picks the heads a block and the ring among the built instances
+//     (kernels/ssd_scan.py::plan_bwd): the most heads whose shared memory
+//     fits 227 KB with the ring, fewer where the grid would leave SMs idle;
+//     one head without the ring where even that does not fit.
+//  4. reduce_rows, one block per (batch, row): the head blocks' dB and dC
+//     summed in order, cast to B's type.
 //  5. dA_scan, one block per (batch, chunk, head): <h_{c+1}, G_c> in a fixed
 //     order, then the reverse running sum of d cum in fp64.
+// cum stays fp64 from the forward and each tile's decays are differences
+// to its first row; the exponent above the diagonal is never evaluated.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -657,6 +689,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
+typedef __nv_bfloat16 bf16;
+
 struct BwdParams {
   const float* x;
   const void* b;
@@ -671,91 +705,413 @@ struct BwdParams {
   void* db;                // (Bsz, S, G, N) in B's type
   void* dc;
   float* dstates;          // (Bsz, H, nc, N, P) scratch: D_c, then G_c
-  float* dbh;              // (Bsz, S, H, N) scratch: dB per head
-  float* dch;              // (Bsz, S, H, N) scratch: dC per head
+  float* dbp;              // (Bsz, S, G * nHB, N) scratch: dB summed over a block's heads
+  float* dcp;              // (Bsz, S, G * nHB, N) scratch: the same for dC
   float* dcum;             // (Bsz, H, S) scratch: d cum per head
-  int S, H, G, rep, P, N, Q, nc;
+  int S, H, G, rep, P, N, Q, nc, nHB;   // nHB: chunk_grads blocks per group
+  bool x_vec, y_vec, b_vec, c_vec;      // 16-byte cp.async rows of x, dy, B, C
   int64_t x_sb, x_ss, x_sh, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg;
 };
 
-// acc[i][j] += sum_{k < K} A[ty*4 + i][k] * Bt[tx + 16*j][k]: both row-major
-// (k contiguous); K a multiple of 4.
-__device__ __forceinline__ void mm_rr(float (&acc)[4][4], const float* A, int lda,
-                                      const float* Bt, int ldb, int K) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int k = 0; k < K; k += 4) {
-    float4 a[4], bv[4];
+// ---------------------------------------------------------------------------
+// Tensor-core products of split operands
+// ---------------------------------------------------------------------------
+
+// An fp32 operand runs on the tensor cores as bf16 pieces: hi = bf16(a),
+// then each next piece bf16 of what the pieces before it leave. Two pieces
+// carry 16 of a's 24 bits, three all of them. A product of an operand of kPA
+// pieces by one of kPB adds the pieces' products i.j with i + j below the
+// larger count: hi.hi, lo.hi, hi.lo for two pieces each (the dropped lo.lo
+// is 2^-16 of the whole), six terms for three pieces each, fewer where one
+// operand is a bf16 B or C (one piece).
+constexpr int kMaxPieces = 3;
+
+// A 64-row operand tile in shared memory, pre-split: bf16 rows of stride
+// `ld` (the width plus 8, so that ldmatrix's eight rows fall in distinct
+// banks), piece i at p[i].
+struct Op {
+  const bf16* p[kMaxPieces];
+  int ld;
+};
+
+__device__ __forceinline__ Op make_op(const bf16* base, int piece_elems, int ld) {
+  return Op{{base, base + piece_elems, base + 2 * piece_elems}, ld};
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <bool kTrans>
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  if constexpr (kTrans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  // not volatile: a pure function of its registers, which the compiler may
+  // interleave with the other accumulators' products
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k step of 16: acc[nt] += A . B(k step, columns n0 + 8*nt .. +7) for the
+// A fragments `a` (kPA pieces) and B, stored at B[n][k], or at B[k][n] with
+// kBT, loaded by ldmatrix (.trans for the second layout) from offset `bo`.
+// Two pairs of n tiles at a time, the terms outermost: the four products in
+// a row go to four accumulators, so that one's latency hides behind the
+// next ones.
+template <int NT, bool kBT, int kPA, int kPB>
+__device__ __forceinline__ void mma_step(float (&acc)[NT][4], const uint32_t (&a)[kPA][4],
+                                         const Op& B, int bo) {
+  constexpr int kTerms = kPA > kPB ? kPA : kPB;
+  constexpr int kGroup = NT / 2 < 2 ? NT / 2 : 2;        // pairs of n tiles a round
+  const int b_pair = kBT ? 16 : 16 * B.ld;               // the next pair of n tiles
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = ld4(A + (ty * 4 + i) * lda + k);
+  for (int g0 = 0; g0 < NT / 2; g0 += kGroup) {
+    uint32_t b[kGroup][kPB][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = ld4(Bt + (tx + 16 * j) * ldb + k);
+    for (int q = 0; q < kGroup; ++q)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < kPB; ++j) ldsm4<kBT>(b[q][j], B.p[j] + bo + (g0 + q) * b_pair);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a[i].x, bv[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, bv[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, bv[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, bv[j].w, acc[i][j]);
+    for (int i = 0; i < kPA; ++i)
+#pragma unroll
+      for (int j = 0; j < kPB; ++j) {
+        if (i + j >= kTerms) continue;
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q) {
+          mma_bf16(acc[2 * (g0 + q)], a[i], b[q][j][0], b[q][j][1]);
+          mma_bf16(acc[2 * (g0 + q) + 1], a[i], b[q][j][2], b[q][j][3]);
+        }
       }
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[4][4]) {
+// acc[nt] += A(rows m0 .. m0+15, k < K) . B(k < K, columns n0 + 8*nt .. +7) on
+// mma.sync m16n8k16 (bf16 products, fp32 sums), A pre-split: A(m, k) at
+// A[m][k], or at A[k][m] with kAT. Value r of tile nt sits at row m0 +
+// lane/4 + 8*(r/2), column n0 + 8*nt + 2*(lane%4) + r%2.
+template <int NT, int K, bool kAT, bool kBT, int kPA, int kPB>
+__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const Op& A, const Op& B,
+                                          int m0, int n0) {
+  static_assert(NT % 2 == 0 && K % 16 == 0, "n tiles in pairs, k in steps of 16");
+  const int lane = threadIdx.x & 31, j = lane >> 3, r8 = lane & 7;
+  const int a_off = kAT ? ((j >> 1) * 8 + r8) * A.ld + m0 + (j & 1) * 8
+                        : (m0 + (j & 1) * 8 + r8) * A.ld + (j >> 1) * 8;
+  const int b_off = kBT ? ((j & 1) * 8 + r8) * B.ld + n0 + (j >> 1) * 8
+                        : (n0 + (j >> 1) * 8 + r8) * B.ld + (j & 1) * 8;
+  const int a_step = kAT ? 16 * A.ld : 16;      // one k step of 16
+  const int b_step = kBT ? 16 * B.ld : 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int ks = 0; ks < K / 16; ++ks) {
+    uint32_t a[kPA][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < kPA; ++i) ldsm4<kAT>(a[i], A.p[i] + a_off + ks * a_step);
+    mma_step<NT, kBT, kPA, kPB>(acc, a, B, b_off + ks * b_step);
+  }
 }
 
+// The same with A an fp32 tile (row stride lda, A(m, k) at A[m][k]), split
+// into kPA pieces as its fragments are loaded.
+template <int NT, int K, bool kBT, int kPA, int kPB>
+__device__ __forceinline__ void warp_gemm_f32a(float (&acc)[NT][4], const float* A, int lda,
+                                               const Op& B, int m0, int n0) {
+  static_assert(NT % 2 == 0 && K % 16 == 0, "n tiles in pairs, k in steps of 16");
+  const int lane = threadIdx.x & 31, j = lane >> 3, r8 = lane & 7;
+  const float* ar = A + (m0 + (lane >> 2)) * lda + 2 * (lane & 3);
+  const int b_off = kBT ? ((j & 1) * 8 + r8) * B.ld + n0 + (j >> 1) * 8
+                        : (n0 + (j >> 1) * 8 + r8) * B.ld + (j & 1) * 8;
+  const int b_step = kBT ? 16 * B.ld : 16;
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks) {
+    // a0: (row, k), a1: (row + 8, k), a2: (row, k + 8), a3: (row + 8, k + 8)
+    const float* base = ar + ks * 16;
+    float2 v[4] = {*reinterpret_cast<const float2*>(base),
+                   *reinterpret_cast<const float2*>(base + 8 * lda),
+                   *reinterpret_cast<const float2*>(base + 8),
+                   *reinterpret_cast<const float2*>(base + 8 * lda + 8)};
+    uint32_t a[kPA][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int i = 0; i < kPA; ++i) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[r].x, v[r].y);
+        a[i][r] = *reinterpret_cast<const uint32_t*>(&h);
+        const float2 f = __bfloat1622float2(h);
+        v[r].x -= f.x;
+        v[r].y -= f.y;
+      }
+    mma_step<NT, kBT, kPA, kPB>(acc, a, B, b_off + ks * b_step);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
+}
+
+// Two neighbouring values at idx as kP pieces, piece i at base + i*stride.
+template <int kP>
+__device__ __forceinline__ void split_store(bf16* base, int stride, int idx, float a, float b) {
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    *reinterpret_cast<__nv_bfloat162*>(base + i * stride + idx) = h;
+    const float2 f = __bfloat1622float2(h);
+    a -= f.x;
+    b -= f.y;
+  }
+}
+
+// A warp's 16 x 8*NT accumulator tile (at m0, n0) into kP pieces (stride
+// `stride` elements) of an operand tile.
+template <int NT, int kP>
+__device__ __forceinline__ void store_pieces(const float (&v)[NT][4], bf16* base, int stride,
+                                             int ld, int m0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = n0 + 8 * nt + 2 * q4;
+    split_store<kP>(base, stride, (m0 + g) * ld + col, v[nt][0], v[nt][1]);
+    split_store<kP>(base, stride, (m0 + g + 8) * ld + col, v[nt][2], v[nt][3]);
+  }
+}
+
+// A warp's 16 x 8*NT accumulator tile (at m0, n0) into an fp32 tile.
+template <int NT>
+__device__ __forceinline__ void store_f32(const float (&v)[NT][4], float* dst, int ld,
+                                          int m0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = n0 + 8 * nt + 2 * q4;
+    *reinterpret_cast<float2*>(dst + (m0 + g) * ld + col) = make_float2(v[nt][0], v[nt][1]);
+    *reinterpret_cast<float2*>(dst + (m0 + g + 8) * ld + col) = make_float2(v[nt][2], v[nt][3]);
+  }
+}
+
+// kRows rows [q0, q0 + kRows) of a row-major matrix at src (row stride ss),
+// zero from row Q and column `width` on, into a tile of width kW (stride
+// kW + 8): kP bf16 pieces at dst (piece stride kRows * (kW + 8)), or, with
+// kP = 0, fp32 at dst.
+template <int kRows, int kW, int kP, typename T, typename D>
+__device__ __forceinline__ void load_tile(D* dst, const T* src, int64_t ss, int q0, int Q,
+                                          int width) {
+  constexpr int ld = kW + 8;
+  for (int idx = threadIdx.x; idx < kRows * kW / 2; idx += blockDim.x) {
+    const int r = idx / (kW / 2), col = 2 * (idx % (kW / 2));
+    float a = 0.f, b = 0.f;
+    if (q0 + r < Q) {
+      const T* s = src + (q0 + r) * ss;
+      if (col < width) a = to_f(s[col]);
+      if (col + 1 < width) b = to_f(s[col + 1]);
+    }
+    if constexpr (kP == 0) {
+      *reinterpret_cast<float2*>(dst + r * ld + col) = make_float2(a, b);
+    } else {
+      split_store<kP>(dst, kRows * ld, r * ld + col, a, b);
+    }
+  }
+}
+
+// Bytes of a 64-row tile of width w: one bf16 piece, or fp32.
+__host__ __device__ constexpr size_t op_bytes(int w) { return kTile * (w + 8) * 2; }
+__host__ __device__ constexpr size_t f32_bytes(int w) { return kTile * (w + 8) * 4; }
+
+// 8 bytes by cp.async, zero-filled where not valid
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 8 : 0));
+}
+
+// kRows rows of fp32 as load_tile, by 16-byte loads, four in flight a thread
+// before they are split and stored; `vec`: 16-byte aligned rows (width and
+// row stride multiples of 4), else load_tile's pairs.
+template <int kRows, int kW, int kP>
+__device__ __forceinline__ void load_tile_f32(bf16* dst, const float* src, int64_t ss, int q0,
+                                              int Q, int width, bool vec) {
+  if (!vec) {
+    load_tile<kRows, kW, kP>(dst, src, ss, q0, Q, width);
+    return;
+  }
+  constexpr int ld = kW + 8, kTotal = kRows * kW / 4;
+  const int step = blockDim.x;
+  for (int base = threadIdx.x; base < kTotal; base += 4 * step) {
+    float4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = base + u * step, r = idx / (kW / 4), col = 4 * (idx % (kW / 4));
+      v[u] = idx < kTotal && q0 + r < Q && col < width ? ld4(src + (q0 + r) * ss + col)
+                                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = base + u * step, r = idx / (kW / 4), col = 4 * (idx % (kW / 4));
+      if (idx < kTotal) {
+        split_store<kP>(dst, kRows * ld, r * ld + col, v[u].x, v[u].y);
+        split_store<kP>(dst, kRows * ld, r * ld + col + 2, v[u].z, v[u].w);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// 64 rows [q0, q0 + 64) of a row-major matrix (row stride ss) into a raw
+// 64 x kW tile, zero from row Q and column `width` on: 16-byte cp.async
+// with `vec` (width a multiple of 16 bytes), else plain loads.
+template <typename T, int kW>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int64_t ss, int q0, int Q,
+                                           int width, bool vec) {
+  constexpr int kV = 16 / sizeof(T);
+  if (vec) {
+    for (int idx = threadIdx.x; idx < kTile * kW / kV; idx += blockDim.x) {
+      const int r = idx / (kW / kV), col = kV * (idx % (kW / kV));
+      const bool ok = q0 + r < Q && col < width;
+      cp_async16(dst + r * kW + col, ok ? src + (q0 + r) * ss + col : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kTile * kW; idx += blockDim.x) {
+      const int r = idx / kW, col = idx % kW;
+      dst[r * kW + col] = q0 + r < Q && col < width ? src[(q0 + r) * ss + col] : T(0.f);
+    }
+  }
+}
+
+// A raw 64 x kW tile into kP pieces of stride 64 * (kW + 8): fp32 split,
+// bf16 copied (one piece).
+template <int kW, int kP, typename T>
+__device__ __forceinline__ void convert_raw(const T* src, bf16* dst) {
+  constexpr int ld = kW + 8;
+  if constexpr (sizeof(T) == 2) {
+    for (int idx = threadIdx.x; idx < kTile * kW / 8; idx += blockDim.x) {
+      const int r = idx / (kW / 8), col = 8 * (idx % (kW / 8));
+      *reinterpret_cast<uint4*>(dst + r * ld + col) =
+          *reinterpret_cast<const uint4*>(src + r * kW + col);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kTile * kW / 4; idx += blockDim.x) {
+      const int r = idx / (kW / 4), col = 4 * (idx % (kW / 4));
+      const float4 v = ld4(src + r * kW + col);
+      split_store<kP>(dst, kTile * ld, r * ld + col, v.x, v.y);
+      split_store<kP>(dst, kTile * ld, r * ld + col + 2, v.z, v.w);
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Pieces by route, that is by B/C's type (kernels/ssd_scan.py ROUTE_PIECES
+// holds the same numbers, and a test reads them from here): kF of an fp32
+// operand as stored, and as dy x^T and the cross-chunk products use it
+// (three: d dA sums up to a chunk of d cum, C.dC - B.dB, whose terms
+// cancel; two pieces there leave it above its fp32 tolerance at slow
+// decay); kT of the decayed tiles T1, T2 and of dy and x in their products,
+// which only reach dx, dB and dC; kBC of B and C (one piece of bf16, exact).
+template <typename TB> struct Pieces;
+template <> struct Pieces<__nv_bfloat16> {     // route "bf16_bc"
+  static constexpr int kF = 3, kT = 2, kBC = 1;
+};
+template <> struct Pieces<float> {             // route "split_bc"
+  static constexpr int kF = 3, kT = 3, kBC = 3;
+};
+
 // ---------------------------------------------------------------------------
-// 1. chunk_dstate: D_c = (C o exp(cum))^T dy
+// 1. chunk_dstate: D_c = C^T (e o dy), e = exp(cum)
 // ---------------------------------------------------------------------------
-template <typename TB>
-__global__ void __launch_bounds__(kThreads) chunk_dstate_kernel(const BwdParams p) {
-  extern __shared__ float e[];            // Q of exp(cum)
-  __shared__ __align__(16) float Cs[kSlab1][kTile];
-  __shared__ __align__(16) float Ys[kSlab1][kTile];
+
+// A block holds all N (kWN) rows of the state tile, a warp 16 rows and half
+// of the 64 columns: 8 warps at N <= 64, 16 at N <= 128.
+__host__ __device__ constexpr int dstate_warps(int wn) { return wn / 16 * 2; }
+
+// Its shared memory: the raw slab (C rows, dy rows, cum) that cp.async
+// fills while the last one is multiplied, then C and e o dy in pieces.
+__host__ __device__ constexpr size_t dstate_smem(bool bf16bc, int wn) {
+  return static_cast<size_t>(kTile) * wn * (bf16bc ? 2 : 4) + kTile * kTile * 4 + kTile * 8 +
+         (bf16bc ? 1 : 3) * op_bytes(wn) + 3 * op_bytes(kTile);
+}
+
+// One block per (batch, chunk, 64 columns of P, head).
+template <typename TB, int kWN>
+__global__ void __launch_bounds__(32 * dstate_warps(kWN)) chunk_dstate_kernel(const BwdParams p) {
+  constexpr int kPF = Pieces<TB>::kF, kPBC = Pieces<TB>::kBC;
+  constexpr int ldn = kWN + 8, ldt = kTile + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TB* raw_c = reinterpret_cast<TB*>(smem);                                   // 64 x kWN
+  float* raw_y = reinterpret_cast<float*>(smem + kTile * kWN * sizeof(TB));  // 64 x 64
+  double* raw_cum = reinterpret_cast<double*>(raw_y + kTile * kTile);         // 64
+  bf16* Cs = reinterpret_cast<bf16*>(raw_cum + kTile);    // C rows t, kPBC pieces
+  bf16* Ys = Cs + kPBC * kTile * ldn;                     // e o dy rows t, kPF pieces
+  const Op A = make_op(Cs, kTile * ldn, ldn), Bop = make_op(Ys, kTile * ldt, ldt);
 
   const int N = p.N, P = p.P, Q = p.Q;
-  const int nN = (N + kTile - 1) / kTile, nP = (P + kTile - 1) / kTile;
-  const int c = blockIdx.x / (nN * nP);
-  const int n0 = ((blockIdx.x / nP) % nN) * kTile;
-  const int p0 = (blockIdx.x % nP) * kTile;
+  const int nP = (P + kTile - 1) / kTile;
+  const int c = blockIdx.x / nP, p0 = (blockIdx.x % nP) * kTile;
   const int h = blockIdx.y, b = blockIdx.z, g = h / p.rep;
   const int r0 = c * Q;
   const int64_t bh = static_cast<int64_t>(b) * p.H + h;
   const double* cumc = p.cum + bh * p.S + r0;
-  for (int r = threadIdx.x; r < Q; r += kThreads) e[r] = expf(static_cast<float>(cumc[r]));
   const TB* cb = static_cast<const TB*>(p.c) + b * p.c_sb + g * p.c_sg + r0 * p.c_ss;
-  const float* yb = p.dy + ((static_cast<int64_t>(b) * p.S + r0) * p.H + h) * P;
+  const float* yb = p.dy + ((static_cast<int64_t>(b) * p.S + r0) * p.H + h) * P + p0;
   const int64_t y_ss = static_cast<int64_t>(p.H) * P;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = 16 * (warp >> 1), c0 = 32 * (warp & 1);
 
-  float acc[4][4] = {};
-  for (int t0 = 0; t0 < Q; t0 += kSlab1) {
-    __syncthreads();                      // e is written; the last slab is consumed
-    for (int idx = threadIdx.x; idx < kSlab1 * kTile; idx += kThreads) {
-      const int r = idx / kTile, col = idx % kTile, t = t0 + r;
-      const bool row_ok = t < Q;
-      const int n = n0 + col, pp = p0 + col;
-      Cs[r][col] = row_ok && n < N ? to_f(cb[t * p.c_ss + n]) : 0.f;
-      Ys[r][col] = row_ok && pp < P ? yb[t * y_ss + pp] * e[t] : 0.f;
+  auto stage = [&](int t0) {
+    stage_rows<TB, kWN>(raw_c, cb, p.c_ss, t0, Q, N, p.c_vec);
+    stage_rows<float, kTile>(raw_y, yb, y_ss, t0, Q, P - p0, p.y_vec);
+    const int t = threadIdx.x;
+    if (t < kTile) cp_async8(raw_cum + t, t0 + t < Q ? cumc + t0 + t : cumc, t0 + t < Q);
+    cp_async_commit();
+  };
+
+  float acc[4][4];
+  zero_acc(acc);
+  stage(0);
+  for (int t0 = 0; t0 < Q; t0 += kTile) {
+    cp_async_wait_all();
+    __syncthreads();                      // the slab landed; the last one's pieces are consumed
+    convert_raw<kWN, kPBC>(raw_c, Cs);
+    for (int idx = threadIdx.x; idx < kTile * kTile / 4; idx += blockDim.x) {
+      const int t = idx / (kTile / 4), col = 4 * (idx % (kTile / 4));
+      const float e = t0 + t < Q ? expf(static_cast<float>(raw_cum[t])) : 0.f;
+      const float4 v = ld4(raw_y + t * kTile + col);
+      split_store<kPF>(Ys, kTile * ldt, t * ldt + col, v.x * e, v.y * e);
+      split_store<kPF>(Ys, kTile * ldt, t * ldt + col + 2, v.z * e, v.w * e);
     }
-    __syncthreads();
-    mm_kk(acc, &Cs[0][0], kTile, &Ys[0][0], kTile, min(kSlab1, Q - t0));
+    __syncthreads();                      // the pieces are ready; the raw slab is free
+    if (t0 + kTile < Q) stage(t0 + kTile);
+    // D[n][p] += sum_t C[t][n] (e dy)[t][p]: both operands stored t-major
+    warp_gemm<4, kTile, true, true, kPBC, kPF>(acc, A, Bop, m0, c0);
   }
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, q4 = lane & 3;
   float* st = p.dstates + (bh * p.nc + c) * N * P;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty * 4 + i;
+  for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int pp = p0 + tx * 4 + j;
-      if (n < N && pp < P) st[n * P + pp] = acc[i][j];
+    for (int r = 0; r < 4; ++r) {
+      const int n = m0 + gq + 8 * (r >> 1), pp = p0 + c0 + 8 * nt + 2 * q4 + (r & 1);
+      if (n < N && pp < P) st[n * P + pp] = acc[nt][r];
     }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -793,276 +1149,460 @@ __global__ void __launch_bounds__(kThreads) dstate_pass_kernel(const BwdParams p
 // 3. chunk_grads
 // ---------------------------------------------------------------------------
 
-// Shared memory of chunk_grads, in floats: the block's own x, B and dy rows,
-// then a region U that holds either two slabs and the two 64 x 64 tiles, or
-// one (N, P) state (or its transpose), then four vectors of 64.
-struct GradSmem {
-  int kP, kN, ldP, ldN, ldS;
-  size_t xo, bo, yo, s1, s2, t1, t2, u, vec, total;
-  __host__ __device__ GradSmem(int N, int P) {
-    kP = round_up(P, kTile);
-    kN = round_up(N, kTile);
-    ldP = kP + 4;
-    ldN = kN + 4;
-    ldS = ldP > ldN ? ldP : ldN;
-    xo = 0;
-    bo = xo + kTile * ldP;
-    yo = bo + kTile * ldN;
-    u = yo + kTile * ldP;
-    s1 = u;
-    s2 = s1 + kTile * ldS;
-    t1 = s2 + kTile * ldS;
-    t2 = t1 + kTile * kLdL;
-    size_t uend = t2 + kTile * kLdL;
-    const size_t st1 = u + static_cast<size_t>(kN) * ldP, st2 = u + static_cast<size_t>(kP) * ldN;
-    if (st1 > uend) uend = st1;
-    if (st2 > uend) uend = st2;
-    vec = uend;
-    total = (vec + 4 * kTile) * sizeof(float);
-  }
+constexpr size_t kMaxBlockSmem = 232448;   // 227 KB: the most one block may use
+
+// Warps of a chunk_grads block: 16, four to a scheduler, so that one warp's
+// waits on shared memory and barriers hide behind the others'; each owns 16
+// rows of a 64-row product and a quarter of its columns.
+constexpr int kGradWarps = 16;
+
+// Shared memory of chunk_grads at widths kWP, kWN with kHB heads a block,
+// in bytes from its start: each head's own rows of x (phase B: dy) in
+// pieces; the own rows of B (C), bf16 or fp32; a slab of C (B) and of dy
+// (x) in pieces; the decayed tiles T1 and T2 in fp32 (or as many bytes of
+// bf16 pieces); with the ring, the raw slab that the copies land in; per
+// head four row vectors and each column group's d cum sums.
+// kernels/ssd_scan.py::grad_smem reckons the same bytes to plan with.
+template <typename TB, int kWP, int kWN, int kHB, bool kRing>
+struct GradLayout {
+  static constexpr bool kBf16 = sizeof(TB) == 2;
+  static constexpr size_t kOwnA = kHB * Pieces<TB>::kF * op_bytes(kWP);
+  static constexpr size_t kOwn = kOwnA + (kBf16 ? op_bytes(kWN) : f32_bytes(kWN));
+  static constexpr size_t kSlab = Pieces<TB>::kBC * op_bytes(kWN) + Pieces<TB>::kF * op_bytes(kWP);
+  static constexpr size_t kTT = 2 * f32_bytes(kTile);
+  static constexpr size_t kRawB = kRing ? static_cast<size_t>(kTile) * kWN * sizeof(TB) : 0;
+  static constexpr size_t kRaw = kRing ? kRawB + static_cast<size_t>(kTile) * kWP * 4 : 0;
+  static constexpr size_t kVec = static_cast<size_t>(kHB) * (4 + kGradWarps / 4) * kTile * 4;
+  static constexpr size_t kBytes = kOwn + kSlab + kTT + kRaw + kVec;
 };
 
-template <typename TB>
-__global__ void __launch_bounds__(kThreads, 1) chunk_grads_kernel(const BwdParams p) {
-  extern __shared__ __align__(16) float sm[];
-  const int N = p.N, P = p.P, Q = p.Q;
-  const GradSmem L(N, P);
-  float* xo = sm + L.xo;          // 64 x ldP: x of the block's rows
-  float* bo = sm + L.bo;          // 64 x ldN: B of the block's rows
-  float* yo = sm + L.yo;          // 64 x ldP: dy of the block's rows
-  float* S1 = sm + L.s1;          // 64 x ldS: a slab of C (phase A) or B (phase B)
-  float* S2 = sm + L.s2;          // 64 x ldS: a slab of dy (phase A) or x (phase B)
-  float* T1 = sm + L.t1;          // 64 x kLdL: (C B^T o L) [t][s]
-  float* T2 = sm + L.t2;          // 64 x kLdL: (dy x^T o L) [t][s]
-  float* U = sm + L.u;            // a state, (N, P) or (P, N)
-  float* c_own = sm + L.vec;      // cum at the block's rows, less cum at its first
-  float* c_slab = c_own + kTile;  // cum at a slab's rows, less the same
-  float* w_own = c_slab + kTile;  // exp(cum_Q - cum) at the block's rows
-  float* e_own = w_own + kTile;   // exp(cum) at the block's rows
-
-  const int nT = (Q + kTile - 1) / kTile;
-  const int nP = L.kP / kTile, nN = L.kN / kTile;
-  const int c = blockIdx.x / nT, r = blockIdx.x % nT, t0 = r * kTile;
-  const int h = blockIdx.y, b = blockIdx.z, g = h / p.rep;
-  const int r0 = c * Q;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int64_t bh = static_cast<int64_t>(b) * p.H + h;
-  const double* cumc = p.cum + bh * p.S + r0;
-  const float* xb = p.x + b * p.x_sb + h * p.x_sh + r0 * p.x_ss;
-  const TB* bb = static_cast<const TB*>(p.b) + b * p.b_sb + g * p.b_sg + r0 * p.b_ss;
-  const TB* cb = static_cast<const TB*>(p.c) + b * p.c_sb + g * p.c_sg + r0 * p.c_ss;
-  const int64_t y_ss = static_cast<int64_t>(p.H) * P;
-  const float* yb = p.dy + ((static_cast<int64_t>(b) * p.S + r0) * p.H + h) * P;
-  const int64_t NP = static_cast<int64_t>(N) * P;
-
-  // rows [q0, q0 + 64) of the chunk into a 64 x ld tile, zero past Q and
-  // past the width
-  auto load_f = [&](float* dst, int ld, int width, int kw, const float* src,
-                    int64_t ss, int q0) {
-    for (int idx = threadIdx.x; idx < kTile * kw; idx += kThreads) {
-      const int s = idx / kw, col = idx % kw;
-      dst[s * ld + col] = q0 + s < Q && col < width ? src[(q0 + s) * ss + col] : 0.f;
-    }
-  };
-  auto load_b = [&](float* dst, const TB* src, int64_t ss, int q0) {
-    for (int idx = threadIdx.x; idx < kTile * L.kN; idx += kThreads) {
-      const int s = idx / L.kN, col = idx % L.kN;
-      dst[s * L.ldN + col] = q0 + s < Q && col < N ? to_f(src[(q0 + s) * ss + col]) : 0.f;
-    }
-  };
-  auto load_slab_cum = [&](int q0) {
-    for (int s = threadIdx.x; s < kTile; s += kThreads)
-      c_slab[s] = q0 + s < Q ? static_cast<float>(cumc[q0 + s] - cumc[t0]) : 0.f;
-  };
-  // a state (N, P) at `st` into U as [n][p] (ld ldP), or transposed [p][n] (ld ldN)
-  auto load_state = [&](const float* st, bool transpose) {
-    for (int idx = threadIdx.x; idx < L.kN * L.kP; idx += kThreads) {
-      const int n = idx / L.kP, pp = idx % L.kP;
-      const float v = n < N && pp < P ? st[n * P + pp] : 0.f;
-      if (transpose) U[pp * L.ldN + n] = v; else U[n * L.ldP + pp] = v;
-    }
-  };
-
-  load_f(xo, L.ldP, P, L.kP, xb, p.x_ss, t0);
-  load_b(bo, bb, p.b_ss, t0);
-  load_f(yo, L.ldP, P, L.kP, yb, y_ss, t0);
-  const double cum_last = cumc[Q - 1];
-  for (int s = threadIdx.x; s < kTile; s += kThreads) {
-    const bool ok = t0 + s < Q;
-    c_own[s] = ok ? static_cast<float>(cumc[t0 + s] - cumc[t0]) : 0.f;
-    w_own[s] = ok ? expf(static_cast<float>(cum_last - cumc[t0 + s])) : 0.f;
-    e_own[s] = ok ? expf(static_cast<float>(cumc[t0 + s])) : 0.f;
+// acc += (the own rows of B or C) . B: one bf16 piece, or fp32 split in three.
+template <typename TB, int NT, int K, bool kBT, int kPB>
+__device__ __forceinline__ void gemm_own_bc(float (&acc)[NT][4], const void* own, int ld,
+                                            const Op& B, int m0, int n0) {
+  if constexpr (sizeof(TB) == 2) {
+    warp_gemm<NT, K, false, kBT, 1, kPB>(acc, make_op(static_cast<const bf16*>(own), 0, ld),
+                                         B, m0, n0);
+  } else {
+    warp_gemm_f32a<NT, K, kBT, 3, kPB>(acc, static_cast<const float*>(own), ld, B, m0, n0);
   }
+}
+
+// One block per (batch, chunk, 64-row tile r, group, block of kHB heads).
+// Phase A: dx and dB of the rows s of tile r, over the slabs t >= r; phase
+// B: dC of the rows t of tile r, over the slabs s <= r; nT + 1 slabs for
+// every block. A warp owns rows 16*(w%4) .. +15 of each 64-row product and
+// a quarter of its columns. dB and dC are summed over the block's heads in
+// registers; d cum per head is summed from the products' row sums.
+template <typename TB, int kWP, int kWN, int kHB, bool kRing>
+__global__ void __launch_bounds__(32 * kGradWarps, 1) chunk_grads_kernel(const BwdParams p) {
+  using Layout = GradLayout<TB, kWP, kWN, kHB, kRing>;
+  constexpr bool kBf16 = Layout::kBf16;
+  constexpr int kPF = Pieces<TB>::kF, kPT = Pieces<TB>::kT, kPBC = Pieces<TB>::kBC;
+  constexpr int ldp = kWP + 8, ldn = kWN + 8, ldt = kTile + 8;
+  constexpr int kOpP = kTile * ldp, kOpN = kTile * ldn;     // elements of a piece
+  constexpr int kCG = kGradWarps / 4;                         // column groups
+  constexpr int kNTT = kTile / (8 * kCG);                     // n tiles of a 64-wide tile
+  constexpr int kNTP = kWP / (8 * kCG), kNTN = kWN / (8 * kCG);
+  // T1, T2 pre-split in bf16 pieces (bf16 route), or fp32 and split as loaded
+  constexpr bool kTPre = kBf16;
+  constexpr size_t kOwnA = Layout::kOwnA, kOwn = Layout::kOwn, kSlab = Layout::kSlab;
+  constexpr size_t kTT = Layout::kTT, kRawB = Layout::kRawB, kRaw = Layout::kRaw;
+  // a whole (N, P) state, in pieces, over the slab operands and T1, T2
+  static_assert(static_cast<size_t>(kPF) * kWN * ldp * 2 <= kSlab + kTT, "state tile fits");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* own_a = reinterpret_cast<bf16*>(smem);                // kHB x kPF pieces
+  void* own_b = smem + kOwnA;                                 // bf16, or fp32
+  unsigned char* stream = smem + kOwn;
+  bf16* slab_b = reinterpret_cast<bf16*>(stream);             // kPBC pieces
+  bf16* slab_a = slab_b + kPBC * kOpN;                        // kPF pieces
+  float* t1f = reinterpret_cast<float*>(stream + kSlab);      // 64 x ldt
+  float* t2f = t1f + kTile * ldt;
+  bf16* t1b = reinterpret_cast<bf16*>(stream + kSlab);        // kPT pieces, 64 x ldt
+  bf16* t2b = t1b + kPT * kTile * ldt;
+  static_assert(!kTPre || 2 * kPT * op_bytes(kTile) <= kTT, "T pieces fit");
+  TB* raw_b = reinterpret_cast<TB*>(stream + kSlab + kTT);
+  float* raw_a = reinterpret_cast<float*>(stream + kSlab + kTT + kRawB);
+  float* vec = reinterpret_cast<float*>(stream + kSlab + kTT + kRaw);
+  float* c_own = vec;                       // [kHB][64] cum less cum at row t0
+  float* c_slab = c_own + kHB * kTile;      // [kHB][64] the same at a slab's rows
+  float* w_own = c_slab + kHB * kTile;      // [kHB][64] exp(cum_Q - cum)
+  float* e_own = w_own + kHB * kTile;       // [kHB][64] exp(cum)
+  float* red = e_own + kHB * kTile;         // [kCG][kHB][64] d cum sums
+  const Op slab_b_op = make_op(slab_b, kOpN, ldn);
+  const Op slab_a_op = make_op(slab_a, kOpP, ldp);
+  const Op state_op = make_op(slab_b, kWN * ldp, ldp);        // aliases the slab operands
+  auto own_a_op = [&](int hh) { return make_op(own_a + hh * kPF * kOpP, kOpP, ldp); };
+
+  const int N = p.N, P = p.P, Q = p.Q, S = p.S, H = p.H;
+  const int nT = (Q + kTile - 1) / kTile;
+  const int c = blockIdx.x / nT, r = blockIdx.x % nT, t0 = r * kTile;
+  const int g = blockIdx.y / p.nHB, hb = blockIdx.y % p.nHB;
+  const int h0 = g * p.rep + hb * kHB;
+  const int nh = min(kHB, p.rep - hb * kHB);
+  const int b = blockIdx.z;
+  const int r0 = c * Q;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, q4 = lane & 3;
+  const int m0 = 16 * (warp & 3);                  // the warp's 16 rows
+  const int nt0 = (kTile / kCG) * (warp >> 2);     // its columns of a 64 x 64 tile
+  const int np0 = (kWP / kCG) * (warp >> 2), nn0 = (kWN / kCG) * (warp >> 2);
+  const TB* bbase = static_cast<const TB*>(p.b) + b * p.b_sb + g * p.b_sg + r0 * p.b_ss;
+  const TB* cbase = static_cast<const TB*>(p.c) + b * p.c_sb + g * p.c_sg + r0 * p.c_ss;
+  const int64_t y_ss = static_cast<int64_t>(H) * P;
+  const int64_t NP = static_cast<int64_t>(N) * P;
+  auto x_head = [&](int hh) { return p.x + b * p.x_sb + (h0 + hh) * p.x_sh + r0 * p.x_ss; };
+  auto y_head = [&](int hh) {
+    return p.dy + ((static_cast<int64_t>(b) * S + r0) * H + h0 + hh) * P;
+  };
+  auto cum_head = [&](int hh) {
+    return p.cum + (static_cast<int64_t>(b) * H + h0 + hh) * S + r0;
+  };
+  auto bh_of = [&](int hh) { return static_cast<int64_t>(b) * H + h0 + hh; };
+  // the own rows of B (phase A) or C (phase B)
+  auto load_own_b = [&](const TB* src, int64_t ss) {
+    if constexpr (kBf16) {
+      load_tile<kTile, kWN, 1>(static_cast<bf16*>(own_b), src, ss, t0, Q, N);
+    } else {
+      load_tile<kTile, kWN, 0>(static_cast<float*>(own_b), src, ss, t0, Q, N);
+    }
+  };
+
+  // the own rows' decays, per head; the d cum sums start at zero
+  for (int idx = threadIdx.x; idx < kHB * kTile; idx += blockDim.x) {
+    const int hh = idx / kTile, s = idx % kTile;
+    const bool ok = hh < nh && t0 + s < Q;
+    const double* cm = cum_head(ok ? hh : 0);
+    c_own[idx] = ok ? static_cast<float>(cm[t0 + s] - cm[t0]) : 0.f;
+    w_own[idx] = ok ? expf(static_cast<float>(cm[Q - 1] - cm[t0 + s])) : 0.f;
+    e_own[idx] = ok ? expf(static_cast<float>(cm[t0 + s])) : 0.f;
+  }
+  for (int idx = threadIdx.x; idx < kCG * kHB * kTile; idx += blockDim.x) red[idx] = 0.f;
+  // a slab's cum, less cum at row t0, for c_slab: thread h*64 + t holds row
+  // t of head h, read ahead of its slab into a register
+  const bool cum_thread = static_cast<int>(threadIdx.x) < nh * kTile;
+  const int cum_t = threadIdx.x % kTile;
+  const double* cum_mine = cum_head(cum_thread ? threadIdx.x / kTile : 0);
+  const double cum_base = cum_mine[t0];
+  auto cum_at = [&](int q0) {
+    return cum_thread && q0 + cum_t < Q ? cum_mine[q0 + cum_t] : 0.0;
+  };
+  auto set_c_slab = [&](int q0, double v) {
+    if (cum_thread) c_slab[threadIdx.x] = q0 + cum_t < Q ? static_cast<float>(v - cum_base) : 0.f;
+  };
+
+  // d cum of rows m0 + gq (v0) and m0 + gq + 8 (v1) of head hh: this warp's
+  // sums over its columns, added by the first lane of each quad to its
+  // column group's slot (one writer a slot)
+  auto add_rows = [&](int hh, float v0, float v1) {
+    v0 = quad_sum(v0);
+    v1 = quad_sum(v1);
+    if (q4 == 0) {
+      red[((warp >> 2) * kHB + hh) * kTile + m0 + gq] += v0;
+      red[((warp >> 2) * kHB + hh) * kTile + m0 + gq + 8] += v1;
+    }
+  };
+  // sum_n own_b[row][n] * v[row][n] over this warp's values, rows m0+gq, +8
+  auto dot_own_b = [&](const float (&v)[kNTN][4], float& d0, float& d1) {
+    d0 = d1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kNTN; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int idx = (m0 + gq + 8 * half) * ldn + nn0 + 8 * nt + 2 * q4;
+        float2 bv;
+        if constexpr (kBf16) {
+          bv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(own_b) + idx));
+        } else {
+          bv = *reinterpret_cast<const float2*>(static_cast<const float*>(own_b) + idx);
+        }
+        const float s = bv.x * v[nt][2 * half] + bv.y * v[nt][2 * half + 1];
+        if (half == 0) d0 += s; else d1 += s;
+      }
+  };
+  // a state (N, P) into the stream region, in pieces, rows n
+  auto load_state = [&](const float* st) {
+    load_tile_f32<kWN, kWP, kPF>(slab_b, st, P, 0, N, P, P % 4 == 0);
+  };
 
   // ---- phase A: dx and dB of the block's rows s ---------------------------
-  float accX[2][4][4], accB[2][4][4];
+  for (int hh = 0; hh < nh; ++hh)
+    load_tile_f32<kTile, kWP, kPF>(own_a + hh * kPF * kOpP, x_head(hh), p.x_ss, t0, Q, P,
+                                   p.x_vec);
+  load_own_b(bbase, p.b_ss);
+
+  float accX[kHB][kNTP][4], accB[kNTN][4];
 #pragma unroll
-  for (int k = 0; k < 2; ++k) { zero(accX[k]); zero(accB[k]); }
-  // cross-chunk terms first, then scaled by w_s: w_s G_c^T B_s and w_s G_c x_s
-  const float* Gc = p.dstates + (bh * p.nc + c) * NP;
-  load_state(Gc, false);
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < 2; ++k)
-    if (k < nP) mm_rk(accX[k], bo, L.ldN, U + k * kTile, L.ldP, L.kN);
-  __syncthreads();
-  load_state(Gc, true);
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < 2; ++k)
-    if (k < nN) mm_rk(accB[k], xo, L.ldP, U + k * kTile, L.ldN, L.kP);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float wv = w_own[ty * 4 + i];
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) { accX[k][i][j] *= wv; accB[k][i][j] *= wv; }
-  }
-  // within the chunk: the slabs t >= s
-  for (int ts = r; ts < nT; ++ts) {
-    const int q0 = ts * kTile;
-    __syncthreads();                      // U and the last slab are consumed
-    load_b(S1, cb, p.c_ss, q0);           // C rows t (ld ldN <= ldS)
-    load_f(S2, L.ldS, P, L.kP, yb, y_ss, q0);
-    load_slab_cum(q0);
+  for (int k = 0; k < kHB; ++k) zero_acc(accX[k]);
+  zero_acc(accB);
+  // the first item's raw slab lands while the cross-chunk terms run
+  auto stage_a = [&](int i) {
+    const int j = r + i / nh, hh = i % nh, q0 = j * kTile;
+    if (hh == 0) stage_rows<TB, kWN>(raw_b, cbase, p.c_ss, q0, Q, N, p.c_vec);
+    stage_rows<float, kWP>(raw_a, y_head(hh), y_ss, q0, Q, P, p.y_vec);
+    cp_async_commit();
+  };
+  if constexpr (kRing) stage_a(0);
+  // cross-chunk terms: dx = w o (B G_c), dB = sum over heads of w o (x G_c^T)
+  for (int hh = 0; hh < nh; ++hh) {
+    __syncthreads();                      // the own rows are written; the last state is consumed
+    load_state(p.dstates + (bh_of(hh) * p.nc + c) * NP);
     __syncthreads();
-    float v[4][4];
-    zero(v);
-    mm_rr(v, S1, L.ldN, bo, L.ldN, L.kN);               // C_t . B_s
+    float tmp[kNTN][4];
+    zero_acc(tmp);
+    warp_gemm<kNTN, kWP, false, false, kPF, kPF>(tmp, own_a_op(hh), state_op, m0, nn0);
+    float d0, d1;
+    dot_own_b(tmp, d0, d1);
+    const float w0 = w_own[hh * kTile + m0 + gq], w1 = w_own[hh * kTile + m0 + gq + 8];
+    add_rows(hh, -w0 * d0, -w1 * d1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = ty * 4 + i, s = tx + 16 * j;
-        const bool ok = t0 + s <= q0 + t && q0 + t < Q;
-        T1[t * kLdL + s] = ok ? v[i][j] * __expf(c_slab[t] - c_own[s]) : 0.f;
-      }
-    zero(v);
-    mm_rr(v, S2, L.ldS, xo, L.ldP, L.kP);               // dy_t . x_s
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = ty * 4 + i, s = tx + 16 * j;
-        const bool ok = t0 + s <= q0 + t && q0 + t < Q;
-        T2[t * kLdL + s] = ok ? v[i][j] * __expf(c_slab[t] - c_own[s]) : 0.f;
-      }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      if (k < nP) mm_kk(accX[k], T1, kLdL, S2 + k * kTile, L.ldS, kTile);
-      if (k < nN) mm_kk(accB[k], T2, kLdL, S1 + k * kTile, L.ldN, kTile);
+    for (int nt = 0; nt < kNTN; ++nt) {
+      accB[nt][0] = fmaf(w0, tmp[nt][0], accB[nt][0]);
+      accB[nt][1] = fmaf(w0, tmp[nt][1], accB[nt][1]);
+      accB[nt][2] = fmaf(w1, tmp[nt][2], accB[nt][2]);
+      accB[nt][3] = fmaf(w1, tmp[nt][3], accB[nt][3]);
     }
-  }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = t0 + ty * 4 + i;
-    if (s >= Q) continue;
-    float* dxr = p.dx + ((static_cast<int64_t>(b) * p.S + r0 + s) * p.H + h) * P;
-    float* dbr = p.dbh + ((static_cast<int64_t>(b) * p.S + r0 + s) * p.H + h) * N;
+    for (int k = 0; k < kHB; ++k) {
+      if (k != hh) continue;
+      gemm_own_bc<TB, kNTP, kWN, true, kPF>(accX[k], own_b, ldn, state_op, m0, np0);
 #pragma unroll
-    for (int k = 0; k < 2; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k * kTile + tx * 4 + j;
-        if (k < nP && col < P) dxr[col] = accX[k][i][j];
-        if (k < nN && col < N) dbr[col] = accB[k][i][j];
+      for (int nt = 0; nt < kNTP; ++nt) {
+        accX[k][nt][0] *= w0;
+        accX[k][nt][1] *= w0;
+        accX[k][nt][2] *= w1;
+        accX[k][nt][3] *= w1;
       }
+    }
   }
 
-  // ---- phase B: dC of the block's rows t ----------------------------------
-  float accC[2][4][4];
+  // within the chunk: items (slab j >= r, head); with the ring, the next
+  // item's raw slab is copied (cp.async) while this one is multiplied
+  const int items_a = (nT - r) * nh;
+  float cbt[kNTT][4];                     // C B^T of the slab, [s][t]
+  double next_cum = cum_at(t0);
+  for (int i = 0; i < items_a; ++i) {
+    const int j = r + i / nh, hh = i % nh, q0 = j * kTile;
+    if constexpr (kRing) {
+      cp_async_wait_all();
+      __syncthreads();                    // the raw slab landed; the last operands are consumed
+      if (hh == 0) convert_raw<kWN, kPBC>(raw_b, slab_b);
+      convert_raw<kWP, kPF>(raw_a, slab_a);
+    } else {
+      __syncthreads();                    // the last operands are consumed
+      if (hh == 0) load_tile<kTile, kWN, kPBC>(slab_b, cbase, p.c_ss, q0, Q, N);
+      load_tile<kTile, kWP, kPF>(slab_a, y_head(hh), y_ss, q0, Q, P);
+    }
+    if (hh == 0) set_c_slab(q0, next_cum);
+    __syncthreads();                      // the operands are ready; the raw slab is free
+    if (i + 1 < items_a) {
+      if constexpr (kRing) stage_a(i + 1);
+      if ((i + 1) % nh == 0) next_cum = cum_at(q0 + kTile);
+    }
+    if (hh == 0) {                        // once for the block's heads
+      zero_acc(cbt);
+      gemm_own_bc<TB, kNTT, kWN, false, kPBC>(cbt, own_b, ldn, slab_b_op, m0, nt0);
+    }
+    float dxt[kNTT][4], t1[kNTT][4];      // dy x^T, [s][t]
+    zero_acc(dxt);
+    warp_gemm<kNTT, kWP, false, false, kPF, kPF>(dxt, own_a_op(hh), slab_a_op, m0, nt0);
+    float ms[2] = {0.f, 0.f};
 #pragma unroll
-  for (int k = 0; k < 2; ++k) zero(accC[k]);
-  if (c > 0) {                            // e_t h_c dy_t; the state entering chunk 0 is 0
-    __syncthreads();
-    load_state(p.states + (bh * p.nc + c) * NP, true);
-    __syncthreads();
+    for (int nt = 0; nt < kNTT; ++nt)
 #pragma unroll
-    for (int k = 0; k < 2; ++k)
-      if (k < nN) mm_rk(accC[k], yo, L.ldP, U + k * kTile, L.ldN, L.kP);
+      for (int v = 0; v < 4; ++v) {
+        const int s = m0 + gq + 8 * (v >> 1), t = nt0 + 8 * nt + 2 * q4 + (v & 1);
+        float L = 0.f;                    // never evaluated above the diagonal
+        if (t0 + s <= q0 + t && q0 + t < Q)
+          L = __expf(c_slab[hh * kTile + t] - c_own[hh * kTile + s]);
+        t1[nt][v] = cbt[nt][v] * L;
+        ms[v >> 1] += t1[nt][v] * dxt[nt][v];
+        dxt[nt][v] *= L;                  // T2
+      }
+    add_rows(hh, -ms[0], -ms[1]);
+    if constexpr (kTPre) {
+      store_pieces<kNTT, kPT>(t1, t1b, kTile * ldt, ldt, m0, nt0);
+      store_pieces<kNTT, kPT>(dxt, t2b, kTile * ldt, ldt, m0, nt0);
+    } else {
+      store_f32(t1, t1f, ldt, m0, nt0);
+      store_f32(dxt, t2f, ldt, m0, nt0);
+    }
+    __syncthreads();                      // T1 and T2 are ready
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float ev = e_own[ty * 4 + i];
-#pragma unroll
-      for (int k = 0; k < 2; ++k)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) accC[k][i][j] *= ev;
+    for (int k = 0; k < kHB; ++k) {
+      if (k != hh) continue;
+      if constexpr (kTPre) {
+        warp_gemm<kNTP, kTile, false, true, kPT, kPT>(accX[k], make_op(t1b, kTile * ldt, ldt),
+                                                      slab_a_op, m0, np0);
+      } else {
+        warp_gemm_f32a<kNTP, kTile, true, kPT, kPT>(accX[k], t1f, ldt, slab_a_op, m0, np0);
+      }
+    }
+    if constexpr (kTPre) {
+      warp_gemm<kNTN, kTile, false, true, kPT, kPBC>(accB, make_op(t2b, kTile * ldt, ldt),
+                                                     slab_b_op, m0, nn0);
+    } else {
+      warp_gemm_f32a<kNTN, kTile, true, kPT, kPBC>(accB, t2f, ldt, slab_b_op, m0, nn0);
     }
   }
-  // within the chunk: the slabs s <= t
-  for (int ss = 0; ss <= r; ++ss) {
-    const int q0 = ss * kTile;
-    __syncthreads();
-    load_b(S1, bb, p.b_ss, q0);           // B rows s
-    load_f(S2, L.ldS, P, L.kP, xb, p.x_ss, q0);
-    load_slab_cum(q0);
-    __syncthreads();
-    float v[4][4];
-    zero(v);
-    mm_rr(v, yo, L.ldP, S2, L.ldS, L.kP);               // dy_t . x_s
+
+  // dx per head; dB summed over the block's heads
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int k = 0; k < kHB; ++k) {
+    if (k >= nh) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = ty * 4 + i, s = tx + 16 * j;
-        const bool ok = q0 + s <= t0 + t && t0 + t < Q;
-        T2[t * kLdL + s] = ok ? v[i][j] * __expf(c_own[t] - c_slab[s]) : 0.f;
+    for (int nt = 0; nt < kNTP; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int s = t0 + m0 + gq + 8 * (v >> 1), col = np0 + 8 * nt + 2 * q4 + (v & 1);
+        if (s < Q && col < P)
+          p.dx[((static_cast<int64_t>(b) * S + r0 + s) * H + h0 + k) * P + col] = accX[k][nt][v];
       }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-      if (k < nN) mm_rk(accC[k], T2, kLdL, S1 + k * kTile, L.ldN, kTile);
   }
+  const int nblk = p.G * p.nHB;
+  const int64_t blk = static_cast<int64_t>(g) * p.nHB + hb;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty * 4 + i;
-    if (t >= Q) continue;
-    float* dcr = p.dch + ((static_cast<int64_t>(b) * p.S + r0 + t) * p.H + h) * N;
+  for (int nt = 0; nt < kNTN; ++nt)
 #pragma unroll
-    for (int k = 0; k < 2; ++k)
+    for (int v = 0; v < 4; ++v) {
+      const int s = t0 + m0 + gq + 8 * (v >> 1), col = nn0 + 8 * nt + 2 * q4 + (v & 1);
+      if (s < Q && col < N)
+        p.dbp[((static_cast<int64_t>(b) * S + r0 + s) * nblk + blk) * N + col] = accB[nt][v];
+    }
+
+  // ---- phase B: dC of the block's rows t ----------------------------------
+  __syncthreads();                        // phase A's operands are consumed
+  for (int hh = 0; hh < nh; ++hh)
+    load_tile_f32<kTile, kWP, kPF>(own_a + hh * kPF * kOpP, y_head(hh), y_ss, t0, Q, P,
+                                   p.y_vec);
+  load_own_b(cbase, p.c_ss);              // now C's own rows
+  auto stage_b = [&](int i) {
+    const int j = i / nh, hh = i % nh, q0 = j * kTile;
+    if (hh == 0) stage_rows<TB, kWN>(raw_b, bbase, p.b_ss, q0, Q, N, p.b_vec);
+    stage_rows<float, kWP>(raw_a, x_head(hh), p.x_ss, q0, Q, P, p.x_vec);
+    cp_async_commit();
+  };
+  if constexpr (kRing) stage_b(0);        // the raw slab is free since phase A's last item
+  float accC[kNTN][4];
+  zero_acc(accC);
+  // cross-chunk term: dC = sum over heads of e o (dy h_c^T); the state
+  // entering chunk 0 is zero
+  for (int hh = 0; c > 0 && hh < nh; ++hh) {
+    __syncthreads();
+    load_state(p.states + (bh_of(hh) * p.nc + c) * NP);
+    __syncthreads();
+    float tmp[kNTN][4];
+    zero_acc(tmp);
+    warp_gemm<kNTN, kWP, false, false, kPF, kPF>(tmp, own_a_op(hh), state_op, m0, nn0);
+    float d0, d1;
+    dot_own_b(tmp, d0, d1);               // C_t . (h_c dy_t)
+    const float e0 = e_own[hh * kTile + m0 + gq], e1 = e_own[hh * kTile + m0 + gq + 8];
+    add_rows(hh, e0 * d0, e1 * d1);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k * kTile + tx * 4 + j;
-        if (k < nN && col < N) dcr[col] = accC[k][i][j];
+    for (int nt = 0; nt < kNTN; ++nt) {
+      accC[nt][0] = fmaf(e0, tmp[nt][0], accC[nt][0]);
+      accC[nt][1] = fmaf(e0, tmp[nt][1], accC[nt][1]);
+      accC[nt][2] = fmaf(e1, tmp[nt][2], accC[nt][2]);
+      accC[nt][3] = fmaf(e1, tmp[nt][3], accC[nt][3]);
+    }
+  }
+
+  const int items_b = (r + 1) * nh;
+  float cbm[kNTT][4];                     // C B^T of the slab, [t][s]
+  next_cum = cum_at(0);
+  for (int i = 0; i < items_b; ++i) {
+    const int j = i / nh, hh = i % nh, q0 = j * kTile;
+    if constexpr (kRing) {
+      cp_async_wait_all();
+      __syncthreads();
+      if (hh == 0) convert_raw<kWN, kPBC>(raw_b, slab_b);
+      convert_raw<kWP, kPF>(raw_a, slab_a);
+    } else {
+      __syncthreads();
+      if (hh == 0) load_tile<kTile, kWN, kPBC>(slab_b, bbase, p.b_ss, q0, Q, N);
+      load_tile<kTile, kWP, kPF>(slab_a, x_head(hh), p.x_ss, q0, Q, P);
+    }
+    if (hh == 0) set_c_slab(q0, next_cum);
+    __syncthreads();
+    if (i + 1 < items_b) {
+      if constexpr (kRing) stage_b(i + 1);
+      if ((i + 1) % nh == 0) next_cum = cum_at(q0 + kTile);
+    }
+    if (hh == 0) {
+      zero_acc(cbm);
+      gemm_own_bc<TB, kNTT, kWN, false, kPBC>(cbm, own_b, ldn, slab_b_op, m0, nt0);
+    }
+    float dxm[kNTT][4];                   // dy x^T, [t][s]
+    zero_acc(dxm);
+    warp_gemm<kNTT, kWP, false, false, kPF, kPF>(dxm, own_a_op(hh), slab_a_op, m0, nt0);
+    float ms[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kNTT; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int t = m0 + gq + 8 * (v >> 1), s = nt0 + 8 * nt + 2 * q4 + (v & 1);
+        float L = 0.f;
+        if (q0 + s <= t0 + t && t0 + t < Q)
+          L = __expf(c_own[hh * kTile + t] - c_slab[hh * kTile + s]);
+        dxm[nt][v] *= L;                  // T2
+        ms[v >> 1] += dxm[nt][v] * cbm[nt][v];
       }
+    add_rows(hh, ms[0], ms[1]);
+    if constexpr (kTPre) {
+      store_pieces<kNTT, kPT>(dxm, t2b, kTile * ldt, ldt, m0, nt0);
+    } else {
+      store_f32(dxm, t2f, ldt, m0, nt0);
+    }
+    __syncthreads();
+    if constexpr (kTPre) {
+      warp_gemm<kNTN, kTile, false, true, kPT, kPBC>(accC, make_op(t2b, kTile * ldt, ldt),
+                                                     slab_b_op, m0, nn0);
+    } else {
+      warp_gemm_f32a<kNTN, kTile, true, kPT, kPBC>(accC, t2f, ldt, slab_b_op, m0, nn0);
+    }
+  }
+
+#pragma unroll
+  for (int nt = 0; nt < kNTN; ++nt)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int t = t0 + m0 + gq + 8 * (v >> 1), col = nn0 + 8 * nt + 2 * q4 + (v & 1);
+      if (t < Q && col < N)
+        p.dcp[((static_cast<int64_t>(b) * S + r0 + t) * nblk + blk) * N + col] = accC[nt][v];
+    }
+  __syncthreads();                        // every warp's d cum sums are in
+  for (int idx = threadIdx.x; idx < nh * kTile; idx += blockDim.x) {
+    const int hh = idx / kTile, t = idx % kTile;
+    if (t0 + t >= Q) continue;
+    float acc = 0.f;
+#pragma unroll
+    for (int cg = 0; cg < kCG; ++cg) acc += red[(cg * kHB + hh) * kTile + t];
+    p.dcum[bh_of(hh) * S + r0 + t0 + t] = acc;
   }
 }
 
 // ---------------------------------------------------------------------------
-// 4. reduce_rows: dB, dC over each group's heads; d cum per head
+// 4. reduce_rows: dB, dC summed over each group's head blocks, in order
 // ---------------------------------------------------------------------------
 template <typename TB>
 __global__ void __launch_bounds__(kThreads) reduce_rows_kernel(const BwdParams p) {
   const int s = blockIdx.x, b = blockIdx.y;
-  const int N = p.N, H = p.H;
+  const int N = p.N, nHB = p.nHB;
   const int64_t row = static_cast<int64_t>(b) * p.S + s;
-  const float* dbr = p.dbh + row * H * N;
-  const float* dcr = p.dch + row * H * N;
-  const TB* bb = static_cast<const TB*>(p.b) + b * p.b_sb + s * p.b_ss;
-  const TB* cb = static_cast<const TB*>(p.c) + b * p.c_sb + s * p.c_ss;
+  const float* dbr = p.dbp + row * p.G * nHB * N;
+  const float* dcr = p.dcp + row * p.G * nHB * N;
   TB* dbo = static_cast<TB*>(p.db) + row * p.G * N;
   TB* dco = static_cast<TB*>(p.dc) + row * p.G * N;
   for (int idx = threadIdx.x; idx < p.G * N; idx += kThreads) {
     const int g = idx / N, n = idx % N;
     float sb = 0.f, sc = 0.f;
-    for (int h = g * p.rep; h < (g + 1) * p.rep; ++h) {
-      sb += dbr[h * N + n];
-      sc += dcr[h * N + n];
+    for (int k = 0; k < nHB; ++k) {
+      sb += dbr[(g * nHB + k) * N + n];
+      sc += dcr[(g * nHB + k) * N + n];
     }
     dbo[idx] = from_f<TB>(sb);
     dco[idx] = from_f<TB>(sc);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int h = warp; h < H; h += kWarps) {
-    const int g = h / p.rep;
-    float acc = 0.f;
-    for (int n = lane; n < N; n += 32)
-      acc += to_f(cb[g * p.c_sg + n]) * dcr[h * N + n] - to_f(bb[g * p.b_sg + n]) * dbr[h * N + n];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) p.dcum[(static_cast<int64_t>(b) * H + h) * p.S + s] = acc;
   }
 }
 
@@ -1099,24 +1639,76 @@ __global__ void __launch_bounds__(kThreads) dA_scan_kernel(const BwdParams p) {
   }
 }
 
-template <typename TB>
-cudaError_t launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
-  const int nN = (p.N + kTile - 1) / kTile, nP = (p.P + kTile - 1) / kTile;
+template <typename TB, int kWP, int kWN, int kHB, bool kRing>
+cudaError_t launch_grads(const BwdParams& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = GradLayout<TB, kWP, kWN, kHB, kRing>::kBytes;
+  static_assert(smem <= kMaxBlockSmem, "chunk_grads fits a block's shared memory");
+  static size_t allowed = 48 * 1024;      // per instantiation: the most allowed so far
+  cudaError_t e = allow_smem(chunk_grads_kernel<TB, kWP, kWN, kHB, kRing>, smem, allowed);
+  if (e != cudaSuccess) return e;
   const int nT = (p.Q + kTile - 1) / kTile;
-  chunk_dstate_kernel<TB><<<dim3(p.nc * nN * nP, p.H, B), kThreads,
-                            p.Q * sizeof(float), stream>>>(p);
-  cudaError_t e = cudaGetLastError();
+  chunk_grads_kernel<TB, kWP, kWN, kHB, kRing>
+      <<<dim3(p.nc * nT, p.G * p.nHB, B), 32 * kGradWarps, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+using GradsLaunch = cudaError_t (*)(const BwdParams&, int, cudaStream_t);
+
+// The built chunk_grads at widths kWP, kWN: kHB heads a block with the ring
+// where that fits a block, and one head without the ring where even one
+// head with it does not. kernels/ssd_scan.py::plan_bwd picks among them;
+// any other (heads, ring) has none (null).
+template <typename TB, int kWP, int kWN, int kHB>
+GradsLaunch grads_with_heads(bool ring) {
+  if constexpr (GradLayout<TB, kWP, kWN, kHB, true>::kBytes <= kMaxBlockSmem) {
+    if (ring) return launch_grads<TB, kWP, kWN, kHB, true>;
+  } else if constexpr (kHB == 1) {
+    if (!ring) return launch_grads<TB, kWP, kWN, 1, false>;
+  }
+  return nullptr;
+}
+
+template <typename TB, int kWP, int kWN>
+GradsLaunch grads_at(int heads, bool ring) {
+  switch (heads) {
+    case 1: return grads_with_heads<TB, kWP, kWN, 1>(ring);
+    case 2: return grads_with_heads<TB, kWP, kWN, 2>(ring);
+    case 4: return grads_with_heads<TB, kWP, kWN, 4>(ring);
+    default: return nullptr;
+  }
+}
+
+// P and N padded to 64 or 128
+template <typename TB>
+GradsLaunch grads_instance(int P, int N, int heads, bool ring) {
+  if (P <= 64) return N <= 64 ? grads_at<TB, 64, 64>(heads, ring) : grads_at<TB, 64, 128>(heads, ring);
+  return N <= 64 ? grads_at<TB, 128, 64>(heads, ring) : grads_at<TB, 128, 128>(heads, ring);
+}
+
+template <typename TB, int kWN>
+cudaError_t launch_dstate(const BwdParams& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = dstate_smem(sizeof(TB) == 2, kWN);
+  static size_t allowed = 48 * 1024;      // per instantiation: the most allowed so far
+  cudaError_t e = allow_smem(chunk_dstate_kernel<TB, kWN>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  const int nP = (p.P + kTile - 1) / kTile;
+  chunk_dstate_kernel<TB, kWN><<<dim3(p.nc * nP, p.H, B), 32 * dstate_warps(kWN), smem,
+                                 stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename TB>
+cudaError_t launch_bwd(const BwdParams& p, int heads, bool ring, int B, cudaStream_t stream) {
+  const GradsLaunch grads = grads_instance<TB>(p.P, p.N, heads, ring);
+  if (grads == nullptr) return cudaErrorInvalidValue;     // before any launch
+  cudaError_t e = p.N <= 64 ? launch_dstate<TB, 64>(p, B, stream)
+                            : launch_dstate<TB, 128>(p, B, stream);
   if (e != cudaSuccess) return e;
   dstate_pass_kernel<<<dim3((p.N * p.P + kThreads - 1) / kThreads, p.H, B),
                        kThreads, 0, stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const GradSmem L(p.N, p.P);
-  static size_t allowed = 48 * 1024;      // per instantiation: the most allowed so far
-  e = allow_smem(chunk_grads_kernel<TB>, L.total, allowed);
-  if (e != cudaSuccess) return e;
-  chunk_grads_kernel<TB><<<dim3(p.nc * nT, p.H, B), kThreads, L.total, stream>>>(p);
-  e = cudaGetLastError();
+  e = grads(p, B, stream);
   if (e != cudaSuccess) return e;
   reduce_rows_kernel<TB><<<dim3(p.S, B), kThreads, 0, stream>>>(p);
   e = cudaGetLastError();
@@ -1170,22 +1762,26 @@ extern "C" int ssd_scan_fwd(
 // contiguous fp32 (B, S, H, P); dstate a contiguous fp32 (B, H, N, P) or
 // null for zero. Writes dx (B, S, H, P) and ddA (B, S, H), fp32, and dB, dC
 // (B, S, G, N) in B's type, all contiguous. dstates ((B, H, S / Q, N, P)),
-// dbh and dch ((B, S, H, N)) and dcum ((B, H, S)), fp32, are scratch the
-// caller allocates. Makes five launches. Returns a cudaError_t as int.
+// dbp and dcp ((B, S, G * ceil(H / G / heads_per_block), N)) and dcum
+// ((B, H, S)), fp32, are scratch the caller allocates. heads_per_block (1,
+// 2 or 4) and ring (0 or 1) pick the chunk_grads instance
+// (kernels/ssd_scan.py::plan_bwd); one that is not built is refused. Makes
+// five launches. Returns a cudaError_t as int.
 extern "C" int ssd_scan_bwd(
     const void* x, const void* b, const void* c, const void* cum,
     const void* states, const void* state, const void* dy, const void* dstate,
-    void* dx, void* ddA, void* db, void* dc, void* dstates, void* dbh, void* dch,
+    void* dx, void* ddA, void* db, void* dc, void* dstates, void* dbp, void* dcp,
     void* dcum, int B, int S, int H, int G, int P, int N, int Q,
     long long x_sb, long long x_ss, long long x_sh,
     long long b_sb, long long b_ss, long long b_sg,
     long long c_sb, long long c_ss, long long c_sg,
-    int bc_dtype, void* stream) {
+    int heads_per_block, int ring, int bc_dtype, void* stream) {
   if (B < 0 || B > 65535 || S < 1 || H < 1 || H > 65535 || G < 1 || H % G != 0 ||
       P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 || Q > kMaxChunk ||
       S % Q != 0 || bc_dtype < 0 || bc_dtype > 1 || cum == nullptr ||
-      states == nullptr || dy == nullptr || dstates == nullptr || dbh == nullptr ||
-      dch == nullptr || dcum == nullptr || (dstate != nullptr && state == nullptr)) {
+      states == nullptr || dy == nullptr || dstates == nullptr || dbp == nullptr ||
+      dcp == nullptr || dcum == nullptr || (dstate != nullptr && state == nullptr) ||
+      heads_per_block < 1 || ring < 0 || ring > 1) {
     return cudaErrorInvalidValue;
   }
   if (B == 0) return cudaSuccess;
@@ -1199,13 +1795,21 @@ extern "C" int ssd_scan_bwd(
   p.dx = static_cast<float*>(dx); p.ddA = static_cast<float*>(ddA);
   p.db = db; p.dc = dc;
   p.dstates = static_cast<float*>(dstates);
-  p.dbh = static_cast<float*>(dbh); p.dch = static_cast<float*>(dch);
+  p.dbp = static_cast<float*>(dbp); p.dcp = static_cast<float*>(dcp);
   p.dcum = static_cast<float*>(dcum);
   p.S = S; p.H = H; p.G = G; p.rep = H / G; p.P = P; p.N = N; p.Q = Q; p.nc = S / Q;
+  p.nHB = (p.rep + heads_per_block - 1) / heads_per_block;
   p.x_sb = x_sb; p.x_ss = x_ss; p.x_sh = x_sh;
   p.b_sb = b_sb; p.b_ss = b_ss; p.b_sg = b_sg;
   p.c_sb = c_sb; p.c_ss = c_ss; p.c_sg = c_sg;
+  // 16-byte cp.async rows: aligned bases, strides and widths in 16 bytes
+  const long long v = bc_dtype == 1 ? 8 : 4;     // B/C elements per 16 bytes
+  auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  p.x_vec = P % 4 == 0 && aligned(x) && x_sb % 4 == 0 && x_ss % 4 == 0 && x_sh % 4 == 0;
+  p.y_vec = P % 4 == 0 && aligned(dy);
+  p.b_vec = N % v == 0 && aligned(b) && b_sb % v == 0 && b_ss % v == 0 && b_sg % v == 0;
+  p.c_vec = N % v == 0 && aligned(c) && c_sb % v == 0 && c_ss % v == 0 && c_sg % v == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bc_dtype == 0) return launch_bwd<float>(p, B, s);
-  return launch_bwd<__nv_bfloat16>(p, B, s);
+  if (bc_dtype == 0) return launch_bwd<float>(p, heads_per_block, ring == 1, B, s);
+  return launch_bwd<__nv_bfloat16>(p, heads_per_block, ring == 1, B, s);
 }

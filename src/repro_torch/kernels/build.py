@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -55,9 +56,9 @@ SIGNATURES = {
     # 12 strides, bc_dtype, stream
     "ssd_scan_fwd": [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _P],
     # x, B, C, cum, states, state, dy, dstate, dx, ddA, dB, dC, and the
-    # scratch dstates, dbh, dch, dcum; Bsz, S, H, G, P, N, chunk, 9 strides
-    # (x, B, C), bc_dtype, stream
-    "ssd_scan_bwd": [_P] * 16 + [_I] * 7 + [_L] * 9 + [_I, _P],
+    # scratch dstates, dbp, dcp, dcum; Bsz, S, H, G, P, N, chunk, 9 strides
+    # (x, B, C), heads per block, ring, bc_dtype, stream
+    "ssd_scan_bwd": [_P] * 16 + [_I] * 7 + [_L] * 9 + [_I, _I, _I, _P],
 }
 
 
@@ -91,6 +92,12 @@ def _digest(sources) -> str:
 
 def _run_all(cmds):
     """Runs the commands in parallel; raises with nvcc's output on failure."""
+    return "\n".join(_run_each(cmds))
+
+
+def _run_each(cmds):
+    """Runs the commands in parallel and returns each one's output; raises
+    with nvcc's output on failure."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -106,7 +113,7 @@ def _run_all(cmds):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    return "\n".join(logs)
+    return logs
 
 
 def _build(sources, target: Path) -> str:
@@ -145,6 +152,60 @@ def library() -> KernelLibrary:
     lib.kernel_error_string.restype = ctypes.c_char_p
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(lib=lib, path=target, build_s=build_s, log=log)
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``..18chunk_grads_kernelI13__nv_bfloat16Li64ELi128ELi2ELb1EEEvN..`` as
+    ``chunk_grads_kernel<bf16,64,128,2,true>``."""
+    end = mangled.find("_kernel")
+    if end < 0:
+        return mangled
+    end += len("_kernel")
+    start = end
+    while start > 0 and (mangled[start - 1].isalpha() or mangled[start - 1] == "_"):
+        start -= 1
+    args = mangled[end:].split("EvN")[0].split("Ev")[0]
+    if not args.startswith("I"):
+        return mangled[start:end]
+    args = re.sub(r"Li(\d+)E", r"\1,", args[1:].replace("13__nv_bfloat16", "bf16,"))
+    args = re.sub(r"Lb([01])E", lambda m: ("true," if m.group(1) == "1" else "false,"), args)
+    args = re.sub(r"^f", "float,", args).rstrip("E").rstrip(",")
+    return f"{mangled[start:end]}<{args}>"
+
+
+def kernel_instance(name: str) -> str:
+    """A kernel's name as ``torch.profiler`` shows it, demangled (``void
+    (anonymous namespace)::chunk_grads_kernel<__nv_bfloat16, 64, 128, 2,
+    true>(...)``) or mangled, in ``ptxas_summary``'s form
+    (``chunk_grads_kernel<bf16,64,128,2,true>``)."""
+    m = re.search(r"(\w+_kernel)<([^>]*)>", name)
+    if m:
+        return f"{m.group(1)}<{m.group(2).replace(' ', '').replace('__nv_bfloat16', 'bf16')}>"
+    return _kernel_name(name)
+
+
+def ptxas_summary(log: str):
+    """nvcc's ``-Xptxas -v`` output per kernel: registers, spill stores and
+    static shared memory (bytes)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = {"kernel": _kernel_name(m.group(1)), "registers": None,
+                   "spill_stores": None, "smem": 0}
+            out.append(cur)
+        elif cur is not None:
+            for key, pat in (("spill_stores", _SPILL), ("registers", _USED), ("smem", _SMEM)):
+                hit = pat.search(line)
+                if hit:
+                    cur[key] = int(hit.group(1))
+    return out
 
 
 def check(code: int, name: str) -> None:

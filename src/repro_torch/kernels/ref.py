@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ssd_scan import SPLIT_PIECES
+
 
 def reference_attention(q, k, v, *, causal: bool = True, scale=None,
                         return_lse: bool = False):
@@ -241,6 +243,164 @@ def ssd_scan_bwd(x, dA, Bm, Cm, dy, dstate=None, *, chunk: int,
     return (dx.reshape(Bsz, S, H, P), ddA.float().reshape(Bsz, S, H),
             dBh.sum(4).reshape(Bsz, S, G, N).to(Bm.dtype),
             dCh.sum(4).reshape(Bsz, S, G, N).to(Cm.dtype))
+
+
+def split_mm(eq, a, b, pieces=0):
+    """``torch.einsum(eq, a, b)`` of fp32 operands, or the CUDA
+    ``ssd_scan_bwd``'s tensor-core product: with ``pieces`` n (or a pair,
+    one count per operand) each operand as bf16 pieces (hi = bf16(a), each
+    next piece bf16 of what the ones before leave), and the pieces' exact
+    products i.j with i + j below the larger count summed in fp32 (hi.hi,
+    lo.hi, hi.lo for two pieces each; six terms for three). An operand exact
+    in bf16 has only its first piece, so one piece of it loses nothing."""
+    if not pieces:
+        return torch.einsum(eq, a, b)
+    pa, pb = (pieces, pieces) if isinstance(pieces, int) else pieces
+
+    def split(t, n):
+        out = []
+        for _ in range(n):
+            out.append(t.bfloat16().float())
+            t = t - out[-1]
+        return out
+
+    sa, sb = split(a, pa), split(b, pb)
+    out = torch.einsum(eq, sa[0], sb[0])
+    for i in range(pa):
+        for j in range(pb):
+            if (i or j) and i + j < max(pa, pb):
+                out = out + torch.einsum(eq, sa[i], sb[j])
+    return out
+
+
+def ssd_bwd_tiles(x, dA, Bm, Cm, dy, dstate=None, *, chunk: int, tile: int = 64,
+                  heads_per_block: int = 1, route=None, pieces: int = 0):
+    """The CUDA ``ssd_scan_bwd``'s decomposition in plain PyTorch, for the
+    tests only (no path of the port runs it). Arguments and results as
+    ``ssd_scan_bwd``; ``route`` ("bf16_bc", "split_bc") emulates the
+    kernel's split products with ``ssd_scan.SPLIT_PIECES``, ``pieces`` n splits
+    every operand of every product in n (``split_mm``); neither keeps plain
+    fp32 products.
+
+    Per chunk and own tile of ``tile`` rows, every head of a group at once:
+      phase A, rows s of the tile: dx_s and dB_s start from the cross-chunk
+        terms w_s G_c^T B_s and w_s G_c x_s, then add, over the slabs t >= s
+        in order, T1^T dy and T2^T C with T1 = (C B^T) o L (C B^T once per
+        group) and T2 = M' = (dy x^T) o L;
+      phase B, rows t: dC_t starts from e_t h_c dy_t and adds T2 B over the
+        slabs s <= t in order (M' formed again from the same operands);
+      d cum per head, C_t.dC_t - B_t.dB_t, from row sums of M = T1 o (dy x^T)
+        and the dot products of the cross-chunk terms, so that dB and dC
+        leave a block summed over its ``heads_per_block`` heads, and the
+        head blocks are summed in order.
+    L_ts = exp(c_t - c_s) for s <= t with c = cum less cum at the tile's
+    first row, in fp32, as the kernel takes its decays; cum in fp64.
+    """
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    R, Q = H // G, chunk
+    nc = S // Q
+
+    names = {"bctgn,bctgrp->bcgrnp": "C^T (e o dy)", "bcsgn,bcgrnp->bcsgrp": "G_c^T B",
+             "bcsgrp,bcgrnp->bcsgrn": "G_c x", "bcsgn,bctgn->bcgst": "C B^T",
+             "bctgn,bcsgn->bcgts": "C B^T", "bcsgrp,bctgrp->bcgrst": "dy x^T",
+             "bctgrp,bcsgrp->bcgrts": "dy x^T", "bcgrst,bctgrp->bcsgrp": "T1^T dy",
+             "bcgrst,bctgn->bcsgrn": "T2^T C", "bcgrts,bcsgn->bctgrn": "T2 B",
+             "bctgrp,bcgrnp->bctgrn": "h_c dy"}
+
+    def mm(eq, a, b):
+        return split_mm(eq, a, b, SPLIT_PIECES[route][names[eq]] if route else pieces)
+
+    x_ = x.float().reshape(Bsz, nc, Q, G, R, P)
+    dy_ = dy.float().reshape(Bsz, nc, Q, G, R, P)
+    cum = dA.double().reshape(Bsz, nc, Q, G, R).cumsum(dim=2)
+    B_ = Bm.float().reshape(Bsz, nc, Q, G, N)
+    C_ = Cm.float().reshape(Bsz, nc, Q, G, N)
+    w = (cum[:, :, -1:] - cum).exp().float()
+    e = cum.exp().float()
+    decay = cum[:, :, -1].exp().float()[..., None, None]
+
+    own = torch.einsum("bcsgn,bcsgr,bcsgrp->bcgrnp", B_, w, x_)
+    run = torch.zeros_like(own[:, 0])
+    entering = []
+    for c in range(nc):
+        entering.append(run)
+        run = run * decay[:, c] + own[:, c]
+    leaving = torch.stack(entering[1:] + [run], dim=1)
+    entering = torch.stack(entering, dim=1)                     # (Bsz,nc,G,R,N,P)
+
+    D = mm("bctgn,bctgrp->bcgrnp", C_, e[..., None] * dy_)
+    run = (torch.zeros_like(D[:, 0]) if dstate is None
+           else dstate.float().reshape(Bsz, G, R, N, P))
+    grads = [None] * nc
+    for c in reversed(range(nc)):
+        grads[c] = run
+        run = run * decay[:, c] + D[:, c]
+    Gst = torch.stack(grads, dim=1)
+
+    dx = torch.zeros_like(x_)
+    dBh = torch.zeros((Bsz, nc, Q, G, R, N))
+    dCh = torch.zeros_like(dBh)
+    dcum = torch.zeros((Bsz, nc, Q, G, R))
+    rows = [slice(r0, min(r0 + tile, Q)) for r0 in range(0, Q, tile)]
+
+    def decays(rt, rs, t0):
+        """L over the rows rt (t) and rs (s), (Bsz,nc,G,R,t,s): fp32
+        differences of cum less cum at row t0, masked to s <= t."""
+        base = cum[:, :, t0:t0 + 1]
+        ct, cs = (cum[:, :, rt] - base).float(), (cum[:, :, rs] - base).float()
+        seg = (ct[:, :, :, None] - cs[:, :, None]).permute(0, 1, 4, 5, 2, 3)
+        t_idx = torch.arange(Q)[rt][:, None]
+        s_idx = torch.arange(Q)[rs][None]
+        return torch.where(t_idx >= s_idx, seg.exp(), 0.0)
+
+    for r, own_rows in enumerate(rows):
+        t0 = own_rows.start
+        B_o, C_o = B_[:, :, own_rows], C_[:, :, own_rows]
+        x_o, dy_o = x_[:, :, own_rows], dy_[:, :, own_rows]
+        w_o, e_o = w[:, :, own_rows], e[:, :, own_rows]
+        # phase A: dx and dB of the rows s
+        acc_x = w_o[..., None] * mm("bcsgn,bcgrnp->bcsgrp", B_o, Gst)
+        tmp = mm("bcsgrp,bcgrnp->bcsgrn", x_o, Gst)
+        dc = -w_o * torch.einsum("bcsgn,bcsgrn->bcsgr", B_o, tmp)
+        acc_b = w_o[..., None] * tmp
+        for slab in rows[r:]:
+            Lt = decays(slab, own_rows, t0).transpose(-1, -2)          # [s][t]
+            cbt = mm("bcsgn,bctgn->bcgst", B_o, C_[:, :, slab])
+            dxt = mm("bcsgrp,bctgrp->bcgrst", x_o, dy_[:, :, slab])
+            t1 = cbt[:, :, :, None] * Lt
+            t2 = dxt * Lt
+            dc = dc - (t1 * dxt).sum(-1).permute(0, 1, 4, 2, 3)
+            acc_x = acc_x + mm("bcgrst,bctgrp->bcsgrp", t1, dy_[:, :, slab])
+            acc_b = acc_b + mm("bcgrst,bctgn->bcsgrn", t2, C_[:, :, slab])
+        # phase B: dC of the rows t
+        tmp = mm("bctgrp,bcgrnp->bctgrn", dy_o, entering)
+        dc = dc + e_o * torch.einsum("bctgn,bctgrn->bctgr", C_o, tmp)
+        acc_c = e_o[..., None] * tmp
+        for slab in rows[:r + 1]:
+            L = decays(own_rows, slab, t0)                             # [t][s]
+            cb = mm("bctgn,bcsgn->bcgts", C_o, B_[:, :, slab])
+            t2 = mm("bctgrp,bcsgrp->bcgrts", dy_o, x_[:, :, slab]) * L
+            dc = dc + (t2 * cb[:, :, :, None]).sum(-1).permute(0, 1, 4, 2, 3)
+            acc_c = acc_c + mm("bcgrts,bcsgn->bctgrn", t2, B_[:, :, slab])
+        dx[:, :, own_rows] = acc_x
+        dBh[:, :, own_rows] = acc_b
+        dCh[:, :, own_rows] = acc_c
+        dcum[:, :, own_rows] = dc
+
+    def over_heads(t):
+        blocks = [t[..., h:h + heads_per_block, :].sum(4)
+                  for h in range(0, R, heads_per_block)]
+        out = blocks[0]
+        for blk in blocks[1:]:
+            out = out + blk
+        return out
+
+    last = torch.einsum("bcgrnp,bcgrnp->bcgr", leaving, Gst)
+    ddA = dcum.double().flip(2).cumsum(2).flip(2) + last.double()[:, :, None]
+    return (dx.reshape(Bsz, S, H, P), ddA.float().reshape(Bsz, S, H),
+            over_heads(dBh).reshape(Bsz, S, G, N).to(Bm.dtype),
+            over_heads(dCh).reshape(Bsz, S, G, N).to(Cm.dtype))
 
 
 def attention_bwd_tiles(q, k, v, o, lse, do, *, causal: bool = True, q_step: int = 64,

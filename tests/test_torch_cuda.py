@@ -383,11 +383,64 @@ SSD_CASES = [
     (1, 256, 8, 1, 64, 128, 256, 1.0),      # batch 1, a single chunk
     (2, 512, 8, 2, 64, 64, 256, 1.0),       # G 2, four heads per group
     (1, 300, 6, 2, 128, 128, 100, 0.1),     # P = N = 128, ragged 64-row tiles
-    (1, 128, 2, 1, 30, 20, 64, 1.0)]        # P not a multiple of 4
+    (1, 128, 2, 1, 30, 20, 64, 1.0),        # P not a multiple of 4
+    (1, 512, 6, 2, 64, 128, 256, 0.1),      # 3 heads a group
+    (1, 256, 6, 1, 64, 64, 128, 1.0),       # 6 heads a group
+    (2, 256, 1, 1, 64, 128, 128, 0.01)]     # H 1
 
 
 def _rel(got, want):
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _chunk_grads_instances(fn):
+    """The chunk_grads instances that ``fn`` launches, by ``torch.profiler``'s
+    kernel names (``build.kernel_instance``), and the kernels of each trace.
+    A trace without chunk_grads (the profiler at times drops a kernel) is
+    taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
+    traces = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        traces.append([e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA])
+        found = sorted({build.kernel_instance(n) for n in traces[-1] if "chunk_grads" in n})
+        if found:
+            break
+    return found, traces
+
+
+def _check_ssd_bwd(cuda, B, S, H, G, P, N, chunk, decay, bc_dtype, with_dstate):
+    chunk = min(chunk, S)
+    gen = torch.Generator(device=cuda).manual_seed(S + H + N + 1)
+    x, dA, Bm, Cm = _ssd_inputs(gen, B, S, H, G, P, N, torch.float32, bc_dtype, cuda, decay)
+    dy = _randn(gen, (B, S, H, P), torch.float32, cuda)
+    ds = _randn(gen, (B, H, N, P), torch.float32, cuda) if with_dstate else None
+    _, st, cum, states = ssd.ssd_scan_cuda(x, dA, Bm, Cm, chunk, True)
+
+    def run():
+        return ssd.ssd_scan_bwd_cuda(x, dA, Bm, Cm, chunk, cum, states, st, dy, ds)
+
+    got = run()
+    plan = ssd.plan_bwd(N, P, chunk, H // G, bc_dtype, tiles=B * G * (S // chunk) * -(-chunk // 64),
+                        sms=torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert ssd.BWD_PLAN == plan
+    found, traces = _chunk_grads_instances(run)
+    assert found == [plan.kernel], traces
+    want = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=chunk)
+    limits = (1e-4, 1e-4) + ((1e-4, 1e-4) if bc_dtype == torch.float32 else (1e-3, 1e-3))
+    for i, (g, w, like) in enumerate(zip(got, want, (x, dA, Bm, Cm))):
+        assert g.shape == like.shape and g.dtype == like.dtype and g.is_contiguous()
+        assert _rel(g, w) <= limits[i]
+        tol = 10 * TOL[g.dtype]
+        atol = tol * chunk ** 0.5 if i == 1 else tol
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=tol)
+    again = run()
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    return plan
 
 
 @pytest.mark.parametrize("B,S,H,G,P,N,chunk,decay", SSD_CASES)
@@ -399,24 +452,25 @@ def test_ssd_scan_bwd_kernel(cuda, B, S, H, G, P, N, chunk, decay, bc_dtype, wit
     B/C, where they come back in bf16) and elementwise at the forward's
     10x tolerance of its dtype (d dA, a sum of up to ``chunk`` rows, with
     its atol scaled by sqrt(chunk)); two runs give equal bits (no
-    atomics)."""
-    chunk = min(chunk, S)
-    gen = torch.Generator(device=cuda).manual_seed(S + H + N + 1)
-    x, dA, Bm, Cm = _ssd_inputs(gen, B, S, H, G, P, N, torch.float32, bc_dtype, cuda, decay)
-    dy = _randn(gen, (B, S, H, P), torch.float32, cuda)
-    ds = _randn(gen, (B, H, N, P), torch.float32, cuda) if with_dstate else None
-    _, st, cum, states = ssd.ssd_scan_cuda(x, dA, Bm, Cm, chunk, True)
-    got = ssd.ssd_scan_bwd_cuda(x, dA, Bm, Cm, chunk, cum, states, st, dy, ds)
-    want = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=chunk)
-    limits = (1e-4, 1e-4) + ((1e-4, 1e-4) if bc_dtype == torch.float32 else (1e-3, 1e-3))
-    for i, (g, w, like) in enumerate(zip(got, want, (x, dA, Bm, Cm))):
-        assert g.shape == like.shape and g.dtype == like.dtype and g.is_contiguous()
-        assert _rel(g, w) <= limits[i]
-        tol = 10 * TOL[g.dtype]
-        atol = tol * chunk ** 0.5 if i == 1 else tol
-        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=tol)
-    again = ssd.ssd_scan_bwd_cuda(x, dA, Bm, Cm, chunk, cum, states, st, dy, ds)
-    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    atomics); the chunk_grads instance that ran (``torch.profiler``) is
+    the one ``plan_bwd`` picks for the card's SMs (fp32 B and C at N = P =
+    128: one head a block, no cp.async ring)."""
+    _check_ssd_bwd(cuda, B, S, H, G, P, N, chunk, decay, bc_dtype, with_dstate)
+
+
+@pytest.mark.parametrize("B,S,H,G,P,N,chunk,decay,heads", [
+    (2, 4096, 8, 1, 64, 128, 256, 0.01, (2, 1)),    # N 128: blocks of two (mamba2's)
+    (2, 4096, 6, 2, 64, 128, 256, 0.1, (2, 1)),     # 3 heads a group: blocks of 2 and 1
+    (2, 4096, 6, 1, 64, 64, 256, 1.0, (4, 2)),      # 6 heads a group: blocks of 4 and 2
+    (1, 4096, 16, 1, 64, 64, 256, 1.0, (4, 2))])    # N 64: blocks of four (zamba2's)
+@pytest.mark.parametrize("bc_dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_bwd_kernel_head_blocks(cuda, B, S, H, G, P, N, chunk, decay, heads, bc_dtype):
+    """The same checks on grids large enough for blocks of several heads of
+    a group (``heads``: with bf16 B/C, with fp32), a group's last block
+    holding fewer where they do not divide its heads, with a final-state
+    gradient."""
+    plan = _check_ssd_bwd(cuda, B, S, H, G, P, N, chunk, decay, bc_dtype, True)
+    assert plan.heads_per_block == heads[bc_dtype == torch.float32]
 
 
 def test_ssd_scan_bwd_sees_the_carried_state_gradient(cuda):

@@ -13,6 +13,7 @@ from repro.models.attention import blockwise_attention as jax_blockwise
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models.attention import blockwise_attention
 
 # The JAX kernel tests' tolerances (tests/test_kernels.py): fp32 differs only
@@ -453,3 +454,109 @@ def test_rmsnorm_plan_bwd_unaligned_and_refusals():
     for D in (0, 8193):
         with pytest.raises(ValueError):
             rn.plan_bwd(4, D, BF, BF)
+
+
+@pytest.mark.parametrize("N,P,Q,rep,bc,want", [
+    # the train paths: mamba2 (N 128) and zamba2 (N 64), bf16 B/C
+    (128, 64, 256, 32, BF, ("bf16_bc", 2, True, (64, 128), 191488)),
+    (64, 64, 256, 64, BF, ("bf16_bc", 4, True, (64, 64), 226304)),
+    (64, 64, 4096, 1, BF, ("bf16_bc", 1, True, (64, 64), 137216)),   # one head: rep 1
+    (128, 128, 100, 3, BF, ("bf16_bc", 1, True, (128, 128), 227328)),
+    # fp32 B/C, or P = 128: fewer heads, then no ring, where they do not fit
+    (128, 64, 256, 32, F32, ("split_bc", 1, True, (64, 128), 230400)),
+    (40, 48, 64, 2, F32, ("split_bc", 2, True, (64, 64), 202752)),
+    (64, 128, 256, 8, F32, ("split_bc", 1, False, (128, 64), 189440)),
+    (128, 128, 100, 3, F32, ("split_bc", 1, False, (128, 128), 230400))])
+def test_ssd_plan_bwd(N, P, Q, rep, bc, want):
+    """The backward's route and chunk_grads' blocking, on any device: (route,
+    heads a block, ring, padded widths, shared memory), each under a
+    block's 227 KB, and the instance it names."""
+    p = ssd.plan_bwd(N, P, Q, rep, bc)
+    assert (p.route, p.heads_per_block, p.ring, p.widths, p.smem) == want
+    assert p.smem <= ssd.MAX_BLOCK_SMEM
+    tb = "bf16" if bc == BF else "float"
+    assert p.kernel == (f"chunk_grads_kernel<{tb},{want[3][0]},{want[3][1]},{want[1]},"
+                        f"{str(want[2]).lower()}>")
+
+
+@pytest.mark.parametrize("B,S,H,G,N,chunk,sms,want", [
+    (2, 4096, 32, 1, 128, 256, 132, 2),    # mamba2 train: 2048 blocks of two heads
+    (2, 4096, 64, 1, 64, 256, 132, 4),     # zamba2 train: 2048 blocks of four
+    (2, 512, 8, 2, 64, 256, 132, 1),       # grouped: 32 blocks of four, 128 of one
+    (1, 384, 64, 1, 64, 128, 132, 2),      # 96 blocks of four, 192 of two
+    (1, 384, 64, 1, 64, 128, 64, 4),       # a card of 64 SMs: four fill it
+    (2, 512, 8, 2, 64, 256, 1, 4),         # one SM: the most heads that fit
+    (1, 128, 2, 1, 20, 64, 132, 1)])       # ragged: 2 blocks, or 4
+def test_ssd_plan_bwd_fills_the_card(B, S, H, G, N, chunk, sms, want):
+    """Heads a block: the most that fit, unless that leaves SMs without a
+    block (one an SM) and fewer would not; then fewer, down to one."""
+    tiles = B * G * (S // chunk) * -(-chunk // ssd.TILE)
+    assert ssd.plan_bwd(N, 64, chunk, H // G, BF, tiles=tiles, sms=sms).heads_per_block == want
+
+
+def test_ssd_split_pieces_are_the_sources():
+    """``ROUTE_PIECES`` holds the numbers of ``Pieces`` in csrc/ssd_scan.cu,
+    which the kernels are built with, and ``SPLIT_PIECES`` gives each product
+    the pieces of its operands' kinds."""
+    import re
+    from pathlib import Path
+    src = (Path(ssd.__file__).parents[1] / "csrc" / "ssd_scan.cu").read_text()
+    types = {"bf16_bc": "__nv_bfloat16", "split_bc": "float"}
+    for route, tb in types.items():
+        m = re.search(r"struct Pieces<" + tb + r"> \{[^}]*?kF = (\d+), kT = (\d+), kBC = (\d+);",
+                      src)
+        assert m is not None
+        assert ssd.ROUTE_PIECES[route] == dict(zip(("F", "T", "BC"), map(int, m.groups())))
+    assert ssd.SPLIT_PIECES["bf16_bc"]["T2 B"] == (2, 1)
+    assert ssd.SPLIT_PIECES["split_bc"]["C B^T"] == (3, 3)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void (anonymous namespace)::chunk_grads_kernel<__nv_bfloat16, 64, 128, 2, true>"
+     "((anonymous namespace)::BwdParams)", "chunk_grads_kernel<bf16,64,128,2,true>"),
+    ("_ZN12_GLOBAL__N_118chunk_grads_kernelIfLi128ELi64ELi1ELb0EEEvNS_9BwdParamsE",
+     "chunk_grads_kernel<float,128,64,1,false>"),
+    ("(anonymous namespace)::dA_scan_kernel((anonymous namespace)::BwdParams)",
+     "dA_scan_kernel")])
+def test_kernel_instance_names(name, want):
+    """A launched kernel's name, demangled or not, in ptxas_summary's form."""
+    from repro_torch.kernels import build
+    assert build.kernel_instance(name) == want
+
+
+def test_ptxas_summary_names_each_instance():
+    """nvcc's ptxas lines become one record per kernel, its template
+    arguments (types, widths, heads, ring) in the name."""
+    from repro_torch.kernels import build
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_118chunk_grads_kernelI13__nv_bfloat16Li64ELi128ELi2ELb1EEEvNS_9BwdParamsE'"
+        " for 'sm_90a'",
+        "ptxas info    : Used 128 registers, 8 bytes smem",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_118chunk_grads_kernelIfLi128ELi64ELi1ELb0EEEvNS_9BwdParamsE'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 255 registers"])
+    assert build.ptxas_summary(log) == [
+        {"kernel": "chunk_grads_kernel<bf16,64,128,2,true>", "registers": 128,
+         "spill_stores": 0, "smem": 8},
+        {"kernel": "chunk_grads_kernel<float,128,64,1,false>", "registers": 255,
+         "spill_stores": 16, "smem": 0}]
+
+
+def test_ssd_plan_bwd_terms_and_refusals():
+    """bf16 B/C: C B^T one exact product, the decayed tiles' products two
+    or three terms, dy x^T and the cross-chunk products three pieces each
+    (six terms; three by a bf16 B or C); fp32 B/C: six everywhere."""
+    bf = ssd.plan_bwd(128, 64, 256, 32, BF).terms
+    assert bf == {"C B^T": 1, "dy x^T": 6, "T1^T dy": 3, "T2^T C": 2, "T2 B": 2,
+                  "G_c^T B": 3, "G_c x": 6, "h_c dy": 6, "C^T (e o dy)": 3}
+    assert set(ssd.plan_bwd(128, 64, 256, 32, F32).terms.values()) == {6}
+    with pytest.raises(TypeError):
+        ssd.plan_bwd(128, 64, 256, 32, torch.float16)
+    for N, P, Q, rep in ((129, 64, 256, 1), (128, 0, 256, 1), (64, 64, 4097, 1),
+                         (64, 64, 256, 0)):
+        with pytest.raises(ValueError):
+            ssd.plan_bwd(N, P, Q, rep, BF)

@@ -348,3 +348,120 @@ def test_ssd_chunked_grads_match_jax(G):
     for g, w in zip(got, want):
         w = np.asarray(w)
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * float(np.abs(w).max()))
+
+
+# ||got - want|| / ||want|| limits of the card checks (dx, d dA, dB, dC), by
+# B/C's dtype; the kernel's split products must stay 5x under them.
+SSD_NORM_LIMITS = {torch.float32: (1e-4,) * 4, torch.bfloat16: (1e-4, 1e-4, 1e-3, 1e-3)}
+ROUTE = {torch.float32: "split_bc", torch.bfloat16: "bf16_bc"}
+# The card's elementwise tolerances (tests/test_torch_cuda.py, chip_smoke.py):
+# 10x these, d dA's atol scaled by sqrt(chunk).
+CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.parametrize("G,S_,chunk,tile,heads,decay,with_dstate", [
+    (1, 96, 32, 8, 1, 0.01, True), (2, 64, 16, 8, 2, 1.0, False),
+    (2, 96, 48, 16, 3, 0.1, True), (1, 64, 64, 64, 4, 0.01, True)])
+def test_ssd_bwd_tiles_match_the_plain_backward(G, S_, chunk, tile, heads, decay, with_dstate):
+    """The kernel's decomposition (tiles of ``tile`` rows, C B^T once per
+    group, dB and dC summed per block of ``heads`` heads, d cum from row
+    sums of M and the cross-chunk dot products), in fp32, against
+    ``ref.ssd_scan_bwd`` and autograd through the plain forward."""
+    x, dA, Bm, Cm, dy, ds = _bwd_inputs(70 + G + S_, 2, S_, 4, G, 5, 6, decay)
+    ds = ds if with_dstate else None
+    got = ref.ssd_bwd_tiles(x, dA, Bm, Cm, dy, ds, chunk=chunk, tile=tile,
+                            heads_per_block=heads)
+    _rel_close(got, ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=chunk), 1e-5)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dA, Bm, Cm)]
+    y, st = ops.ssd_scan_plain(*leaves, chunk=chunk)
+    loss = (y * dy).sum() + ((st * ds).sum() if with_dstate else 0.0)
+    _rel_close(got, torch.autograd.grad(loss, leaves), 1e-5)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_bwd_tiles_match_jax(G):
+    """The decomposition's (dx, d dA, dB, dC), carried to ssd_chunked's
+    inputs by the chain rule (x = xh dt, dA = dt A, A = -exp(a_log)),
+    against ``jax.grad`` of the JAX ``ssd_chunked`` over three chunks of
+    16 rows in tiles of 8, with the state carried across them."""
+    xh, dt, a_log, Bm, Cm = _chunked_inputs(80 + G, 2, 48, 4, G, 8, 16)
+    a_log = np.full_like(a_log, np.log(0.01))
+    cot = np.random.default_rng(90 + G).standard_normal(xh.shape).astype(np.float32)
+
+    def jloss(*a):
+        return jnp.sum(JS.ssd_chunked(*a, chunk=16)[0] * cot)
+
+    want = jax.grad(jloss, argnums=tuple(range(5)))(
+        *map(jnp.asarray, (xh, dt, a_log, Bm, Cm)))
+    xh_t, dt_t, Bm_t, Cm_t = map(torch.from_numpy, (xh, dt, Bm, Cm))
+    A = -torch.from_numpy(a_log).exp()
+    dx, ddA, dB, dC = ref.ssd_bwd_tiles(xh_t * dt_t[..., None], dt_t * A, Bm_t, Cm_t,
+                                        torch.from_numpy(cot), chunk=16, tile=8,
+                                        heads_per_block=2)
+    got = (dx * dt_t[..., None], (dx * xh_t).sum(-1) + ddA * A,
+           (ddA * dt_t * A).sum((0, 1)), dB, dC)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("B,S_,H,P,N,chunk,decay,bc", [
+    (2, 128, 4, 32, 64, 64, 1.0, torch.bfloat16),
+    (1, 512, 32, 64, 128, 256, 1.0, torch.bfloat16),      # the mamba2 layout at S 512
+    (1, 512, 64, 64, 64, 256, 1.0, torch.bfloat16),       # the zamba2 layout at S 512
+    (1, 2048, 4, 64, 128, 256, 0.01, torch.bfloat16),     # the state carried over 8 chunks
+    (2, 96, 4, 5, 6, 32, 0.01, torch.float32),
+    (1, 512, 8, 64, 128, 256, 0.01, torch.float32)])
+def test_ssd_bwd_split_products_within_the_limits(B, S_, H, P, N, chunk, decay, bc):
+    """The kernel's split products, emulated (bf16 pieces, exact products,
+    fp32 sums, as ``ssd_scan.SPLIT_PIECES`` gives each product by route),
+    hold each gradient 5x under the card's norm limits, and at most half
+    the card's elementwise tolerances (10x TOL of the gradient's dtype; d
+    dA's atol scaled by sqrt(chunk)); at the mamba2 and zamba2 layouts
+    (H 32, N 128; H 64, N 64) dx, whose T1^T dy runs on two pieces, also
+    within half its atol alone."""
+    x, dA, Bm, Cm, dy, ds = _bwd_inputs(S_ + H + N, B, S_, H, 1, P, N, decay)
+    Bm, Cm = Bm.to(bc), Cm.to(bc)
+    want = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=chunk)
+    got = ref.ssd_bwd_tiles(x, dA, Bm, Cm, dy, ds, chunk=chunk, heads_per_block=2,
+                            route=ROUTE[bc])
+    for i, (g, w, limit) in enumerate(zip(got, want, SSD_NORM_LIMITS[bc])):
+        assert _rel(g, w) <= limit / 5
+        tol = 10 * CARD_TOL[g.dtype]
+        atol = tol * chunk ** 0.5 if i == 1 else tol
+        err = (g.float() - w.float()).abs()
+        torch.testing.assert_close(g.float(), w.float(), atol=atol / 2, rtol=tol / 2)
+        if i == 0 and (H, N) in ((32, 128), (64, 64)):
+            assert err.max().item() <= atol / 2
+
+
+@pytest.mark.parametrize("bc", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_two_pieces_miss_the_fp32_limits(bc):
+    """Slow decay (0.003) over eight chunks with a final-state gradient: two pieces
+    an operand (16 bits) for every product leave d dA (and with fp32 B/C
+    dB and dC) above their elementwise fp32 tolerance, which the route's
+    three-piece products keep: why dy x^T and the cross-chunk products, and
+    with fp32 B/C every product, split in three. One piece (bf16 x and dy)
+    misses every norm limit."""
+    x, dA, Bm, Cm, dy, ds = _bwd_inputs(2048 + 4 + 128, 1, 2048, 4, 1, 64, 128, 0.003)
+    Bm, Cm = Bm.to(bc), Cm.to(bc)
+    want = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=256)
+
+    def excess(got):
+        return [((g.float() - w.float()).abs() - (1e-3 * 16 if i == 1 else 1e-3)
+                 - 1e-3 * w.float().abs()).max().item()
+                for i, (g, w) in enumerate(zip(got, want))]
+
+    two = excess(ref.ssd_bwd_tiles(x, dA, Bm, Cm, dy, ds, chunk=256, heads_per_block=2,
+                                   pieces=2))
+    route = excess(ref.ssd_bwd_tiles(x, dA, Bm, Cm, dy, ds, chunk=256, heads_per_block=2,
+                                     route=ROUTE[bc]))
+    assert two[1] > 0 and route[1] < 0
+    if bc == torch.float32:
+        assert max(two[2:]) > 0 and max(route) < 0
+    one = ref.ssd_bwd_tiles(x, dA, Bm, Cm, dy, ds, chunk=256, heads_per_block=2, pieces=1)
+    assert all(_rel(g, w) > 1e-4 for g, w in zip(one, want))
