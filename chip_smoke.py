@@ -17,7 +17,13 @@ its seconds:
                 cores, fp32 on the CUDA cores), each rmsnorm case the path
                 and launch shape of ``rmsnorm.plan`` and fails on another
                 path; ``ssd_scan`` also against the sequential recurrence
-                ``reference_ssd``;
+                ``reference_ssd``; the flash forward and backward under the
+                prefix-LM mask (paligemma's serve shape, vit's train shape,
+                a ragged small case) and in the non-causal mode of whisper's
+                encoder and cross-attention (Sq 4096 over Sk 1500), with
+                ``library_ms`` SDPA with a boolean mask, ``bound_ms`` over
+                the mask's valid pairs, and prefix 0 and a prefix past Sk
+                giving the causal and non-causal launches' bits;
                 The backward kernels (``rmsnorm_bwd``, ``flash_attention_bwd``,
                 ``ssd_scan_bwd``) against the plain backward versions of
                 ``kernels/ref.py`` on the same inputs, with ``library_ms``
@@ -32,30 +38,37 @@ its seconds:
                 launches' device times (``torch.profiler``), each gradient
                 is also held by norm, and the slow-decay case against a
                 control without the carried state gradient;
-4. consistency  stablelm-1.6b, mamba2-370m and zamba2-1.2b at full width in
-                float32: decode logits at every prompt position equal the
-                full forward's (the ssm/hybrid archs over two 256-row
-                chunks), and reduced stablelm, mamba2 and zamba2 models on
-                the card equal the same models on the CPU; reduced stablelm,
-                mamba2 and zamba2 (fp32, remat full) train 3 steps on the
-                card and on the CPU from one init, with equal losses and
-                grad norms;
-5. serve        the serving paths: stablelm-1.6b, mamba2-370m and zamba2-1.2b
-                at full width in bf16 each serve a batch through
-                ``ServingEngine.generate``, then ``apply_lm`` runs on the same
-                model; the launch counts of each path must be exactly the
-                path's, which proves that it went through its kernels;
+4. consistency  stablelm-1.6b, mamba2-370m, zamba2-1.2b and whisper-large-v3
+                at full width in float32: decode logits at every prompt
+                position equal the full forward's (the ssm/hybrid archs over
+                two 256-row chunks; whisper over 1500 seeded frames, its
+                cross caches filled from the encoder), and reduced stablelm,
+                mamba2 and zamba2 models on the card equal the same models
+                on the CPU; reduced stablelm, mamba2, zamba2, paligemma
+                (MQA, prefix 8), whisper and vit (fp32, each arch's remat)
+                train 3 steps on the card and on the CPU from one init, with
+                equal losses and grad norms;
+5. serve        the serving paths: stablelm-1.6b, mamba2-370m, zamba2-1.2b,
+                paligemma-3b and whisper-large-v3 at full width in bf16 each
+                serve a batch through ``ServingEngine.generate``, then
+                ``apply_lm`` runs on the same model (paligemma with 256
+                patches before the tokens, whisper over 1500 frames); the
+                launch counts of each path must be exactly the path's, which
+                proves that it went through its kernels;
 6. train        the training paths: full-width bf16 stablelm-1.6b, mamba2-370m
                 and zamba2-1.2b, each with its own TrainConfig (AdamW, remat
                 full) at seq 4096, batch 2 (the train_4k global batch of 256
-                cut to what one card holds), through ``launch/train.py``'s
-                loop: one warm-up step, then 4 steps on one fixed batch,
-                each with exactly its launches.
+                cut to what one card holds), whisper-large-v3 the same over
+                1500 frames, and vit-base-16 at batch 64 (196 patches, 16
+                tokens; remat full), through ``launch/train.py``'s loop: one
+                warm-up step, then 4 steps on one fixed batch, each with
+                exactly its launches.
 
 Then a summary line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero before
 the last line. Needs one CUDA device; imports nothing of JAX.
 """
+import dataclasses
 import json
 import math
 import sys
@@ -98,6 +111,8 @@ SSD_GRAD_NORM_TOL = {"float32": (1e-4, 1e-4, 1e-4, 1e-4),
 GRAD_NORM_TOL = 1e-2
 SSM_CONSISTENCY_PROMPT = 512        # two chunks of 256
 SSM_FORWARD_LEN = 1024              # apply_lm after an ssm/hybrid serve run
+# vit-base-16's train batch: 64 images of 196 patches and 16 text tokens
+VIT_BATCH, VIT_TOKENS = 64, 16
 
 
 def emit(obj) -> None:
@@ -268,6 +283,26 @@ def timed_grads(torch, fwd, inputs, grad_out):
             - device_ms(torch, forward, call_ms(torch, forward)))
 
 
+def valid_pairs(Sq: int, Sk: int, causal: bool, prefix: int = 0) -> int:
+    """(row, key) pairs the mask lets through: under ``causal`` row i sees
+    keys j <= i and j < prefix."""
+    if not causal:
+        return Sq * Sk
+    return sum(min(Sk, max(i + 1, prefix)) for i in range(Sq))
+
+
+def sdpa_mask(torch, Sq: int, Sk: int, causal: bool, prefix: int, device):
+    """SDPA's arguments for the same mask: is_causal for the plain causal
+    mask, a boolean (Sq, Sk) attn_mask for a prefix, neither without the
+    causal flag."""
+    if not causal:
+        return {}
+    if not prefix:
+        return {"is_causal": True}
+    j = torch.arange(Sk, device=device)
+    return {"attn_mask": (j[None] <= torch.arange(Sq, device=device)[:, None]) | (j < prefix)}
+
+
 def bound(nbytes: float, ops_s: float):
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_bytes, ops_s), ("bytes" if t_bytes >= ops_s else "operations")
@@ -417,9 +452,10 @@ def main() -> int:
                    shape=[R, D])
 
     def attn_case(case, B, H, KH, Sq, Sk, D, Dv, dtype, causal, model_layout,
-                  lse=False):
+                  lse=False, prefix=0):
         """``lse``: the train path's forward, which also writes the rows'
-        logsumexp; o and lse are each held to the plain version's."""
+        logsumexp; o and lse are each held to the plain version's.
+        ``prefix``: the prefix-LM mask's prefix_len (under ``causal``)."""
         if model_layout:   # (B,S,heads,hd) transposed, as the model hands it over
             q = randn(B, Sq, H, D, dtype=dtype).transpose(1, 2)
             k = randn(B, Sk, KH, D, dtype=dtype).transpose(1, 2)
@@ -428,26 +464,29 @@ def main() -> int:
             q = randn(B, H, Sq, D, dtype=dtype)
             k = randn(B, KH, Sk, D, dtype=dtype)
             v = randn(B, KH, Sk, Dv, dtype=dtype)
-        pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk)
-        lib_kw = {"is_causal": causal}
+        pairs = valid_pairs(Sq, Sk, causal, prefix)
+        lib_kw = sdpa_mask(torch, Sq, Sk, causal, prefix, cuda)
         if KH != H:
             lib_kw["enable_gqa"] = True
         library = (None if KH != H and not sdpa_gqa else
                    lambda: F.scaled_dot_product_attention(q, k, v, **lib_kw))
         if lse:
-            run = lambda: fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+            run = lambda: fa.flash_attention_cuda(q, k, v, causal, return_lse=True,
+                                                  prefix_len=prefix)
             tols = [(TOL[dtype], TOL[dtype]), LSE_TOL]
         else:
-            run, tols = lambda: ops.flash_attention(q, k, v, causal=causal), None
+            run = lambda: ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
+            tols = None
         check_case(
             "flash_attention", case, dtype, run,
-            lambda: ops.flash_attention_plain(q, k, v, causal=causal, return_lse=lse),
+            lambda: ops.flash_attention_plain(q, k, v, causal=causal, return_lse=lse,
+                                              prefix_len=prefix),
             library, route=(lambda: fa.ROUTE, fa.ROUTES[dtypes[dtype]]), tols=tols,
             nbytes=((q.numel() + k.numel() + v.numel() + B * H * Sq * Dv) * q.element_size()
                     + (4 * B * H * Sq if lse else 0)),
-            flops=2 * B * H * pairs * (D + Dv),
+            flops=2 * B * H * pairs * (D + Dv), valid_pairs=pairs,
             shape={"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "D": D,
-                   "Dv": Dv}, causal=causal)
+                   "Dv": Dv}, causal=causal, prefix_len=prefix)
 
     P = SERVE_PROMPT
     attn_case("serve_forward", SERVE_BATCH, 32, 32, P, P, 64, 64, "bfloat16", True, True)
@@ -467,6 +506,17 @@ def main() -> int:
               64, 64, "bfloat16", False, True)
     attn_case("train_forward", TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 64, 64,
               "bfloat16", True, True, lse=True)
+    # the vlm and encdec paths: the prefix-LM mask and the non-causal mode
+    attn_case("paligemma_serve_forward", SERVE_BATCH, 8, 1, 256 + SERVE_PROMPT,
+              256 + SERVE_PROMPT, 256, 256, "bfloat16", True, True, prefix=256)
+    attn_case("vit_train_forward", VIT_BATCH, 12, 12, 196 + VIT_TOKENS, 196 + VIT_TOKENS,
+              64, 64, "bfloat16", True, True, lse=True, prefix=196)
+    attn_case("whisper_encoder_forward", TRAIN_BATCH, 20, 20, 1500, 1500, 64, 64,
+              "bfloat16", False, True, lse=True)
+    attn_case("whisper_cross_forward", TRAIN_BATCH, 20, 20, TRAIN_SEQ, 1500, 64, 64,
+              "bfloat16", False, True, lse=True)
+    attn_case("ragged_prefix_small", 1, 4, 2, 100, 100, 48, 48, "float32", True, True,
+              lse=True, prefix=37)
 
     # the Pallas kernel's own contract: (BH, S, D)
     q3, k3, v3 = (randn(8, 256, 64, dtype="float32") for _ in range(3))
@@ -569,7 +619,7 @@ def main() -> int:
                                             "threads": rn.PLAN_BWD.threads,
                                             "vectors": rn.PLAN_BWD.vectors}})
 
-    def attn_bwd_case(case, B, H, KH, S, D, dtype, causal, route):
+    def attn_bwd_case(case, B, H, KH, Sq, Sk, D, dtype, causal, route, prefix=0):
         """The model's layout: q, k, v transposed views of (B,S,heads,hd), do
         a transposed view of the (B,S,H*hd) gradient. The kernel takes o and
         lse from the kernel's forward, as in training; the plain backward
@@ -578,16 +628,19 @@ def main() -> int:
         plain gradients from q, k, v, do rounded to fp8. Bound: the five
         products (2 Sq Sk D each, over the causal pairs) at the peak rate of
         the inputs' type, or the bytes of q, k, v, o, do, lse read and dq,
-        dk, dv written. ``route``: the (route, tile) that must run."""
-        q = randn(B, S, H, D, dtype=dtype).transpose(1, 2)
-        k = randn(B, S, KH, D, dtype=dtype).transpose(1, 2)
-        v = randn(B, S, KH, D, dtype=dtype).transpose(1, 2)
-        do = randn(B, S, H * D, dtype=dtype).view(B, S, H, D).transpose(1, 2)
-        o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+        dk, dv written. ``route``: the (route, tile) that must run.
+        ``prefix``: the prefix-LM mask's prefix_len (under ``causal``)."""
+        q = randn(B, Sq, H, D, dtype=dtype).transpose(1, 2)
+        k = randn(B, Sk, KH, D, dtype=dtype).transpose(1, 2)
+        v = randn(B, Sk, KH, D, dtype=dtype).transpose(1, 2)
+        do = randn(B, Sq, H * D, dtype=dtype).view(B, Sq, H, D).transpose(1, 2)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True, prefix_len=prefix)
 
         def plain_grads(q, k, v, do):
-            o_p, lse_p = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
-            return ref.reference_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal)
+            o_p, lse_p = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True,
+                                                   prefix_len=prefix)
+            return ref.reference_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal,
+                                               prefix_len=prefix)
 
         def rel(got, want):
             return ((got.float() - want.float()).norm() / want.float().norm()).item()
@@ -601,9 +654,10 @@ def main() -> int:
                     "rel_norm_tol": GRAD_NORM_TOL,
                     "ok": (max(kernel) <= GRAD_NORM_TOL < min(control))}
 
-        o_p, lse_p = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
-        pairs = (S * (S + 1) // 2) if causal else S * S
-        lib_kw = {"is_causal": causal}
+        o_p, lse_p = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True,
+                                               prefix_len=prefix)
+        pairs = valid_pairs(Sq, Sk, causal, prefix)
+        lib_kw = sdpa_mask(torch, Sq, Sk, causal, prefix, cuda)
         if KH != H:
             lib_kw["enable_gqa"] = True
         library_timer = (None if KH != H and not sdpa_gqa else lambda: timed_grads(
@@ -611,24 +665,59 @@ def main() -> int:
             (q, k, v), do))
         check_case(
             "flash_attention_bwd", case, dtype,
-            lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal),
-            lambda: ref.reference_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal),
+            lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, prefix),
+            lambda: ref.reference_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal,
+                                                prefix_len=prefix),
             None, library_timer=library_timer, judge=judge,
             route=(lambda: json.loads(json.dumps(fa.BWD_ROUTE)), route),   # tuples as lists
             nbytes=(2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel()
                     + do.numel()) * q.element_size() + 4 * lse.numel(),
-            flops=5 * 2 * B * H * pairs * D,
-            shape={"B": B, "H": H, "KH": KH, "Sq": S, "Sk": S, "D": D, "Dv": D},
-            causal=causal)
+            flops=5 * 2 * B * H * pairs * D, valid_pairs=pairs,
+            shape={"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "D": D, "Dv": D},
+            causal=causal, prefix_len=prefix)
 
     # route: tensor cores (wgmma) with the (width, q step) tile, or CUDA cores
-    attn_bwd_case("train_bwd", TRAIN_BATCH, 32, 32, TRAIN_SEQ, 64, "bfloat16", True,
-                  ["tensor_cores", [64, 64]])
-    attn_bwd_case("gqa_32q_8kv_hd128_bwd", 2, 32, 8, 1024, 128, "bfloat16", True,
+    wg64, cores = ["tensor_cores", [64, 64]], ["cuda_cores", None]
+    attn_bwd_case("train_bwd", TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 64, "bfloat16",
+                  True, wg64)
+    attn_bwd_case("gqa_32q_8kv_hd128_bwd", 2, 32, 8, 1024, 1024, 128, "bfloat16", True,
                   ["tensor_cores", [128, 32]])
-    attn_bwd_case("fp32_bwd", 1, 32, 32, 1024, 64, "float32", True, ["cuda_cores", None])
-    attn_bwd_case("non_causal_ragged_bwd", 2, 8, 8, 1000, 64, "bfloat16", False,
-                  ["tensor_cores", [64, 64]])
+    attn_bwd_case("fp32_bwd", 1, 32, 32, 1024, 1024, 64, "float32", True, cores)
+    attn_bwd_case("non_causal_ragged_bwd", 2, 8, 8, 1000, 1000, 64, "bfloat16", False, wg64)
+    # the vlm and encdec train paths (paligemma's head dim 256 trains at reduced
+    # width only: the backward takes D up to 128)
+    attn_bwd_case("vit_train_bwd", VIT_BATCH, 12, 12, 196 + VIT_TOKENS, 196 + VIT_TOKENS,
+                  64, "bfloat16", True, wg64, prefix=196)
+    attn_bwd_case("whisper_encoder_bwd", TRAIN_BATCH, 20, 20, 1500, 1500, 64, "bfloat16",
+                  False, wg64)
+    attn_bwd_case("whisper_cross_bwd", TRAIN_BATCH, 20, 20, TRAIN_SEQ, 1500, 64, "bfloat16",
+                  False, wg64)
+    attn_bwd_case("ragged_prefix_small_bwd", 1, 4, 2, 100, 100, 48, "float32", True, cores,
+                  prefix=37)
+
+    # prefix 0 and a prefix past Sk: the causal and non-causal launches' bits
+    def same_bits(case, B, H, KH, S, D, dtype):
+        q = randn(B, S, H, D, dtype=dtype).transpose(1, 2)
+        k, v = (randn(B, S, KH, D, dtype=dtype).transpose(1, 2) for _ in range(2))
+        do = randn(B, H, S, D, dtype=dtype)
+        equal = {}
+        for prefix, causal in ((0, True), (S, False), (S + 1000, False)):
+            o, lse = fa.flash_attention_cuda(q, k, v, True, return_lse=True, prefix_len=prefix)
+            o2, lse2 = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+            g = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, prefix)
+            g2 = fa.flash_attention_bwd_cuda(q, k, v, o2, lse2, do, causal)
+            equal[f"prefix_{prefix}_vs_{'causal' if causal else 'non_causal'}"] = (
+                bool(torch.equal(o, o2)) and bool(torch.equal(lse, lse2))
+                and all(bool(torch.equal(a, b)) for a, b in zip(g, g2)))
+        rec = {"phase": "kernels", "kernel": "flash_attention", "case": case,
+               "shape": {"B": B, "H": H, "KH": KH, "S": S, "D": D}, "dtype": dtype,
+               "equal_bits_fwd_lse_bwd": equal, "ok": all(equal.values())}
+        emit(rec)
+        if not rec["ok"]:
+            fail(f"flash_attention/{case}: a prefix launch differs from the plain mask's")
+
+    same_bits("prefix_bits_vit", 8, 12, 12, 196 + VIT_TOKENS, 64, "bfloat16")
+    same_bits("prefix_bits_ragged_small", 1, 4, 2, 100, 48, "float32")
 
     def ssd_bwd_case(case, B, S, H, G, Pd, N, chunk, bc_dtype, decay=1.0,
                      dstate=False, control=False, instance=None):
@@ -759,20 +848,28 @@ def main() -> int:
     def decode_vs_forward(aid, prompt, expect):
         """Full width and depth in float32, batch 1: decode logits at every
         position against the forward's; the forward's launches must be
-        exactly ``expect``."""
+        exactly ``expect``. encdec: the forward over ``enc_seq`` seeded
+        frames, the decode over cross caches filled from the encoder's
+        output of the same frames."""
         t_phase = time.perf_counter()
         base = get_arch(aid).model
         cfg32 = base.replace(param_dtype="float32", compute_dtype="float32")
         params = T.init_lm(cfg32, 0, device=cuda)
         toks = torch.randint(0, cfg32.vocab_size, (1, prompt),
                              generator=torch.Generator().manual_seed(3)).to(cuda)
+        extra = {}
+        if cfg32.family == "encdec":
+            extra["frames"] = torch.randn((1, cfg32.enc_seq, cfg32.d_model), device=cuda,
+                                          generator=torch.Generator(device=cuda).manual_seed(5))
         ops.reset_launches()
         t0 = time.perf_counter()
-        full, _ = T.apply_lm(params, cfg32, toks)
+        full, _ = T.apply_lm(params, cfg32, toks, **extra)
         torch.cuda.synchronize()
         fwd_s = time.perf_counter() - t0
         fwd_launches = dict(ops.LAUNCHES)
         caches = T.init_caches(cfg32, 1, prompt, torch.float32, device=cuda)
+        if extra:
+            T.fill_cross_caches(params, cfg32, caches, extra["frames"])
         outs = []
         for i in range(prompt):
             lg, caches = T.apply_lm_decode(params, cfg32, toks[:, i:i + 1], caches, i)
@@ -785,6 +882,8 @@ def main() -> int:
               and bool(torch.allclose(full, dec, atol=CONSISTENCY_TOL, rtol=CONSISTENCY_TOL)))
         rec = {"phase": "consistency", "arch": base.name, "layers": cfg32.num_layers,
                "d_model": cfg32.d_model, "dtype": "float32", "prompt": prompt,
+               **({"frames": cfg32.enc_seq, "enc_layers": cfg32.num_enc_layers}
+                  if extra else {}),
                "decode_vs_forward_max_abs_err": err, "tol": CONSISTENCY_TOL,
                "logits_abs_max": full.abs().max().item(), "forward_s": fwd_s,
                "forward_launches": fwd_launches, "expected_launches": expect}
@@ -825,6 +924,15 @@ def main() -> int:
         if not ok:
             fail("zamba2-1.2b consistency phase failed")
 
+        wcfg = get_arch("whisper-large-v3").model
+        n, ne = wcfg.num_layers, wcfg.num_enc_layers
+        rec, ok, t_phase = decode_vs_forward(
+            "whisper-large-v3", CONSISTENCY_PROMPT,
+            {"flash_attention": ne + 2 * n, "rmsnorm": 2 * ne + 1 + 3 * n + 1})
+        emit({**rec, "ok": ok, "seconds": time.perf_counter() - t_phase})
+        if not ok:
+            fail("whisper-large-v3 consistency phase failed")
+
     def train_card_vs_cpu(aid, label, **kw):
         """A reduced model (fp32, the arch's TrainConfig) trains 3 steps on
         the card (kernels) and on the CPU (plain versions) from one init;
@@ -839,7 +947,8 @@ def main() -> int:
         step_fn = TR.make_train_step(small, spec.train)
         expect = TR.kernel_launches_per_step(small, spec.train.remat)
         rows, ok = [], True
-        for batch in synthetic_batches(2, 64, small.vocab_size, seed=1, n=3):
+        for batch in launch_train.with_modality_inputs(
+                small, synthetic_batches(2, 64, small.vocab_size, seed=1, n=3), seed=1):
             ops.reset_launches()
             card_state, m_card = step_fn(card_state, TR.to_device(batch, cuda))
             launches = dict(ops.LAUNCHES)
@@ -864,20 +973,35 @@ def main() -> int:
                       "8 SSD heads of P 16, N 16, chunk 16)", num_layers=3)
     train_card_vs_cpu("zamba2-1.2b", "zamba2-1.2b (reduced: 5 mamba2 layers, 2 shared "
                       "blocks and a leftover layer, d_model 64)", num_layers=5)
+    train_card_vs_cpu("paligemma-3b", "paligemma-3b (reduced: 2 layers, d_model 64, "
+                      "4 heads on 1 KV head, 8 patches as the prefix)")
+    train_card_vs_cpu("whisper-large-v3", "whisper-large-v3 (reduced: 2 encoder and 2 "
+                      "decoder layers, d_model 64, 16 frames)")
+    train_card_vs_cpu("vit-base-16", "vit-base-16 (reduced: 2 layers, d_model 64, "
+                      "8 patches as the prefix)")
 
     # 5. serve: the main paths ------------------------------------------------
-    def serve(aid, forward_len, per_pass):
+    def serve(aid, forward_len, per_pass, decode_rmsnorm=None):
         """bf16 at full width: ``generate`` then ``apply_lm`` on (batch,
-        forward_len) tokens that start with the prompts. Launch counts are
-        reset just before and read just after; they must equal ``per_pass``
-        times the passes (rmsnorm: every decode step and the forward) for
-        rmsnorm and once per forward for the rest."""
+        forward_len) tokens that start with the prompts (vlm: after seeded
+        patches; encdec: over seeded frames; the engine, as the JAX one,
+        decodes from the tokens alone). Launch counts are reset just before
+        and read just after; they must equal ``per_pass`` once for the
+        forward and, for rmsnorm, ``decode_rmsnorm`` (by default the
+        forward's) for every decode step."""
         t_phase = time.perf_counter()
         cfg = get_arch(aid).model   # bf16 params and compute, full width
         params = T.init_lm(cfg, 0, device=cuda)
         n_params = sum(p.numel() for p in params.parameters())
         toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, forward_len),
                              generator=torch.Generator().manual_seed(4))
+        extra = {}
+        if cfg.family in TR.MODALITY_INPUT:
+            n = cfg.num_patches if cfg.family == "vlm" else cfg.enc_seq
+            extra[TR.MODALITY_INPUT[cfg.family]] = torch.randn(
+                (SERVE_BATCH, n, cfg.d_model), device=cuda, dtype=torch.bfloat16,
+                generator=torch.Generator(device=cuda).manual_seed(6))
+        prefix = cfg.num_patches if cfg.family == "vlm" else 0
         prompts = toks[:, :SERVE_PROMPT]
         engine = ServingEngine(cfg, params, max_len=SERVE_PROMPT + SERVE_GEN,
                                device=cuda)
@@ -889,21 +1013,23 @@ def main() -> int:
         res = engine.generate(prompts, gen_len=SERVE_GEN)
         with torch.inference_mode():
             t0 = time.perf_counter()
-            logits, _ = T.apply_lm(params, cfg, toks.to(cuda))
+            logits, _ = T.apply_lm(params, cfg, toks.to(cuda), **extra)
             torch.cuda.synchronize()
             fwd_s = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
 
         steps = SERVE_PROMPT + SERVE_GEN - 1
-        expect = every_kernel({k: n * (steps + 1 if k == "rmsnorm" else 1)
-                               for k, n in per_pass.items()})
+        decode_rms = per_pass["rmsnorm"] if decode_rmsnorm is None else decode_rmsnorm
+        expect = every_kernel({**per_pass, "rmsnorm": per_pass["rmsnorm"] + steps * decode_rms})
         tokens = torch.tensor(res.tokens)
-        first_match = (tokens[:, 0] == logits[:, SERVE_PROMPT - 1].argmax(-1).cpu()
-                       ).float().mean().item()
+        # the same function of the same tokens only where the forward sees
+        # no more than the engine
+        first_match = (None if extra else (tokens[:, 0] == logits[
+            :, SERVE_PROMPT - 1].argmax(-1).cpu()).float().mean().item())
         ok = (launches == expect and tokens.shape == (SERVE_BATCH, SERVE_GEN)
               and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.padded_vocab
               and bool(torch.isfinite(logits).all())
-              and logits.shape == (SERVE_BATCH, forward_len, cfg.padded_vocab))
+              and logits.shape == (SERVE_BATCH, prefix + forward_len, cfg.padded_vocab))
         emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
               "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
               "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
@@ -911,6 +1037,7 @@ def main() -> int:
               "tokens_per_s": res.tokens_per_s,
               "decode_step_ms": 1e3 * res.decode_s / (SERVE_GEN - 1),
               "apply_lm_tokens": [SERVE_BATCH, forward_len], "apply_lm_s": fwd_s,
+              **{f"apply_lm_{k}": list(v.shape) for k, v in extra.items()},
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "launches": launches, "expected_launches": expect,
               "first_token_matches_forward_argmax": first_match, "ok": ok,
@@ -920,7 +1047,7 @@ def main() -> int:
         for name, n in per_pass.items():
             if n and launches[name] == 0:
                 fail(f"kernel {name} was never launched on the {aid} path")
-        del engine, params, logits
+        del engine, params, logits, extra
         torch.cuda.empty_cache()
         return launches
 
@@ -938,17 +1065,28 @@ def main() -> int:
     main_paths["zamba2-1.2b"] = serve(
         "zamba2-1.2b", SSM_FORWARD_LEN,
         {"flash_attention": groups, "rmsnorm": 2 * n + 2 * groups + 1, "ssd_scan": n})
+    n = get_arch("paligemma-3b").model.num_layers
+    main_paths["paligemma-3b"] = serve(
+        "paligemma-3b", SERVE_PROMPT, {"flash_attention": n, "rmsnorm": 2 * n + 1})
+    n, ne = wcfg.num_layers, wcfg.num_enc_layers
+    main_paths["whisper-large-v3"] = serve(
+        "whisper-large-v3", SERVE_PROMPT,
+        {"flash_attention": ne + 2 * n, "rmsnorm": 2 * ne + 1 + 3 * n + 1},
+        decode_rmsnorm=3 * n + 1)
 
     # 6. train: the training paths -------------------------------------------
-    def train(aid):
-        """The arch's own config and TrainConfig at full width through
-        ``launch/train.py``'s loop: a warm-up step, then TRAIN_STEPS steps on
+    def train(aid, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ, cut=TRAIN_CUT, **tcfg_kw):
+        """The arch's own config and TrainConfig (``tcfg_kw`` replaced in it)
+        at full width through ``launch/train.py``'s loop, the batch with its
+        seeded frames or patches: a warm-up step, then TRAIN_STEPS steps on
         one fixed batch, each with exactly ``kernel_launches_per_step``."""
         t_phase = time.perf_counter()
         cfg, tcfg = launch_train.configs(aid, full=True)
+        tcfg = dataclasses.replace(tcfg, **tcfg_kw)
         state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
         n_params = sum(p.numel() for p in state["params"].parameters())
-        batch = next(synthetic_batches(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, seed=0, n=1))
+        batch = next(launch_train.with_modality_inputs(
+            cfg, synthetic_batches(batch_size, seq, cfg.vocab_size, seed=0, n=1)))
         steps = []            # (host time after the step, its metrics, its launches)
 
         def on_step(step, m):
@@ -962,7 +1100,8 @@ def main() -> int:
         ops.reset_launches()
         launch_train.train_loop(state, TR.make_train_step(cfg, tcfg),
                                 iter([batch] * (1 + TRAIN_STEPS)), steps=1 + TRAIN_STEPS,
-                                device=cuda, log_every=0, on_step=on_step)
+                                device=cuda, log_every=0, on_step=on_step,
+                                compute_dtype=cfg.compute_dtype)
         peak = torch.cuda.max_memory_allocated()
         timed_steps = steps[1:]                  # after the warm-up step
         step_s = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
@@ -977,11 +1116,15 @@ def main() -> int:
         emit({"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
               "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
               "optimizer": tcfg.optimizer, "learning_rate": tcfg.learning_rate,
-              "remat": tcfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-              "reduced": TRAIN_CUT, "warmup_step": {"loss": steps[0][1],
+              "remat": tcfg.remat, "batch": batch_size, "seq": seq,
+              **{k: list(v.shape) for k, v in batch.items() if k in ("frames", "patches")},
+              "reduced": cut, "warmup_step": {"loss": steps[0][1],
                                                     "grad_norm": steps[0][2],
                                                     "launches": steps[0][3]},
-              "step_s": step_s, "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / t for t in step_s],
+              # positions the model runs a step: the patches too, for vlm
+              "step_s": step_s, "tokens_per_s": [
+                  batch_size * (seq + (cfg.num_patches if cfg.family == "vlm" else 0)) / t
+                  for t in step_s],
               "max_memory_allocated_bytes": peak, "losses": losses, "grad_norms": gnorms,
               "launches_per_step": per_step, "expected_launches_per_step": expect,
               "ok": ok, "seconds": time.perf_counter() - t_phase})
@@ -995,8 +1138,12 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
-    for aid in ("stablelm-1.6b", "mamba2-370m", "zamba2-1.2b"):
+    for aid in ("stablelm-1.6b", "mamba2-370m", "zamba2-1.2b", "whisper-large-v3"):
         train(aid)
+    # its own TrainConfig has remat none; the train phase holds every path to
+    # remat full, where each body's kernels run again in the recompute
+    train("vit-base-16", VIT_BATCH, VIT_TOKENS, "the paper's RQ2 ViT-B/16 batch: "
+          "64 images of 196 patches, 16 text tokens", remat="full")
 
     # summary -----------------------------------------------------------------
     main_case = {"rmsnorm": "serve_decode", "flash_attention": "serve_forward",

@@ -14,12 +14,12 @@ with ``-D`` flags, built by nvcc with the port's flags into
 ``build/variants/``. ``--legacy`` names the variants whose source has the
 earlier entry points: ``rmsnorm_fwd`` without the path, grid and vector
 arguments, ``ssd_scan_fwd`` without the two scratch tensors,
-``flash_attention_fwd_bf16`` without the lse pointer, ``rmsnorm_bwd``
+``flash_attention_fwd_bf16`` and ``flash_attention_bwd_bf16`` / ``_f32``
+without the ``prefix_len`` argument (the source at ``427853c``, and
+earlier back to the forward's lse pointer), ``rmsnorm_bwd``
 without the path and vector arguments (its grid then one block per SM
 pair of rows, as it was), ``ssd_scan_bwd`` without the heads per block
-and the ring (the fp32-FMA design's, with per-head dB and dC scratch); the flash
-backward's entry points did not change
-(its scratch grew to 2 x B x H x Sq, which the earlier source also takes).
+and the ring (the fp32-FMA design's, with per-head dB and dC scratch).
 An earlier source comes from git, e.g. ``git show
 <rev>:src/repro_torch/csrc/ssd_scan.cu > build/old/ssd_scan.cu``, made
 before the run where the card has no git.
@@ -31,7 +31,7 @@ that drift on the card falls on both sides) at the main-path shapes:
   zamba2 shared block (4,32,1024,128), hd 256 and the stablelm train
   forward (2,32,4096,64), causal, bf16, in the model's transposed layout,
   without the lse output as serving runs them; and the train forward with
-  the lse output (``train_forward_lse``, not for a ``--legacy`` source);
+  the lse output (``train_forward_lse``);
 - rmsnorm: the decode and forward rows of ``chip_smoke.py``'s bf16 cases,
   with ``F.rms_norm``'s time on the same inputs in each turn;
 - ssd_scan: ``chip_smoke.py``'s cases (x fp32; B and C bf16, or fp32 for
@@ -100,8 +100,10 @@ SSD_BWD_SHAPES = {
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 LEGACY_SIGNATURES = {"rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
                      "ssd_scan_fwd": [_P] * 6 + [_I] * 7 + [_L] * 12 + [_I, _P],
-                     "flash_attention_fwd_bf16": [_P] * 4 + [_I] * 7 + [_L] * 9
+                     "flash_attention_fwd_bf16": [_P] * 5 + [_I] * 7 + [_L] * 9
                      + [_F, _I, _I, _I, _P],
+                     "flash_attention_bwd_f32": [_P] * 10 + [_I] * 7 + [_L] * 24 + [_F, _I, _P],
+                     "flash_attention_bwd_bf16": [_P] * 10 + [_I] * 7 + [_L] * 24 + [_F, _I, _P],
                      "rmsnorm_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P],
                      "ssd_scan_bwd": [_P] * 16 + [_I] * 7 + [_L] * 9 + [_I, _P]}
 
@@ -122,13 +124,12 @@ def flash_cases(torch, gen, cuda, cs):
         lse = torch.empty((B, H, S), device=cuda) if with_lse else None
 
         def make(bind, legacy, q=q, k=k, v=v, o=o, lse=lse, B=B, H=H, S=S, D=D):
-            if legacy and lse is not None:
-                return None                      # the earlier source writes no lse
             fn = bind("flash_attention_fwd_bf16")
-            out = () if legacy else (None if lse is None else lse.data_ptr(),)
+            prefix = () if legacy else (0,)
             return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                              *out, B, H, H, S, S, D, D, *fa._strides(q), *fa._strides(k),
-                              *fa._strides(v), D ** -0.5, 1, *fa.bf16_tile(D, D),
+                              None if lse is None else lse.data_ptr(), B, H, H, S, S, D, D,
+                              *fa._strides(q), *fa._strides(k), *fa._strides(v), D ** -0.5,
+                              1, *prefix, *fa.bf16_tile(D, D),
                               torch.cuda.current_stream().cuda_stream)
 
         cases[case] = (make, lambda o=o: o,
@@ -185,7 +186,8 @@ def flash_bwd_cases(torch, gen, cuda, cs):
                       else "flash_attention_bwd_f32")
             ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, delta, *grads)]
             strides = [st for t in (q, k, v, o, do, *grads) for st in fa._strides(t)]
-            return lambda: fn(*ptrs, *dims, *strides, dims[-1] ** -0.5, int(causal),
+            prefix = () if legacy else (0,)
+            return lambda: fn(*ptrs, *dims, *strides, dims[-1] ** -0.5, int(causal), *prefix,
                               torch.cuda.current_stream().cuda_stream)
 
         kw = {"is_causal": causal, **({"enable_gqa": True} if KH != H else {})}
@@ -381,9 +383,6 @@ def main(argv=None) -> int:
             extra["most_heads"] = row["most_heads"] = heads_cap.get(name)
         for case, (make, result, plain, library) in cases.items():
             run = make(bind, name in legacy, **extra)
-            if run is None:
-                row[case] = "n/a: not in this source's entry point"
-                continue
             code = run()
             torch.cuda.synchronize()
             if code:

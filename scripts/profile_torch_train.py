@@ -2,11 +2,13 @@
 """Where a training step of the PyTorch port spends its time on the card.
 
     PYTHONPATH=src python scripts/profile_torch_train.py
-        [--arch stablelm-1.6b|mamba2-370m|zamba2-1.2b]
+        [--arch stablelm-1.6b|mamba2-370m|zamba2-1.2b|whisper-large-v3|...]
         [--batch 2] [--seq 4096] [--steps 1] [--timed 0]
 
-The arch's own config and TrainConfig (bf16, AdamW, its remat) at full width
-on seeded random weights and one fixed batch of ``synthetic_batches``; the
+The arch's own config and TrainConfig (bf16, AdamW, its remat) at full
+width on seeded random weights and one fixed
+batch of ``synthetic_batches`` (with seeded frames or patches for the
+encdec and vlm families, as ``launch/train.py`` feeds them); the
 default shape is train_4k's sequence with its global batch of 256 cut to 2,
 what one card holds. One warm-up step, then ``--steps`` steps under
 ``torch.profiler``, then ``--timed`` steps without it, each ended by
@@ -80,8 +82,9 @@ def main(argv=None) -> int:
     cuda = dev.resolve("cuda")
     cfg, tcfg = launch_train.configs(args.arch, full=True)
     state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
-    batch = TR.to_device(next(synthetic_batches(args.batch, args.seq, cfg.vocab_size,
-                                                n=1)), cuda)
+    batch = TR.to_device(next(launch_train.with_modality_inputs(
+        cfg, synthetic_batches(args.batch, args.seq, cfg.vocab_size, n=1))), cuda,
+        getattr(torch, cfg.compute_dtype))
     step = TR.make_train_step(cfg, tcfg)
     state, m = step(state, batch)                  # warm-up
     torch.cuda.synchronize()

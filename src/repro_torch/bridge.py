@@ -6,9 +6,10 @@ np.asarray, params)``) and returns the port's parameter module;
 by ``/``-joined paths, the convention of the JAX package's checkpoints
 (``training/checkpoint.py::_path_str``). The JAX tree stacks the layers on
 leading axes; the port keeps one module per layer, so stacked leaves are
-unstacked and restacked: ``layers/*`` (dense, ssm) and ``leftover/*``
-(hybrid) on one axis, hybrid's ``groups/*`` on two (group, layer in group).
-``shared/*`` and the other leaves pass as they are. bfloat16 leaves pass
+unstacked and restacked: ``layers/*`` (dense, vlm, ssm), ``leftover/*``
+(hybrid), ``enc_layers/*`` and ``dec_layers/*`` (encdec) on one axis,
+hybrid's ``groups/*`` on two (group, layer in group). ``shared/*``,
+``enc_norm/*`` and the other leaves pass as they are. bfloat16 leaves pass
 through float32, which is exact, because ``torch.from_numpy`` rejects
 numpy's bfloat16 extension type.
 
@@ -69,8 +70,10 @@ def _module(tree) -> nn.Module:
 
 def _stacks(cfg) -> Dict[str, Tuple[int, ...]]:
     """The stacked subtrees of the JAX tree and their leading axes."""
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in ("dense", "vlm", "ssm"):
         return {"layers": (cfg.num_layers,)}
+    if cfg.family == "encdec":
+        return {"enc_layers": (cfg.num_enc_layers,), "dec_layers": (cfg.num_layers,)}
     if cfg.family == "hybrid":
         n_groups, leftover = hybrid_split(cfg)
         out = {"groups": (n_groups, cfg.shared_attn_interval)}

@@ -1,7 +1,10 @@
 """Architecture registry of the port: ``get_arch(id)`` / ``reduced(cfg)``.
 
-Only the families the port runs are registered. The dataclasses and the
-specs are copies of the JAX package's, so the port never imports it.
+Only the families the port runs are registered: ``ARCHS`` holds the
+registry's archs, ``BONUS_ARCHS`` the paper's own RQ2 workload models
+(``paper_workload.py``: nanogpt-124m, vit-base-16), kept apart as in the
+JAX package; ``get_arch`` finds either. The dataclasses and the specs are
+copies of the JAX package's, so the port never imports it.
 """
 from __future__ import annotations
 
@@ -9,25 +12,32 @@ from typing import Dict, List
 
 from repro_torch.configs.base import (ArchSpec, LM_SHAPES, ModelConfig,
                                       ShapeConfig, TrainConfig)
-from repro_torch.configs import (mamba2_370m, mistral_nemo_12b,
-                                 stablelm_1_6b, zamba2_1_2b)
+from repro_torch.configs import (granite_3_8b, mamba2_370m, mistral_nemo_12b,
+                                 paligemma_3b, stablelm_1_6b, starcoder2_7b,
+                                 whisper_large_v3, zamba2_1_2b)
+from repro_torch.configs.paper_workload import BONUS_ARCHS
 
 ARCHS: Dict[str, ArchSpec] = {
     "mamba2-370m": mamba2_370m.SPEC,
+    "paligemma-3b": paligemma_3b.SPEC,
+    "starcoder2-7b": starcoder2_7b.SPEC,
     "stablelm-1.6b": stablelm_1_6b.SPEC,
     "mistral-nemo-12b": mistral_nemo_12b.SPEC,
+    "granite-3-8b": granite_3_8b.SPEC,
     "zamba2-1.2b": zamba2_1_2b.SPEC,
+    "whisper-large-v3": whisper_large_v3.SPEC,
 }
 
-ARCH_IDS: List[str] = list(ARCHS)
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+ARCH_IDS: List[str] = list(ARCHS) + list(BONUS_ARCHS)
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "vlm", "encdec")
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id not in ARCHS:
+    spec = ARCHS.get(arch_id) or BONUS_ARCHS.get(arch_id)
+    if spec is None:
         raise KeyError(f"arch {arch_id!r} is not ported; the port runs family "
                        f"{'/'.join(PORTED_FAMILIES)}: {ARCH_IDS}")
-    return ARCHS[arch_id]
+    return spec
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
@@ -49,9 +59,13 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)  # d_inner=128 -> 8 heads
     if cfg.shared_attn_interval:
         kw.update(shared_attn_interval=2, num_layers=4)
+    if cfg.num_enc_layers:
+        kw.update(num_enc_layers=2, enc_seq=16)
+    if cfg.num_patches:
+        kw.update(num_patches=8)
     return cfg.replace(**kw)
 
 
-__all__ = ["ARCHS", "ARCH_IDS", "ArchSpec", "LM_SHAPES", "ModelConfig",
+__all__ = ["ARCHS", "ARCH_IDS", "ArchSpec", "BONUS_ARCHS", "LM_SHAPES", "ModelConfig",
            "PORTED_FAMILIES", "ShapeConfig", "TrainConfig", "get_arch",
            "reduced"]

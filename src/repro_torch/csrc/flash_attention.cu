@@ -3,7 +3,13 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py:81 flash_attention (body
 // _flash_kernel, pallas_call at flash_attention.py:102). Computes
-//     o = softmax(q k^T * D^-0.5 [+ causal mask qpos >= kpos]) v
+//     o = softmax(q k^T * D^-0.5 [+ mask]) v
+// with the mask of repro/models/attention.py:44-53 (_block_attn): under the
+// causal flag key j is valid for row i iff j <= i or j < prefix_len (the
+// prefix-LM mask of the vlm family: the image patches see each other both
+// ways, the text after them is causal); prefix_len 0 is the plain causal
+// mask, and without the flag every key is valid (an encoder, or cross-
+// attention with Sq != Sk).
 // with an online softmax: the running max m, the denominator l and the
 // output accumulator are fp32 and never leave the chip, so the (Sq x Sk)
 // score matrix is never written to device memory.
@@ -38,13 +44,16 @@
 // is K-major as stored). The online softmax runs on the fp32 accumulator
 // fragment in registers (quad shuffles, log2 units); the mask applies only
 // on the diagonal tile and the ragged last tile; tiles wholly above the
-// diagonal are never loaded, or skipped by the warpgroup they mask. P is
+// diagonal and past the prefix are never loaded, or skipped by the
+// warpgroup they mask. P is
 // rounded to bf16 in registers and is the A operand of O += P V (the
 // accumulator layout is the register-A layout); V is an MN-major B read
 // with the transpose bit. D and Dv are padded to the instantiated tile
 // widths (64/64, 128/128, 192/128, 256/256). The output is divided by l,
 // rounded to bf16, staged in shared memory and written 16 bytes per thread.
-// Causal q tiles run heaviest first.
+// Causal q tiles run heaviest first: a tile of q rows from q0 sees
+// max(q0 + rows, prefix_len) keys, which never shrinks as q0 grows, so the
+// order stays right under a prefix.
 //
 // LSE: where the caller passes an `lse` pointer (training), both routes also
 // write each row's logsumexp of the scaled, masked scores, fp32 (B, H, Sq),
@@ -61,7 +70,7 @@
 // tile (rows ty*4.., cols tx + 16*j) and a 4 x ceil(Dv/16) patch of the
 // accumulator in registers. Row max and row sum reduce over the 16 threads
 // of a row with warp shuffles. Under the causal mask, K tiles strictly
-// above the diagonal are skipped.
+// above the diagonal and past the prefix are skipped.
 //
 // Backward (flash_attention_bwd_f32 / _bf16). The JAX package has no
 // backward kernel: it differentiates the jnp blockwise attention. This is
@@ -81,7 +90,8 @@
 //     0) for the bf16 kernels;
 //  2. dkdv: a block per (key tile, KV head, batch), K and V staged once; it
 //     loops over the H/KH query heads of its KV head and over their q tiles
-//     (under the causal mask from its own first key on), so GQA sums in
+//     (under the causal mask from its own first key on, or from row 0 for a
+//     block that starts inside the prefix), so GQA sums in
 //     registers. Per q tile it recomputes S^T and dP^T, then dV += P^T dO
 //     and dK += dS^T Q;
 //  3. dq: a block per (q tile, head, batch) over the key tiles it sees (S
@@ -145,6 +155,7 @@ struct Params {
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   float scale_log2;   // D^-0.5 * log2(e): scores are kept in log2 units
   int causal;
+  int prefix_len;     // causal only: keys below it are valid for every row
 };
 
 bool bad_args(int B, int H, int KH, int Sq, int Sk, int D, int Dv) {
@@ -165,7 +176,7 @@ Params make_params(const void* q, const void* k, const void* v, void* o, void* l
                    long long q_sb, long long q_sh, long long q_ss,
                    long long k_sb, long long k_sh, long long k_ss,
                    long long v_sb, long long v_sh, long long v_ss,
-                   float scale, int causal) {
+                   float scale, int causal, int prefix_len) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.lse = static_cast<float*>(lse);
@@ -175,7 +186,27 @@ Params make_params(const void* q, const void* k, const void* v, void* o, void* l
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
+  p.prefix_len = prefix_len;
   return p;
+}
+
+// Keys [0, end) hold every valid key of rows [row0, row0 + rows): all of
+// them, or under the causal mask up to the last row or the prefix.
+__device__ __forceinline__ int keys_seen(int causal, int prefix_len, int Sk, int row0,
+                                         int rows) {
+  return causal ? min(Sk, max(row0 + rows, prefix_len)) : Sk;
+}
+
+// Whether key `col` is masked for row `row` (keys past Sk aside).
+__device__ __forceinline__ bool masked(int causal, int prefix_len, int row, int col) {
+  return causal && col > row && col >= prefix_len;
+}
+
+// The same test folded into one compare, for the tensor-core kernels' inner
+// loops: under the causal mask key `col` is masked for row `row` iff col >
+// mask_limit(row), the row or, where it is longer, the prefix less one.
+__device__ __forceinline__ int mask_limit(int prefix_len, int row) {
+  return max(row, prefix_len - 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -233,8 +264,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params
     for (int jj = 0; jj < DVT; ++jj) acc[i][jj] = 0.f;
   }
 
-  // Keys a tile of q rows can see: all of them, or up to its last row.
-  const int k_end = p.causal ? min(p.Sk, q0 + kF32Block) : p.Sk;
+  const int k_end = keys_seen(p.causal, p.prefix_len, p.Sk, q0, kF32Block);
   const int n_tiles = (k_end + kF32Block - 1) / kF32Block;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -268,7 +298,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kc = k0 + tx + 16 * j;
-        const bool valid = kc < p.Sk && (!p.causal || kc <= qr);
+        const bool valid = kc < p.Sk && !masked(p.causal, p.prefix_len, qr, kc);
         s[i][j] = valid ? s[i][j] * p.scale_log2 : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -541,7 +571,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(const Params p
   const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kh * p.k_sh;
   const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kh * p.v_sh;
 
-  const int k_end = p.causal ? min(p.Sk, q0 + kRows) : p.Sk;
+  const int k_end = keys_seen(p.causal, p.prefix_len, p.Sk, q0, kRows);
   const int n_tiles = (k_end + kKeys - 1) / kKeys;
 
   load_tile_sw128<kRows, DT>(q_s, qb, p.q_ss, q0, p.Sq, p.D);
@@ -557,11 +587,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(const Params p
   const int lane = threadIdx.x % 32;
   const int r0 = wg * kWgRows + warp * 16 + lane / 4;   // row in the block
   const int c0 = 2 * (lane % 4);
-  // Tiles this warpgroup computes: none past its last row, causal or not
-  // past the end of the keys.
+  // Tiles this warpgroup computes: none past its last row and the prefix,
+  // causal or not past the end of the keys.
   const int q0w = q0 + wg * kWgRows;
   const int wg_tiles = q0w >= p.Sq ? 0
-      : p.causal ? (min(p.Sk, q0w + kWgRows) + kKeys - 1) / kKeys : n_tiles;
+      : (keys_seen(p.causal, p.prefix_len, p.Sk, q0w, kWgRows) + kKeys - 1) / kKeys;
+  // under the causal mask a key past these is masked: for the warpgroup's
+  // first row (an edge tile holds one), and for each of this thread's rows
+  const int wg_limit = mask_limit(p.prefix_len, q0w);
+  const int row_limit[2] = {mask_limit(p.prefix_len, q0 + r0),
+                            mask_limit(p.prefix_len, q0 + r0 + 8)};
 
   float o[kNB][32];
 #pragma unroll
@@ -603,15 +638,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(const Params p
 
     // online softmax on the fragment, in log2 units
     const int k0 = j * kKeys;
-    const bool edge = k0 + kKeys > p.Sk || (p.causal && k0 + kKeys - 1 > q0w);
+    // an edge tile holds a key past Sk, or one past both a row and the prefix
+    const bool edge = k0 + kKeys > p.Sk || (p.causal && k0 + kKeys - 1 > wg_limit);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float x = s[i] * p.scale_log2;
       if (edge) {
-        const int row = q0 + r0 + 8 * ((i / 2) % 2);
         const int col = k0 + 8 * (i / 4) + c0 + (i % 2);
-        if (col >= p.Sk || (p.causal && col > row)) x = -INFINITY;
+        if (col >= p.Sk || (p.causal && col > row_limit[(i / 2) % 2])) x = -INFINITY;
       }
       s[i] = x;
       mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
@@ -748,6 +783,7 @@ struct BwdParams {
   float scale;         // D^-0.5
   float scale_log2;    // D^-0.5 * log2(e)
   int causal;
+  int prefix_len;      // as the forward's
 };
 
 constexpr int kBT = 64;            // rows of every tile: keys and q rows
@@ -889,8 +925,9 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(const BwdPa
 #pragma unroll
     for (int jj = 0; jj < NT; ++jj) dk[i][jj] = dv[i][jj] = 0.f;
 
-  // causal: q rows before k0 see none of these keys
-  const int q_first = p.causal ? k0 : 0;
+  // causal: q rows before k0 see none of these keys, unless the block
+  // starts inside the prefix
+  const int q_first = p.causal && k0 >= p.prefix_len ? k0 : 0;
   for (int hh = 0; hh < p.group; ++hh) {
     const int h = kh * p.group + hh;
     const float* qb = row_ptr<float>(p.q, p.st[kQ], b, h, 0);
@@ -939,7 +976,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(const BwdPa
         for (int j = 0; j < 4; ++j) {
           const int qc = tx + 16 * j;
           const int qr = q0 + qc;
-          const bool valid = key < p.Sk && qr < p.Sq && (!p.causal || key <= qr);
+          const bool valid = key < p.Sk && qr < p.Sq && !masked(p.causal, p.prefix_len, qr, key);
           const float pij = valid ? exp2f(s[i][j] * p.scale_log2 - lse_s[qc]) : 0.f;
           Ps[(ty * 4 + i) * ldp + qc] = pij;
           s[i][j] = pij * (dp[i][j] - dl_s[qc]);
@@ -1031,7 +1068,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(const BwdPara
 #pragma unroll
     for (int jj = 0; jj < NT; ++jj) dq[i][jj] = 0.f;
 
-  const int k_end = p.causal ? min(p.Sk, q0 + kBT) : p.Sk;
+  const int k_end = keys_seen(p.causal, p.prefix_len, p.Sk, q0, kBT);
   const int n_tiles = (k_end + kBT - 1) / kBT;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBT;
@@ -1074,7 +1111,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(const BwdPara
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
-        const bool valid = key < p.Sk && qr < p.Sq && (!p.causal || key <= qr);
+        const bool valid = key < p.Sk && qr < p.Sq && !masked(p.causal, p.prefix_len, qr, key);
         const float pij = valid ? exp2f(s[i][j] * p.scale_log2 - lse_s[qi]) : 0.f;
         Ps[qi * ldp + tx + 16 * j] = pij * (dp[i][j] - dl_s[qi]);
       }
@@ -1222,7 +1259,8 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[R], 
 // the block, whose K and V stay in shared memory (and, at a q step of 64,
 // in the warpgroup's registers as A operands). The block walks the q
 // tiles of BQ rows of each query head of the group (under the causal mask
-// from its first key on), their Q, dO, lse2 and delta through a three-stage
+// from its first key on, or from row 0 for a block that starts inside the
+// prefix), their Q, dO, lse2 and delta through a three-stage
 // cp.async ring, so GQA sums in registers. Per tile a warpgroup computes
 // S^T = K Q^T and dP^T = V dO^T (wgmma, Q and dO K-major B operands),
 // P^T = exp2(S^T * scale_log2 - lse2) while dP^T is still running, issues
@@ -1262,8 +1300,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
   const int rk = warp * 16 + lane / 4;     // its keys kw0 + rk and + 8
   const int c0 = 2 * (lane % 4);
 
-  const int q_first = p.causal ? k0 : 0;   // causal: earlier rows see none of these keys
+  // causal: earlier rows see none of these keys, unless the block starts
+  // inside the prefix
+  const int q_first = p.causal && k0 >= p.prefix_len ? k0 : 0;
   const int per_head = p.Sq > q_first ? (p.Sq - q_first + BQ - 1) / BQ : 0;
+  // under the causal mask: a tile can be wholly masked, or partly, only if
+  // this warpgroup's keys reach past the prefix; a key of the prefix is
+  // never masked (-1: below every row)
+  const bool past_prefix = p.causal && kw0 >= p.prefix_len;
+  const bool may_mask = p.causal && kw0 + kWgRows > p.prefix_len;
+  const int key_cmp[2] = {kw0 + rk >= p.prefix_len ? kw0 + rk : -1,
+                          kw0 + rk + 8 >= p.prefix_len ? kw0 + rk + 8 : -1};
   const int n_tiles = per_head * p.group;
 
   auto load = [&](int t) {
@@ -1316,7 +1363,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
       cp_async_commit();
     }
     const int q0 = q_first + (t % per_head) * BQ;
-    if (kw0 >= p.Sk || (p.causal && q0 + BQ - 1 < kw0)) {   // every pair masked
+    if (kw0 >= p.Sk || (past_prefix && q0 + BQ - 1 < kw0)) {   // every pair masked
       wgmma_wait<0>();                     // an earlier tile's dK, before its stage is reused
       continue;
     }
@@ -1357,14 +1404,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
     fence_regs(s);
 
     // P^T on the fragment: element 4g + e is key rk + 8(e/2), q column 8g + c0 + e%2
-    const bool diag = p.causal && q0 < kw0 + kWgRows;
+    // some pair may be masked: a key past a row and past the prefix
+    const bool diag = may_mask && q0 < kw0 + kWgRows;
 #pragma unroll
     for (int g = 0; g < BQ / 8; ++g) {
       const float2 l = *reinterpret_cast<const float2*>(lse2_s + 8 * g + c0);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = fast_exp2(fmaf(s[4 * g + e], p.scale_log2, -(e % 2 ? l.y : l.x)));
-        if (diag && kw0 + rk + 8 * (e / 2) > q0 + 8 * g + c0 + e % 2) x = 0.f;
+        if (diag && key_cmp[e / 2] > q0 + 8 * g + c0 + e % 2) x = 0.f;
         s[4 * g + e] = x;
       }
     }
@@ -1452,7 +1500,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdP
   const int kh = h / p.group;
   const bf* kb = row_ptr<bf>(p.k, p.st[kK], b, kh, 0);
   const bf* vb = row_ptr<bf>(p.v, p.st[kV], b, kh, 0);
-  const int k_end = p.causal ? min(p.Sk, q0 + kRows) : p.Sk;
+  const int k_end = keys_seen(p.causal, p.prefix_len, p.Sk, q0, kRows);
   const int n_tiles = (k_end + kKeys - 1) / kKeys;
 
   load_tile_sw128<kRows, DT>(q_s, row_ptr<bf>(p.q, p.st[kQ], b, h, 0), p.st[kQ].s, q0, p.Sq, p.D);
@@ -1469,7 +1517,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdP
   const int c0 = 2 * (lane % 4);
   const int q0w = q0 + wg * kWgRows;
   const int wg_tiles = q0w >= p.Sq ? 0
-      : p.causal ? (min(p.Sk, q0w + kWgRows) + kKeys - 1) / kKeys : n_tiles;
+      : (keys_seen(p.causal, p.prefix_len, p.Sk, q0w, kWgRows) + kKeys - 1) / kKeys;
+  // as the forward's: the warpgroup's and this thread's rows' mask limits
+  const int wg_limit = mask_limit(p.prefix_len, q0w);
+  const int row_limit[2] = {mask_limit(p.prefix_len, q0 + r0),
+                            mask_limit(p.prefix_len, q0 + r0 + 8)};
   const int64_t stat = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
   float lse2[2], dl[2];                    // a row past Sq: P = exp2(-inf) = 0
 #pragma unroll
@@ -1546,14 +1598,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdP
     fence_regs(s);
 
     const int k0 = j * kKeys;
-    const bool edge = k0 + kKeys > p.Sk || (p.causal && k0 + kKeys - 1 > q0w);
+    const bool edge = k0 + kKeys > p.Sk || (p.causal && k0 + kKeys - 1 > wg_limit);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float x = fast_exp2(fmaf(s[i], p.scale_log2, -lse2[(i / 2) % 2]));
       if (edge) {
-        const int row = q0 + r0 + 8 * ((i / 2) % 2);
         const int col = k0 + 8 * (i / 4) + c0 + (i % 2);
-        if (col >= p.Sk || (p.causal && col > row)) x = 0.f;
+        if (col >= p.Sk || (p.causal && col > row_limit[(i / 2) % 2])) x = 0.f;
       }
       s[i] = x;
     }
@@ -1619,8 +1670,9 @@ template <typename T>
 int flash_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const void* lse, void* delta, void* dq, void* dk, void* dv,
               int B, int H, int KH, int Sq, int Sk, int D, int Dv,
-              const long long* strides, float scale, int causal, void* stream) {
-  if (bad_args(B, H, KH, Sq, Sk, D, Dv) || D > kBwdMaxDim || Dv > kBwdMaxDim ||
+              const long long* strides, float scale, int causal, int prefix_len,
+              void* stream) {
+  if (bad_args(B, H, KH, Sq, Sk, D, Dv) || prefix_len < 0 || D > kBwdMaxDim || Dv > kBwdMaxDim ||
       (Sk + kBT - 1) / kBT > 65535 || (Sq + kBT - 1) / kBT > 65535)   // grid z
     return cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
@@ -1650,6 +1702,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o, const 
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
+  p.prefix_len = prefix_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t rows = static_cast<int64_t>(B) * H * Sq;
   if (rows > 0) {
@@ -1677,19 +1730,21 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o, const 
 
 }  // namespace
 
-// fp32 on CUDA cores. Strides are in elements; lse may be null. Returns a
-// cudaError_t as int.
+// fp32 on CUDA cores. Strides are in elements; lse may be null. Under
+// `causal`, keys below `prefix_len` (>= 0) are valid for every row; without
+// it prefix_len is not read. Returns a cudaError_t as int.
 extern "C" int flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int H, int KH, int Sq, int Sk, int D, int Dv,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
-    float scale, int causal, void* stream) {
-  if (bad_args(B, H, KH, Sq, Sk, D, Dv)) return cudaErrorInvalidValue;
+    float scale, int causal, int prefix_len, void* stream) {
+  if (bad_args(B, H, KH, Sq, Sk, D, Dv) || prefix_len < 0) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   const Params p = make_params(q, k, v, o, lse, H, KH, Sq, Sk, D, Dv, q_sb, q_sh, q_ss,
-                               k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale, causal);
+                               k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale, causal,
+                               prefix_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dv <= 64) return launch_f32<4>(p, B, s);
   if (Dv <= 128) return launch_f32<8>(p, B, s);
@@ -1705,17 +1760,18 @@ extern "C" int flash_attention_fwd_bf16(
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
-    float scale, int causal, int d_tile, int dv_tile, void* stream) {
+    float scale, int causal, int prefix_len, int d_tile, int dv_tile, void* stream) {
   const long long strides = q_sb | q_sh | q_ss | k_sb | k_sh | k_ss | v_sb | v_sh | v_ss;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (bad_args(B, H, KH, Sq, Sk, D, Dv) || D % 16 != 0 || Dv % 16 != 0 ||
+  if (bad_args(B, H, KH, Sq, Sk, D, Dv) || prefix_len < 0 || D % 16 != 0 || Dv % 16 != 0 ||
       D > d_tile || Dv > dv_tile || (strides & 7) != 0 || (ptrs & 15) != 0) {
     return cudaErrorInvalidValue;
   }
   if (B == 0 || Sq == 0) return cudaSuccess;
   const Params p = make_params(q, k, v, o, lse, H, KH, Sq, Sk, D, Dv, q_sb, q_sh, q_ss,
-                               k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale, causal);
+                               k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale, causal,
+                               prefix_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d_tile == 64 && dv_tile == 64) return launch_bf16<64, 64>(p, B, s);
   if (d_tile == 128 && dv_tile == 128) return launch_bf16<128, 128>(p, B, s);
@@ -1732,7 +1788,8 @@ extern "C" int flash_attention_fwd_bf16(
 // aligned with strides in multiples of 8. lse is the forward's, fp32 (B, H,
 // Sq), natural log; delta an fp32 scratch of 2 x B x H x Sq (delta, then
 // the lse in log2 units). `strides` order: q, k, v, o, do, dq, dk, dv,
-// each (batch, head, row). D and Dv up to 128. Three launches; returns a
+// each (batch, head, row). causal and prefix_len as the forward's. D and
+// Dv up to 128. Three launches; returns a
 // cudaError_t as int.
 #define FA_BWD_ARGS                                                            \
     const void* q, const void* k, const void* v, const void* o, const void* dout, \
@@ -1746,14 +1803,14 @@ extern "C" int flash_attention_fwd_bf16(
     long long dq_sb, long long dq_sh, long long dq_ss,                        \
     long long dk_sb, long long dk_sh, long long dk_ss,                        \
     long long dv_sb, long long dv_sh, long long dv_ss,                        \
-    float scale, int causal, void* stream
+    float scale, int causal, int prefix_len, void* stream
 #define FA_BWD_CALL(T)                                                         \
   const long long strides[3 * kNumT] = {                                      \
       q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, \
       do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss,          \
       dv_sb, dv_sh, dv_ss};                                                   \
   return flash_bwd<T>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KH, Sq, Sk, \
-                      D, Dv, strides, scale, causal, stream)
+                      D, Dv, strides, scale, causal, prefix_len, stream)
 
 extern "C" int flash_attention_bwd_f32(FA_BWD_ARGS) { FA_BWD_CALL(float); }
 

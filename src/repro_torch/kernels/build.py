@@ -44,14 +44,14 @@ SIGNATURES = {
     # scale_dtype, grid, path, vectors per thread, stream
     "rmsnorm_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, lse (null: not written), B, H, KH, Sq, Sk, D, Dv,
-    # 9 strides, scale, causal, stream
-    "flash_attention_fwd_f32": [_P] * 5 + [_I] * 7 + [_L] * 9 + [_F, _I, _P],
+    # 9 strides, scale, causal, prefix_len, stream
+    "flash_attention_fwd_f32": [_P] * 5 + [_I] * 7 + [_L] * 9 + [_F, _I, _I, _P],
     # the same, then the (D, Dv) tile widths, before the stream
-    "flash_attention_fwd_bf16": [_P] * 5 + [_I] * 7 + [_L] * 9 + [_F, _I, _I, _I, _P],
+    "flash_attention_fwd_bf16": [_P] * 5 + [_I] * 7 + [_L] * 9 + [_F, _I, _I, _I, _I, _P],
     # q, k, v, o, do, lse, delta, dq, dk, dv, B, H, KH, Sq, Sk, D, Dv,
-    # 24 strides (q, k, v, o, do, dq, dk, dv), scale, causal, stream
-    "flash_attention_bwd_f32": [_P] * 10 + [_I] * 7 + [_L] * 24 + [_F, _I, _P],
-    "flash_attention_bwd_bf16": [_P] * 10 + [_I] * 7 + [_L] * 24 + [_F, _I, _P],
+    # 24 strides (q, k, v, o, do, dq, dk, dv), scale, causal, prefix_len, stream
+    "flash_attention_bwd_f32": [_P] * 10 + [_I] * 7 + [_L] * 24 + [_F, _I, _I, _P],
+    "flash_attention_bwd_bf16": [_P] * 10 + [_I] * 7 + [_L] * 24 + [_F, _I, _I, _P],
     # x, dA, B, C, y, state, cum, states, Bsz, S, H, G, P, N, chunk,
     # 12 strides, bc_dtype, stream
     "ssd_scan_fwd": [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _P],

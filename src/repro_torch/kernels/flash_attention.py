@@ -6,6 +6,10 @@ the model layout directly: q (B, H, Sq, D), k (B, KH, Sk, D), v (B, KH, Sk, Dv),
 each through its strides with a unit last stride, so the transposed views the
 model makes are not copied and GQA needs no repeated K/V. Any Sq and Sk.
 
+The mask is ``models/attention.py::_block_attn``'s: with ``causal``, key j
+is valid for row i iff j <= i or j < ``prefix_len`` (the vlm family's
+prefix-LM mask; 0 is the plain causal mask); without it every key is valid.
+
 Two routes, chosen by dtype alone, with no fallback between them:
 
 - bfloat16 runs on the tensor cores (``flash_attention_fwd_bf16``: wgmma fed by
@@ -66,9 +70,15 @@ def bf16_tile(D: int, Dv: int) -> Tuple[int, int]:
     raise ValueError(f"head dims up to {MAX_HEAD_DIM}, got D {D}, Dv {Dv}")
 
 
-def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def _check_prefix(prefix_len: int) -> None:
+    if not isinstance(prefix_len, int) or prefix_len < 0:
+        raise ValueError(f"prefix_len must be an int >= 0, got {prefix_len!r}")
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_len: int = 0):
     """Checks what the kernels take, on any device; returns (route, tile), the
     tile None on the fp32 route. Raises on what no route takes."""
+    _check_prefix(prefix_len)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention_cuda takes 4-D q, k, v")
     B, H, Sq, D = q.shape
@@ -118,18 +128,20 @@ def bwd_tile(D: int, Dv: int) -> Tuple[int, int]:
                      f"got D {D}, Dv {Dv}")
 
 
-def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_len: int = 0):
     """Checks, on any device, that the backward kernels take these inputs
     (the forward's checks, then D and Dv up to ``MAX_BWD_HEAD_DIM``);
     returns (route, tile), the tile ``bwd_tile``'s, None on the fp32 route."""
+    _check_prefix(prefix_len)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention_bwd_cuda takes 4-D q, k, v")
     D, Dv = q.shape[3], v.shape[3]
     if D > MAX_BWD_HEAD_DIM or Dv > MAX_BWD_HEAD_DIM:
         raise ValueError(
             f"the flash backward takes head dims up to {MAX_BWD_HEAD_DIM}, got D "
-            f"{D}, Dv {Dv}: wider heads (MLA's 192/128, hd 256) come with the "
-            "moe/MLA slice")
+            f"{D}, Dv {Dv}: wider heads (MLA's 192/128, paligemma's 256) come with "
+            "a later slice, ROADMAP.md queue 2's backward at D 192/256 (MLA and "
+            "paligemma training)")
     if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -153,11 +165,12 @@ def _one_card(*ts: torch.Tensor) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, return_lse: bool = False):
+                         causal: bool = True, return_lse: bool = False,
+                         prefix_len: int = 0):
     """Returns a contiguous (B, H, Sq, Dv) in q.dtype; scale D^-0.5. With
     ``return_lse``, (o, lse) with lse (B, H, Sq) fp32, natural-log units."""
     global ROUTE
-    route, tile = plan(q, k, v)
+    route, tile = plan(q, k, v, prefix_len)
     _one_card(q, k, v)
     B, H, Sq, D = q.shape
     KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -167,7 +180,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
             B, H, KH, Sq, Sk, D, Dv,
-            *_strides(q), *_strides(k), *_strides(v), D ** -0.5, int(causal)]
+            *_strides(q), *_strides(k), *_strides(v), D ** -0.5, int(causal),
+            prefix_len]
     name = "flash_attention_fwd_bf16" if tile else "flash_attention_fwd_f32"
     fn = getattr(build.library().lib, name)
     with torch.cuda.device(q.device):
@@ -179,7 +193,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                             causal: bool = True):
+                             causal: bool = True, prefix_len: int = 0):
     """Gradients (dq, dk, dv) of ``flash_attention_cuda`` in q's dtype, from
     its output o, its lse and the output's gradient do, each read through its
     strides with a unit last stride (do may be a transposed view). Three
@@ -187,7 +201,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scratch, dK/dV over key tiles (GQA summed in the block), dQ over q
     tiles."""
     global BWD_ROUTE
-    route = plan_bwd(q, k, v)
+    route = plan_bwd(q, k, v, prefix_len)
     B, H, Sq, D = q.shape
     KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     if o.shape != (B, H, Sq, Dv) or do.shape != o.shape or lse.shape != (B, H, Sq):
@@ -210,7 +224,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         code = getattr(build.library().lib, name)(
             *(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
-            B, H, KH, Sq, Sk, D, Dv, *strides, D ** -0.5, int(causal),
+            B, H, KH, Sq, Sk, D, Dv, *strides, D ** -0.5, int(causal), prefix_len,
             build.stream_handle(q.device))
     build.check(code, name)
     BWD_ROUTE = route

@@ -79,7 +79,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          return_lse: bool = False):
+                          return_lse: bool = False, prefix_len: int = 0):
     """The plain version of ``flash_attention`` in the 4-D model layout, on
     any device: K/V heads repeated for GQA, then ``ref.reference_attention``.
     ``return_lse`` also returns the (B, H, Sq) fp32 logsumexp."""
@@ -90,7 +90,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     o = ref.reference_attention(q.reshape(B * H, Sq, D),
                                 k.reshape(B * H, Sk, D),
                                 v.reshape(B * H, Sk, Dv), causal=causal,
-                                return_lse=return_lse)
+                                return_lse=return_lse, prefix_len=prefix_len)
     if return_lse:
         return o[0].reshape(B, H, Sq, Dv), o[1].reshape(B, H, Sq)
     return o.reshape(B, H, Sq, Dv)
@@ -98,15 +98,17 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 class _FlashAttentionFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, prefix_len):
         if _on_card(q, k, v):
-            fa.plan_bwd(q, k, v)          # refuse before the forward runs
-            o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+            fa.plan_bwd(q, k, v, prefix_len)      # refuse before the forward runs
+            o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True,
+                                             prefix_len=prefix_len)
             LAUNCHES["flash_attention"] += 1
         else:
-            o, lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+            o, lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True,
+                                           prefix_len=prefix_len)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.prefix_len = causal, prefix_len
         return o
 
     @staticmethod
@@ -115,32 +117,41 @@ class _FlashAttentionFn(torch.autograd.Function):
         if _on_card(q, k, v, do):
             if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not fa.rows_16b(do)):
                 do = do.contiguous()              # a layout the kernel reads by rows
-            grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, ctx.causal)
+            grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, ctx.causal,
+                                                ctx.prefix_len)
             LAUNCHES["flash_attention_bwd"] += 1
         else:
-            grads = ref.reference_attention_bwd(q, k, v, o, lse, do,
-                                                causal=ctx.causal)
-        return (*grads, None)
+            grads = ref.reference_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                                                prefix_len=ctx.prefix_len)
+        return (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """Attention with scale D^-0.5 and a causal positional mask (qpos >= kpos).
+                    causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
+    """Attention with scale D^-0.5 and, under ``causal``, the prefix-LM mask
+    of ``models/attention.py::_block_attn`` on the row indices: key j is
+    valid for row i iff j <= i or j < ``prefix_len``. ``prefix_len`` 0 is
+    the plain causal mask (qpos >= kpos); a prefix of Sk or more makes every
+    key valid, which is the same mask as ``causal=False`` (an encoder), and
+    goes to that mode of the kernels.
 
     Either the Pallas contract, q/k (BH, S, D) and v (BH, S, Dv), or the model
     layout, q (B, H, Sq, D), k (B, KH, Sk, D), v (B, KH, Sk, Dv) with KH
     dividing H. Returns q's leading dims with Dv.
     """
+    fa._check_prefix(prefix_len)
     three_d = q.dim() == 3
     if three_d:
         q, k, v = q[:, None], k[:, None], v[:, None]
+    if not causal or prefix_len >= k.shape[2]:
+        causal, prefix_len = False, 0
     if _needs_grad(q, k, v):
-        o = _FlashAttentionFn.apply(q, k, v, causal)
+        o = _FlashAttentionFn.apply(q, k, v, causal, prefix_len)
     elif _on_card(q, k, v):
-        o = fa.flash_attention_cuda(q, k, v, causal)
+        o = fa.flash_attention_cuda(q, k, v, causal, prefix_len=prefix_len)
         LAUNCHES["flash_attention"] += 1
     else:
-        o = flash_attention_plain(q, k, v, causal=causal)
+        o = flash_attention_plain(q, k, v, causal=causal, prefix_len=prefix_len)
     return o[:, 0] if three_d else o
 
 

@@ -14,16 +14,26 @@ import torch
 from repro_torch.kernels.ssd_scan import SPLIT_PIECES
 
 
+def attention_mask(Sq: int, Sk: int, prefix_len: int = 0, device=None):
+    """The causal mask with a bidirectional prefix, (Sq, Sk) bool: key j is
+    valid for row i iff j <= i or j < prefix_len (``_block_attn``'s, with
+    the row indices as positions)."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None]
+    return (kpos <= qpos) | (kpos < prefix_len)
+
+
 def reference_attention(q, k, v, *, causal: bool = True, scale=None,
-                        return_lse: bool = False):
-    """q,k: (BH, Sq/Sk, D), v: (BH, Sk, Dv) -> (BH, Sq, Dv). Full softmax.
+                        return_lse: bool = False, prefix_len: int = 0):
+    """q,k: (BH, Sq/Sk, D), v: (BH, Sk, Dv) -> (BH, Sq, Dv). Full softmax,
+    under ``causal`` with keys below ``prefix_len`` valid for every row.
     ``return_lse`` also returns the rows' fp32 logsumexp of the scaled,
     masked scores, (BH, Sq), in natural-log units."""
     Sq, Sk = q.shape[1], k.shape[1]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if causal:
-        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device).tril()
+        mask = attention_mask(Sq, Sk, prefix_len, q.device)
         s = torch.where(mask[None], s, torch.full_like(s, -1e30))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
@@ -34,13 +44,15 @@ def reference_attention(q, k, v, *, causal: bool = True, scale=None,
 ATTN_BWD_BLOCK = 1024
 
 
-def reference_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
+def reference_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                            prefix_len: int = 0):
     """Gradients of attention with scale D^-0.5, by the FA2 recurrence over
     key blocks of ``ATTN_BWD_BLOCK``, in the model layout with GQA: q (B,H,Sq,D), k
     (B,KH,Sk,D), v (B,KH,Sk,Dv), o and do (B,H,Sq,Dv), lse (B,H,Sq) fp32 in
     natural-log units. With P = exp(S*scale - lse) and D = rowsum(dO o O):
     dV = P^T dO, dS = P o (dO V^T - D), dQ = dS K * scale, dK = dS^T Q * scale,
-    dK and dV summed over the H/KH query heads of each KV head. A row with no
+    dK and dV summed over the H/KH query heads of each KV head; the mask is
+    ``reference_attention``'s (``causal``, ``prefix_len``). A row with no
     valid key (lse = -inf) gets zero gradients. fp32 math; returns (dq, dk,
     dv) in the inputs' dtypes.
     """
@@ -53,7 +65,7 @@ def reference_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     delta = (do32 * o.float().reshape(B, KH, G, Sq, Dv)).sum(-1)
     lse = lse.float().reshape(B, KH, G, Sq)
     lse = torch.where(torch.isneginf(lse), torch.full_like(lse, float("inf")), lse)
-    qpos = torch.arange(Sq, device=q.device)
+    mask = attention_mask(Sq, Sk, prefix_len, q.device) if causal else None
     dq = torch.zeros_like(q32)
     dks, dvs = [], []
     block = ATTN_BWD_BLOCK
@@ -62,8 +74,7 @@ def reference_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
         s = torch.einsum("bkgqd,bksd->bkgqs", q32, kb) * scale
         p = torch.exp(s - lse[..., None])
         if causal:
-            kpos = torch.arange(s0, s0 + kb.shape[2], device=q.device)
-            p = torch.where(qpos[:, None] >= kpos[None], p, torch.zeros_like(p))
+            p = torch.where(mask[:, s0:s0 + block], p, torch.zeros_like(p))
         dvs.append(torch.einsum("bkgqs,bkgqe->bkse", p, do32))
         ds = p * (torch.einsum("bkgqe,bkse->bkgqs", do32, vb) - delta[..., None])
         dq += torch.einsum("bkgqs,bksd->bkgqd", ds, kb) * scale
@@ -405,7 +416,7 @@ def ssd_bwd_tiles(x, dA, Bm, Cm, dy, dstate=None, *, chunk: int, tile: int = 64,
 
 def attention_bwd_tiles(q, k, v, o, lse, do, *, causal: bool = True, q_step: int = 64,
                         keys: int = 128, q_rows: int = 128, key_tile: int = 64,
-                        half: int = 64):
+                        half: int = 64, prefix_len: int = 0):
     """The CUDA bf16 flash backward's tiling in plain PyTorch (fp32), for the
     tests only (no path of the port runs it). Model layout with GQA, as
     ``reference_attention_bwd``; the lse in log2 units (+inf for -inf) and
@@ -414,11 +425,16 @@ def attention_bwd_tiles(q, k, v, o, lse, do, *, causal: bool = True, q_step: int
     dK/dV: blocks of ``keys`` keys per KV head, each split in warpgroup
     halves of ``half`` keys; a block walks the q tiles of ``q_step`` rows of
     each query head of its group, from its first key on under the causal
-    mask, and a half skips a tile whose every pair is masked (or whose keys
-    all lie past Sk). dQ: blocks of ``q_rows`` rows in halves of ``half``,
-    each half summing its ``key_tile``-key tiles in order up to the causal
-    limit. Returns (dq, dk, dv, visits): visits counts the (half, tile)
-    products of each kernel, over the KV heads and query heads of batch 0.
+    mask (from row 0 where the block starts inside the prefix), and a half
+    skips a tile whose every pair is masked (or whose keys all lie past Sk).
+    The mask is applied only where the kernels apply it: on a dK/dV tile
+    with a key past a row and past the prefix, on a dQ (and forward) edge
+    tile, so a wrong edge test shows as a wrong gradient. dQ: blocks of ``q_rows`` rows in halves of ``half``, each half summing
+    its ``key_tile``-key tiles in order up to the causal limit, or to the
+    prefix where it lies further. The mask is ``reference_attention``'s
+    (``causal``, ``prefix_len``). Returns (dq, dk, dv, visits): visits
+    counts the (half, tile) products of each kernel, over the KV heads and
+    query heads of batch 0.
     """
     B, H, Sq, D = q.shape
     KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -431,51 +447,57 @@ def attention_bwd_tiles(q, k, v, o, lse, do, *, causal: bool = True, q_step: int
     delta = (do32 * o.float().reshape(B, KH, G, Sq, Dv)).sum(-1)
     l2 = lse.float().reshape(B, KH, G, Sq) * log2e
     l2 = torch.where(torch.isneginf(l2), torch.full_like(l2, float("inf")), l2)
-    qpos = torch.arange(Sq, device=q.device)
-    kpos = torch.arange(Sk, device=q.device)
+    mask = attention_mask(Sq, Sk, prefix_len, q.device)
+
+    def keys_seen(row0, rows):          # the kernels' k_end
+        return min(Sk, max(row0 + rows, prefix_len)) if causal else Sk
+
     dk = torch.zeros_like(k32)
     dv = torch.zeros_like(v32)
     dq = torch.zeros_like(q32)
     visits = {"dkdv": 0, "dq": 0}
 
     for k0 in range(0, Sk, keys):
-        q_first = k0 if causal else 0
+        q_first = k0 if causal and k0 >= prefix_len else 0
         for kw0 in range(k0, k0 + keys, half):
             if kw0 >= Sk:
                 continue
             ks = slice(kw0, min(kw0 + half, Sk))
             for hh in range(G):
                 for q0 in range(q_first, Sq, q_step):
-                    if causal and q0 + q_step - 1 < kw0:
+                    if causal and q0 + q_step - 1 < kw0 and kw0 >= prefix_len:
                         continue
                     visits["dkdv"] += KH
                     qs = slice(q0, min(q0 + q_step, Sq))
                     qt, dot = q32[:, :, hh, qs], do32[:, :, hh, qs]
                     s_t = torch.einsum("bkid,bkjd->bkij", k32[:, :, ks], qt)
                     p_t = torch.exp2(s_t * (scale * log2e) - l2[:, :, hh, None, qs])
-                    if causal:
-                        valid = kpos[ks, None] <= qpos[None, qs]
-                        p_t = torch.where(valid, p_t, torch.zeros_like(p_t))
+                    # the kernel masks only where some pair may be masked
+                    if causal and q0 < kw0 + half and kw0 + half > prefix_len:
+                        p_t = torch.where(mask[qs, ks].T, p_t, torch.zeros_like(p_t))
                     dp_t = torch.einsum("bkie,bkje->bkij", v32[:, :, ks], dot)
                     ds_t = p_t * (dp_t - delta[:, :, hh, None, qs])
                     dv[:, :, ks] += torch.einsum("bkij,bkje->bkie", p_t, dot)
                     dk[:, :, ks] += torch.einsum("bkij,bkjd->bkid", ds_t, qt)
 
     for q0 in range(0, Sq, q_rows):
-        n_tiles = -(-(min(Sk, q0 + q_rows) if causal else Sk) // key_tile)
+        n_tiles = -(-keys_seen(q0, q_rows) // key_tile)
         for q0w in range(q0, q0 + q_rows, half):
             if q0w >= Sq:
                 continue
-            wg_tiles = -(-min(Sk, q0w + half) // key_tile) if causal else n_tiles
+            wg_tiles = -(-keys_seen(q0w, half) // key_tile)
             rows = slice(q0w, min(q0w + half, Sq))
             for j in range(wg_tiles):
                 visits["dq"] += H
-                ks = slice(j * key_tile, min((j + 1) * key_tile, Sk))
+                k0 = j * key_tile
+                ks = slice(k0, min(k0 + key_tile, Sk))
+                # the kernels' edge tile (the forward's too): a key past a
+                # row and past the prefix (keys past Sk are cut off here)
+                edge = causal and k0 + key_tile - 1 > q0w and k0 + key_tile > prefix_len
                 s = torch.einsum("bkgid,bkjd->bkgij", q32[:, :, :, rows], k32[:, :, ks])
                 p = torch.exp2(s * (scale * log2e) - l2[:, :, :, rows, None])
-                if causal:
-                    valid = kpos[None, ks] <= qpos[rows, None]
-                    p = torch.where(valid, p, torch.zeros_like(p))
+                if edge:
+                    p = torch.where(mask[rows, ks], p, torch.zeros_like(p))
                 dp = torch.einsum("bkgie,bkje->bkgij", do32[:, :, :, rows], v32[:, :, ks])
                 ds = p * (dp - delta[:, :, :, rows, None])
                 dq[:, :, :, rows] += torch.einsum("bkgij,bkjd->bkgid", ds, k32[:, :, ks])

@@ -9,9 +9,17 @@ Port of ``repro/launch/train.py`` without its mesh and sharding strategies
 the reduced config in float32 with lr 1e-3 and no remat, as the JAX
 launcher does; ``--full`` the arch's own config and ``TrainConfig``. Runs on
 the card unless ``--device cpu`` is given.
+
+For the vlm and encdec families each batch also carries seeded standard
+normal ``patches`` (B, num_patches, d_model) or ``frames`` (B, enc_seq,
+d_model), the shapes of ``repro/launch/specs.py:26-29``, as the JAX dry run
+feeds them (``repro/launch/dryrun.py:92-95``): the modality frontends are
+stubs. This is the port's one departure from the JAX launcher, which feeds
+tokens only (``repro/launch/train.py:91``) and so cannot train these
+families.
 """
 import argparse
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 
 def configs(arch: str, *, full: bool):
@@ -25,17 +33,36 @@ def configs(arch: str, *, full: bool):
                             remat="none")
 
 
+def with_modality_inputs(cfg, batches: Iterable, seed: int = 0) -> Iterator:
+    """``batches`` with seeded ``patches`` (vlm) or ``frames`` (encdec) added
+    to each, float32 (B, n, d_model); other families' batches pass as they
+    are."""
+    import numpy as np
+    from repro_torch.training.train import MODALITY_INPUT
+    name = MODALITY_INPUT.get(cfg.family)
+    n = cfg.num_patches if cfg.family == "vlm" else cfg.enc_seq
+    rng = np.random.default_rng(seed)
+    for batch in batches:
+        if name is not None:
+            B = batch["tokens"].shape[0]
+            batch = {**batch, name: rng.standard_normal((B, n, cfg.d_model), np.float32)}
+        yield batch
+
+
 def train_loop(state: Dict[str, Any], step_fn, batches: Iterable, *, steps: int,
                device, mgr=None, ckpt_every: int = 0, log_every: int = 10,
-               on_step: Optional[Callable[[int, Dict[str, Any]], None]] = None
-               ) -> Dict[str, Any]:
+               on_step: Optional[Callable[[int, Dict[str, Any]], None]] = None,
+               compute_dtype: str = "float32") -> Dict[str, Any]:
     """Runs ``step_fn`` on ``batches`` (numpy dicts) until the state's step
-    reaches ``steps``; ``on_step(step, metrics)`` after each step."""
+    reaches ``steps``; ``on_step(step, metrics)`` after each step. Float
+    entries of a batch go to the device in ``compute_dtype``."""
+    import torch
     from repro_torch.training import train as TR
+    dtype = getattr(torch, compute_dtype)
     for batch in batches:
         if int(state["step"]) >= steps:
             break
-        state, m = step_fn(state, TR.to_device(batch, device))
+        state, m = step_fn(state, TR.to_device(batch, device, dtype))
         s = int(state["step"])
         if on_step is not None:
             on_step(s, m)
@@ -83,10 +110,12 @@ def main(argv=None) -> None:
     if start is not None:
         print(f"resuming from checkpoint step {start}")
         state = mgr.restore(like=state)
-    batches = synthetic_batches(args.batch, args.seq, cfg.vocab_size, n=args.steps + 1)
+    batches = with_modality_inputs(
+        cfg, synthetic_batches(args.batch, args.seq, cfg.vocab_size, n=args.steps + 1))
     state = train_loop(state, TR.make_train_step(cfg, tcfg), batches,
                        steps=args.steps, device=device, mgr=mgr,
-                       ckpt_every=args.ckpt_every, log_every=args.log_every)
+                       ckpt_every=args.ckpt_every, log_every=args.log_every,
+                       compute_dtype=cfg.compute_dtype)
     mgr.wait()
     mgr.save(int(state["step"]), state)
     print(f"done at step {int(state['step'])}; checkpoints in {args.ckpt_dir}")

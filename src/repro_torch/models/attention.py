@@ -6,8 +6,9 @@ through ``ops.flash_attention`` (the CUDA kernel on the card), which takes
 GQA by head index and any S. ``blockwise_attention`` stays as the plain
 model-level version (key padding, separate ``qpos``/``kpos``) that the
 kernel is held against. Decode attention had no Pallas kernel and stays
-plain PyTorch. The prefix-LM mask comes with the vlm slice, MLA (and its
-own scale) with the moe slice.
+plain PyTorch. The full path takes the prefix-LM mask of the vlm family
+and of the encoder (``prefix_len``); MLA (and its own scale) comes with the
+moe slice.
 """
 from __future__ import annotations
 
@@ -36,10 +37,14 @@ def init_attention(gen: torch.Generator, cfg, d_in: Optional[int] = None,
     return nn.ParameterDict({k: L._param(v) for k, v in p.items()})
 
 
-def _block_attn(q, k, v, qpos, kpos, scale):
-    """One KV block of online-softmax attention; returns (o, m, l) terms."""
+def _block_attn(q, k, v, qpos, kpos, prefix_len, scale):
+    """One KV block of online-softmax attention; returns (o, m, l) terms.
+    Key j is valid for row i iff kpos[j] <= qpos[i] or kpos[j] < prefix_len
+    (``prefix_len`` None: the causal test alone)."""
     s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
     mask = qpos[None, None, :, None] >= kpos[None, None, None, :]
+    if prefix_len is not None:
+        mask = mask | (kpos[None, None, None, :] < prefix_len)
     s = torch.where(mask, s, torch.full_like(s, NEG))
     m_blk = s.amax(dim=-1)                              # (B,H,Sq)
     p = torch.exp(s - m_blk[..., None])
@@ -48,8 +53,9 @@ def _block_attn(q, k, v, qpos, kpos, scale):
     return o_blk, m_blk, l_blk
 
 
-def blockwise_attention(q, k, v, qpos, kpos, block: int = KV_BLOCK):
-    """q: (B,H,Sq,hd), k/v: (B,H,Sk,hd). Returns (B,H,Sq,hd). Plain version."""
+def blockwise_attention(q, k, v, qpos, kpos, prefix_len=None, block: int = KV_BLOCK):
+    """q: (B,H,Sq,hd), k/v: (B,H,Sk,hd). Returns (B,H,Sq,hd). Plain version,
+    with ``_block_attn``'s mask."""
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
     scale = hd ** -0.5
@@ -67,7 +73,7 @@ def blockwise_attention(q, k, v, qpos, kpos, block: int = KV_BLOCK):
     for s0 in range(0, Sk, block):
         o_blk, m_blk, l_blk = _block_attn(
             q, k[:, :, s0:s0 + block], v[:, :, s0:s0 + block], qpos,
-            kpos[s0:s0 + block], scale)
+            kpos[s0:s0 + block], prefix_len, scale)
         m_new = torch.maximum(m, m_blk)
         a = torch.exp(m - m_new)
         b = torch.exp(m_blk - m_new)
@@ -88,15 +94,18 @@ def _qkv(p, cfg, x, S):
     return q, k, v
 
 
-def apply_attention_full(p, cfg, x, positions):
-    """x: (B,S,D_in) -> (B,S,D). Causal full attention through the kernel."""
+def apply_attention_full(p, cfg, x, positions, prefix_len=None):
+    """x: (B,S,D_in) -> (B,S,D). Causal (or prefix-LM, keys below
+    ``prefix_len`` seen by every row) full attention through the kernel;
+    ``positions`` are 0..S-1, so the kernel's row indices are the positions."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, S)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     # (B,S,heads,hd) -> (B,heads,S,hd) views; the kernel reads them by stride
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True)
+                              v.transpose(1, 2), causal=True,
+                              prefix_len=prefix_len or 0)
     out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.head_dim)
     return out @ p["wo"].to(x.dtype)
 

@@ -1,16 +1,23 @@
-"""Model assembly, families ``dense``, ``ssm`` and ``hybrid``: parameters,
-forward and decode.
+"""Model assembly, families ``dense``, ``ssm``, ``hybrid``, ``vlm`` and
+``encdec``: parameters, forward and decode.
 
 Port of those families in ``repro/models/transformer.py``. The parameters
 are an ``nn.ModuleDict`` whose keys follow the JAX tree: ``embed/table``,
 ``final_norm/scale``, ``lm_head/w`` and, per layer, ``layers/<i>/...``
-(dense: ``ln1``, ``attn/{wq,wk,wv,wo}``, ``ln2``, ``mlp/{gate,up,down}``;
-ssm: ``ln``, ``ssm/...``). The hybrid family (zamba2) has
-``groups/<g>/<j>/...`` (``shared_attn_interval`` ssm layers per group),
-``leftover/<i>/...`` and one weight-shared attention+MLP block ``shared/...``
-applied after every group over ``concat(h, emb0)``. The JAX package stacks
-the layers on leading axes and scans over them; here they are
-``nn.ModuleList``s and loops. Other families come with later slices.
+(dense and vlm: ``ln1``, ``attn/{wq,wk,wv,wo}``, ``ln2``,
+``mlp/{gate,up,down}``; ssm: ``ln``, ``ssm/...``). The hybrid family
+(zamba2) has ``groups/<g>/<j>/...`` (``shared_attn_interval`` ssm layers
+per group), ``leftover/<i>/...`` and one weight-shared attention+MLP block
+``shared/...`` applied after every group over ``concat(h, emb0)``. The
+encdec family (whisper) has ``enc_layers/<i>/...`` (dense layers over the
+frames, bidirectional), ``enc_norm/scale`` and ``dec_layers/<i>/...``
+(``ln1``, ``self_attn``, ``ln_x``, ``cross_attn`` over the encoder's
+output, ``ln2``, ``mlp``). The vlm family (paligemma, vit) is the dense
+stack over ``concat(patches, embed(tokens))`` with the patches a
+bidirectional prefix. The modality frontends are stubs, as in the JAX
+package: frames and patches arrive as (B, n, d_model) embeddings. The JAX
+package stacks the layers on leading axes and scans over them; here they
+are ``nn.ModuleList``s and loops. The moe family comes with a later slice.
 
 ``apply_lm``         : full-sequence forward -> (logits, aux)  [train/prefill]
 ``apply_lm_decode``  : one-token forward with caches -> (logits, caches)
@@ -37,12 +44,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import device as dev
 from repro_torch.configs import PORTED_FAMILIES
+from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
-_LATER = {"moe": "the moe slice", "encdec": "the vlm/encdec slice",
-          "vlm": "the vlm/encdec slice"}
+_LATER = {"moe": "the moe slice"}
 
 
 def _check_family(cfg) -> None:
@@ -103,6 +110,17 @@ def _init_ssm_layer(gen, cfg, dtype) -> nn.ModuleDict:
                           "ssm": S.init_ssm(gen, cfg, dtype)})
 
 
+def _init_encdec_dec_layer(gen, cfg, dtype) -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "ln1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "self_attn": A.init_attention(gen, cfg, dtype=dtype),
+        "ln_x": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "cross_attn": A.init_attention(gen, cfg, dtype=dtype),
+        "ln2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype),
+    })
+
+
 def _init_shared_block(gen, cfg, dtype) -> nn.ModuleDict:
     """Zamba2 shared attention block over concat(hidden, embed0) = 2*d_model."""
     Dc = 2 * cfg.d_model
@@ -133,10 +151,14 @@ def init_lm(cfg, seed: int = 0, *, device: dev.DeviceLike = "cuda") -> nn.Module
     def stack(init, n):
         return nn.ModuleList([init(gen, cfg, dtype) for _ in range(n)])
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         params["layers"] = stack(_init_dense_layer, cfg.num_layers)
     elif cfg.family == "ssm":
         params["layers"] = stack(_init_ssm_layer, cfg.num_layers)
+    elif cfg.family == "encdec":
+        params["enc_layers"] = stack(_init_dense_layer, cfg.num_enc_layers)
+        params["dec_layers"] = stack(_init_encdec_dec_layer, cfg.num_layers)
+        params["enc_norm"] = L.init_rmsnorm(D, dtype, d)
     else:                                                    # hybrid
         n_groups, leftover = hybrid_split(cfg)
         params["groups"] = nn.ModuleList(
@@ -152,10 +174,10 @@ def init_lm(cfg, seed: int = 0, *, device: dev.DeviceLike = "cuda") -> nn.Module
 # full-sequence bodies
 # ---------------------------------------------------------------------------
 
-def _dense_body(cfg, lp, h, positions):
+def _dense_body(cfg, lp, h, positions, prefix_len=None):
     h = h + A.apply_attention_full(lp["attn"], cfg,
                                    L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps),
-                                   positions)
+                                   positions, prefix_len)
     return h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
                            cfg.act)
 
@@ -181,6 +203,46 @@ def _shared_body(cfg, sp, h, emb0, positions):
     return _shared_mlp(cfg, sp, h, emb0)
 
 
+def _cross_attention(p, cfg, x, enc_out):
+    """Decoder queries (B, Sq, D) over the encoder's output (B, Se, D), every
+    key valid for every query and no RoPE (the JAX version's qpos = kpos = 0
+    with prefix_len 1). K and V stay at KH heads: the kernel takes GQA by
+    head index."""
+    B, Sq, _ = x.shape
+    Se = enc_out.shape[1]
+    hd, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, Sq, H, hd)
+    k = (enc_out @ p["wk"].to(dt)).reshape(B, Se, KH, hd)
+    v = (enc_out @ p["wv"].to(dt)).reshape(B, Se, KH, hd)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=False)
+    return out.transpose(1, 2).reshape(B, Sq, H * hd) @ p["wo"].to(dt)
+
+
+def _decoder_body(cfg, lp, h, positions, enc_out):
+    """An encdec decoder layer: causal self-attention, cross-attention over
+    the encoder's output, MLP, each after its pre-norm."""
+    h = h + A.apply_attention_full(lp["self_attn"], cfg,
+                                   L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps), positions)
+    h = h + _cross_attention(lp["cross_attn"], cfg,
+                             L.apply_rmsnorm(lp["ln_x"], h, cfg.norm_eps), enc_out)
+    return h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
+                           cfg.act)
+
+
+def _encode(params, cfg, frames: torch.Tensor, *, remat: str = "none") -> torch.Tensor:
+    """The encdec encoder: frames (B, Se, D) through the encoder layers, each
+    bidirectional over the Se frames (prefix_len Se), then ``enc_norm``."""
+    he = frames.to(_cdt(cfg))
+    B, Se = he.shape[:2]
+    epos = torch.arange(Se, dtype=torch.int32, device=he.device)[None].expand(B, Se)
+    body = _remat(lambda hh, lp: _dense_body(cfg, lp, hh, epos, Se), remat)
+    for lp in params["enc_layers"]:
+        he = body(he, lp)
+    return L.apply_rmsnorm(params["enc_norm"], he, cfg.norm_eps)
+
+
 def _head(params, cfg, h):
     """fp32 logits from a product in the compute dtype."""
     if "lm_head" in params:
@@ -190,19 +252,33 @@ def _head(params, cfg, h):
     return logits.float()
 
 
-def apply_lm(params, cfg, tokens: torch.Tensor, *,
+def apply_lm(params, cfg, tokens: torch.Tensor, *, frames=None, patches=None,
              remat: str = "none") -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """tokens: (B,S) int. Returns (logits (B,S,V) fp32, aux dict). ``remat``
-    wraps each layer body (none | full | dots), as the JAX ``apply_lm``."""
+    """tokens: (B,S) int; frames: (B, enc_S, D) [encdec]; patches: (B, P, D)
+    [vlm], placed before the tokens as a bidirectional prefix. Returns
+    (logits (B, S*, V) fp32, with S* = P + S for vlm, and an aux dict).
+    ``remat`` wraps each layer body (none | full | dots), as the JAX
+    ``apply_lm``."""
     _check_family(cfg)
-    B, S_ = tokens.shape
+    B = tokens.shape[0]
     h = L.apply_embed(params["embed"], tokens).to(_cdt(cfg))
+    prefix_len = None
+    if cfg.family == "vlm":
+        h = torch.cat([patches.to(h.dtype), h], dim=1)
+        prefix_len = cfg.num_patches
+    S_ = h.shape[1]
     positions = torch.arange(S_, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S_)
-    if cfg.family == "dense":
-        body = _remat(lambda hh, lp: _dense_body(cfg, lp, hh, positions), remat)
+    if cfg.family in ("dense", "vlm"):
+        body = _remat(lambda hh, lp: _dense_body(cfg, lp, hh, positions, prefix_len),
+                      remat)
         for lp in params["layers"]:
             h = body(h, lp)
+    elif cfg.family == "encdec":
+        he = _encode(params, cfg, frames, remat=remat)
+        body = _remat(lambda hh, lp, e: _decoder_body(cfg, lp, hh, positions, e), remat)
+        for lp in params["dec_layers"]:
+            h = body(h, lp, he)
     else:
         body = _remat(lambda hh, lp: _ssm_body(cfg, lp, hh), remat)
         if cfg.family == "ssm":
@@ -227,20 +303,27 @@ def apply_lm(params, cfg, tokens: torch.Tensor, *,
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                 device: dev.DeviceLike = "cuda"):
-    """Per-layer caches in the layout of the parameters: dense
+    """Per-layer caches in the layout of the parameters: dense and vlm
     {"layers": [{"k", "v"}, ...]}; ssm {"layers": [{"state", "conv_*"}, ...]};
     hybrid {"groups": [[ssm cache, ...], ...], "shared": [kv cache per group],
-    "leftover": [...]}. The ssm caches are fp32 whatever ``dtype`` is, as in
-    the JAX package."""
+    "leftover": [...]}; encdec {"self": [kv cache per decoder layer],
+    "cross": [kv cache of ``enc_seq`` per decoder layer]}, the cross caches
+    zero until ``fill_cross_caches`` writes them. The ssm caches are fp32
+    whatever ``dtype`` is, as in the JAX package."""
     _check_family(cfg)
     d = dev.resolve(device)
 
     def ssm_caches(n):
         return [S.init_ssm_cache(cfg, batch, device=d) for _ in range(n)]
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return {"layers": [A.init_kv_cache(cfg, batch, max_len, dtype, d)
                            for _ in range(cfg.num_layers)]}
+    if cfg.family == "encdec":
+        return {"self": [A.init_kv_cache(cfg, batch, max_len, dtype, d)
+                         for _ in range(cfg.num_layers)],
+                "cross": [A.init_kv_cache(cfg, batch, cfg.enc_seq, dtype, d)
+                          for _ in range(cfg.num_layers)]}
     if cfg.family == "ssm":
         return {"layers": ssm_caches(cfg.num_layers)}
     n_groups, leftover = hybrid_split(cfg)
@@ -250,6 +333,35 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
     if leftover:
         c["leftover"] = ssm_caches(leftover)
     return c
+
+
+@torch.no_grad()
+def fill_cross_caches(params, cfg, caches, frames: torch.Tensor):
+    """Runs the encoder on ``frames`` and writes each decoder layer's
+    cross-attention keys and values of its output into ``caches["cross"]``
+    in place (as ``tests/test_models.py`` fills the JAX caches; the serving
+    engine, as the JAX one, leaves them zero). Returns ``caches``."""
+    he = _encode(params, cfg, frames)
+    B, Se = he.shape[:2]
+    hd, KH = cfg.head_dim, cfg.num_kv_heads
+    for lp, cache in zip(params["dec_layers"], caches["cross"]):
+        for name, w in (("k", "wk"), ("v", "wv")):
+            t = (he @ lp["cross_attn"][w].to(he.dtype)).reshape(B, Se, KH, hd)
+            cache[name].copy_(t.transpose(1, 2))
+    return caches
+
+
+def _cross_attention_decode(p, cfg, x, kc, vc):
+    """One decoder token (B, 1, D) over cross caches k/v (B, KH, Se, hd):
+    every key valid. Plain torch (the JAX version had no Pallas kernel)."""
+    B = x.shape[0]
+    hd, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, KH, H // KH, hd)
+    s = torch.einsum("bkgd,bksd->bkgs", q.float(), kc.float()) * hd ** -0.5
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bksd->bkgd", w.to(vc.dtype), vc)
+    return o.reshape(B, 1, H * hd).to(dt) @ p["wo"].to(dt)
 
 
 def _ssm_layers_decode(cfg, layers, h, caches):
@@ -269,12 +381,24 @@ def apply_lm_decode(params, cfg, token: torch.Tensor, caches, index: int):
     """
     _check_family(cfg)
     h = L.apply_embed(params["embed"], token).to(_cdt(cfg))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):          # vlm decode sees no patches, as in JAX
         for lp, cache in zip(params["layers"], caches["layers"]):
             a, _ = A.apply_attention_decode(
                 lp["attn"], cfg, L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps),
                 cache, index)
             h = h + a
+            h = h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
+                                cfg.act)
+    elif cfg.family == "encdec":
+        for lp, scache, xcache in zip(params["dec_layers"], caches["self"],
+                                      caches["cross"]):
+            a, _ = A.apply_attention_decode(
+                lp["self_attn"], cfg, L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps),
+                scache, index)
+            h = h + a
+            h = h + _cross_attention_decode(
+                lp["cross_attn"], cfg, L.apply_rmsnorm(lp["ln_x"], h, cfg.norm_eps),
+                xcache["k"], xcache["v"])
             h = h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
                                 cfg.act)
     elif cfg.family == "ssm":

@@ -6,8 +6,10 @@ train state is a dict ``{"params": nn.ModuleDict (requires_grad), "opt":
 {"mu", "nu", "count"}, "step": int32 tensor}``; ``make_train_step(cfg,
 tcfg)`` returns ``(state, batch) -> (state, metrics)``, which updates the
 state in place and returns it. A batch is ``{"tokens", "targets"}`` (B, S)
-integer tensors on the state's device (``to_device``). The entry points
-default to the card.
+integer tensors on the state's device (``to_device``), with ``"frames"``
+(B, enc_seq, d_model) for the encdec family and ``"patches"`` (B,
+num_patches, d_model) for the vlm family; for vlm the loss reads the text
+positions' logits only. The entry points default to the card.
 
 As in the JAX package, ``TrainConfig.beta1`` and ``beta2`` never reach the
 optimizer: only ``learning_rate`` and ``weight_decay`` are passed, so
@@ -34,18 +36,35 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return (lse - picked).mean()
 
 
+# The batch entries the modality stubs feed, by family.
+MODALITY_INPUT = {"encdec": "frames", "vlm": "patches"}
+
+
 def make_loss_fn(cfg, tcfg):
     def loss_fn(params, batch):
-        logits, aux = T.apply_lm(params, cfg, batch["tokens"], remat=tcfg.remat)
+        kwargs = {}
+        if cfg.family in MODALITY_INPUT:
+            name = MODALITY_INPUT[cfg.family]
+            kwargs[name] = batch[name]
+        logits, aux = T.apply_lm(params, cfg, batch["tokens"], remat=tcfg.remat, **kwargs)
+        if cfg.family == "vlm":                   # text positions only
+            logits = logits[:, cfg.num_patches:, :]
         loss = cross_entropy(logits, batch["targets"]) + aux["moe_aux"]
         return loss, {"ce": loss}
     return loss_fn
 
 
-def to_device(batch: Dict[str, Any], device: dev.DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
-    """numpy or torch integer arrays -> int64 tensors on ``device``."""
+def to_device(batch: Dict[str, Any], device: dev.DeviceLike = "cuda",
+              dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """numpy or torch arrays -> tensors on ``device``: integer entries (the
+    tokens and targets) as int64, float entries (frames, patches) in
+    ``dtype``, the compute dtype."""
     d = dev.resolve(device)
-    return {k: torch.as_tensor(v).to(device=d, dtype=torch.long) for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t.to(device=d, dtype=dtype if t.is_floating_point() else torch.long)
+    return out
 
 
 def init_train_state(cfg, tcfg, seed: int = 0, *,
@@ -99,18 +118,24 @@ def kernel_launches_per_step(cfg, remat: str) -> Dict[str, int]:
     step of ``cfg`` (``accum_steps`` 1) under ``remat``. Under "full" and
     "dots" each layer's forward kernels run again in the recompute; the
     final norm, and the hybrid family's shared attention block, are outside
-    it (as in the JAX package, ``repro/models/transformer.py:316-320``). A
-    forward of n layers launches: dense flash n, rmsnorm 2n + 1; ssm
-    ssd_scan n, rmsnorm 2n + 1; hybrid (n mamba layers, g shared blocks)
-    ssd_scan n, flash g, rmsnorm 2n + 2g + 1. Each backward kernel runs once
-    per forward call outside the recompute."""
+    it (as in the JAX package, ``repro/models/transformer.py:316-320``), as
+    is the encdec encoder's ``enc_norm``. A forward of n layers launches:
+    dense and vlm flash n, rmsnorm 2n + 1; ssm ssd_scan n, rmsnorm 2n + 1;
+    hybrid (n mamba layers, g shared blocks) ssd_scan n, flash g, rmsnorm
+    2n + 2g + 1; encdec (ne encoder and n decoder layers) flash ne + 2n,
+    rmsnorm 2ne + 1 + 3n + 1. Each backward kernel runs once per forward
+    call outside the recompute."""
     twice = 1 if remat == "none" else 2
     n = cfg.num_layers
+    ne = cfg.num_enc_layers
     g = T.hybrid_split(cfg)[0] if cfg.family == "hybrid" else 0
-    fwd = {"dense": {"flash_attention": (n, 0), "rmsnorm": (2 * n, 1)},
+    dense = {"flash_attention": (n, 0), "rmsnorm": (2 * n, 1)}
+    fwd = {"dense": dense, "vlm": dense,
            "ssm": {"ssd_scan": (n, 0), "rmsnorm": (2 * n, 1)},
            "hybrid": {"ssd_scan": (n, 0), "flash_attention": (0, g),
-                      "rmsnorm": (2 * n, 2 * g + 1)}}[cfg.family]
+                      "rmsnorm": (2 * n, 2 * g + 1)},
+           "encdec": {"flash_attention": (ne + 2 * n, 0),
+                      "rmsnorm": (2 * ne + 3 * n, 2)}}[cfg.family]
     counts = {name: 0 for name in ops.LAUNCHES}
     for name, (in_remat, outside) in fwd.items():
         counts[name] = twice * in_remat + outside

@@ -214,6 +214,115 @@ def test_model_on_card_matches_cpu(cuda, aid, kw, S):
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
+def _modality(cfg, B):
+    """Seeded frames (encdec) or patches (vlm) of the config's shape."""
+    name = TR.MODALITY_INPUT.get(cfg.family)
+    if name is None:
+        return {}
+    n = cfg.num_patches if cfg.family == "vlm" else cfg.enc_seq
+    return {name: torch.randn((B, n, cfg.d_model), generator=torch.Generator().manual_seed(3))}
+
+
+@pytest.mark.parametrize("aid,kw", [("paligemma-3b", {}), ("vit-base-16", {}),
+                                    ("whisper-large-v3", {}),
+                                    ("whisper-large-v3", {"num_kv_heads": 2})])
+def test_family_on_card_matches_cpu(cuda, aid, kw):
+    """The reduced vlm and encdec models: logits on the card (prefix-LM,
+    bidirectional encoder and cross-attention through the kernel) equal
+    the CPU's, the forward's launches exactly the path's."""
+    cfg = reduced(get_arch(aid).model).replace(
+        param_dtype="float32", compute_dtype="float32", **kw)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(0))
+    extra = _modality(cfg, 2)
+    with torch.inference_mode():
+        want, _ = T.apply_lm(T.init_lm(cfg, 0, device="cpu"), cfg, toks, **extra)
+        ops.reset_launches()
+        got, _ = T.apply_lm(T.init_lm(cfg, 0, device="cpu").to(cuda), cfg, toks.to(cuda),
+                            **{k: v.to(cuda) for k, v in extra.items()})
+    per_step = TR.kernel_launches_per_step(cfg, "none")
+    assert ops.LAUNCHES == {k: (v if not k.endswith("_bwd") else 0) for k, v in per_step.items()}
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# B, H, KH, Sq, Sk, D, prefix (None: non-causal), dtype: chip_smoke.py's
+# cases at smaller batches, and the tile edges of the prefix
+PREFIX_CASES = [
+    (1, 8, 1, 384, 384, 256, 256, torch.bfloat16),     # paligemma serve, MQA hd 256
+    (2, 12, 12, 212, 212, 64, 196, torch.bfloat16),    # vit train
+    (1, 20, 20, 1500, 1500, 64, None, torch.bfloat16),  # whisper encoder
+    (1, 20, 20, 4096, 1500, 64, None, torch.bfloat16),  # whisper cross
+    (1, 4, 2, 100, 100, 48, 37, torch.float32),        # ragged small
+    (1, 4, 2, 100, 100, 48, 37, torch.bfloat16),
+    (1, 4, 2, 300, 300, 64, 127, torch.bfloat16),      # a tile's last key past the prefix
+    (1, 4, 2, 300, 300, 128, 129, torch.bfloat16),     # one key past a dK/dV block
+    (1, 4, 4, 260, 100, 64, 70, torch.float32),        # rows past every key
+    (2, 12, 12, 212, 212, 64, 196, torch.float32)]
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,prefix,dtype", PREFIX_CASES)
+def test_flash_attention_prefix_kernel(cuda, B, H, KH, Sq, Sk, D, prefix, dtype):
+    """The prefix-LM mask (and the non-causal mode of the encoder and the
+    cross-attention) through the forward, its lse and, where the head dim
+    allows it, the backward, each against the plain version on the card;
+    the backward's two runs give equal bits."""
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + D + (prefix or 0))
+    q = _randn(gen, (B, Sq, H, D), dtype, cuda).transpose(1, 2)
+    k = _randn(gen, (B, Sk, KH, D), dtype, cuda).transpose(1, 2)
+    v = _randn(gen, (B, Sk, KH, D), dtype, cuda).transpose(1, 2)
+    do = _randn(gen, (B, Sq, H * D), dtype, cuda).view(B, Sq, H, D).transpose(1, 2)
+    causal, p = prefix is not None, prefix or 0
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True, prefix_len=p)
+    o_plain, lse_plain = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True,
+                                                   prefix_len=p)
+    torch.testing.assert_close(o.float(), o_plain.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, lse_plain, atol=1e-3, rtol=1e-4)
+    if D > fa.MAX_BWD_HEAD_DIM:
+        with pytest.raises(ValueError, match="192/256"):
+            fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, p)
+        return
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, p)
+    want = ref.reference_attention_bwd(q, k, v, o, lse, do, causal=causal, prefix_len=p)
+    for got, w in zip(grads, want):
+        torch.testing.assert_close(got.float(), w.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, p)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_zero_and_past_sk_give_the_plain_masks_bits(cuda, dtype):
+    """prefix 0 launches give the causal kernel's bits, a prefix of Sk or
+    more the non-causal kernel's, forward (o and lse) and backward."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    B, H, KH, S, D = 1, 4, 2, 300, 64
+    q = _randn(gen, (B, S, H, D), dtype, cuda).transpose(1, 2)
+    k, v = (_randn(gen, (B, S, KH, D), dtype, cuda).transpose(1, 2) for _ in range(2))
+    do = _randn(gen, (B, H, S, D), dtype, cuda)
+    for p, causal in ((0, True), (S, False), (S + 50, False)):
+        o, lse = fa.flash_attention_cuda(q, k, v, True, return_lse=True, prefix_len=p)
+        o2, lse2 = fa.flash_attention_cuda(q, k, v, causal, return_lse=True)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        g = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, p)
+        g2 = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+        assert all(torch.equal(a, b) for a, b in zip(g, g2))
+
+
+def test_prefix_autograd_launches_and_refuses_wide_heads(cuda):
+    """Under autograd a prefix call launches both kernels once; at head dim
+    256 it raises before any launch: no fallback to the plain backward."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q = _randn(gen, (1, 4, 120, 64), torch.bfloat16, cuda).requires_grad_(True)
+    before = dict(ops.LAUNCHES)
+    ops.flash_attention(q, q, q, prefix_len=50).sum().backward()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    wide = torch.zeros(1, 8, 64, 256, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.zeros(1, 1, 64, 256, device=cuda, dtype=torch.bfloat16)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="paligemma"):
+        ops.flash_attention(wide, kv, kv, prefix_len=8)
+    assert ops.LAUNCHES == before
+
+
 @pytest.mark.parametrize("R,D", [(4, 2048), (1000, 2048), (77, 2050), (3, 8192),
                                  (8192, 2048)])
 @pytest.mark.parametrize("x_dtype,s_dtype", [
@@ -349,7 +458,9 @@ def test_autograd_on_card_matches_cpu(cuda, dtype):
 @pytest.mark.parametrize("aid,kw,S", [
     ("stablelm-1.6b", {"num_layers": 3, "num_kv_heads": 2}, 64),
     ("mamba2-370m", {"num_layers": 3}, 64),
-    ("zamba2-1.2b", {"num_layers": 5}, 64)], ids=["stablelm", "mamba2", "zamba2"])
+    ("zamba2-1.2b", {"num_layers": 5}, 64),
+    ("paligemma-3b", {}, 64), ("whisper-large-v3", {}, 64), ("vit-base-16", {}, 64)],
+    ids=["stablelm", "mamba2", "zamba2", "paligemma", "whisper", "vit"])
 def test_train_steps_on_card_match_cpu(cuda, remat, aid, kw, S):
     """Reduced models in fp32: two steps on the card through the kernels
     and on the CPU through the plain versions, from the same init; the
@@ -363,7 +474,7 @@ def test_train_steps_on_card_match_cpu(cuda, remat, aid, kw, S):
     step = TR.make_train_step(cfg, tcfg)
     toks = torch.randint(0, cfg.vocab_size, (2, S + 1),
                          generator=torch.Generator().manual_seed(0))
-    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:], **_modality(cfg, 2)}
     expect = TR.kernel_launches_per_step(cfg, remat)
     for _ in range(2):
         ops.reset_launches()
