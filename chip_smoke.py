@@ -62,7 +62,26 @@ its seconds:
                 1500 frames, and vit-base-16 at batch 64 (196 patches, 16
                 tokens; remat full), through ``launch/train.py``'s loop: one
                 warm-up step, then 4 steps on one fixed batch, each with
-                exactly its launches.
+                exactly its launches;
+7. workflow     the paper's production loop through the port's Couler layer
+                (``repro_torch.core``): full-width bf16 stablelm-1.6b as the
+                steps prepare-corpus (a ``ShardedCorpus``), train (a warm-up
+                step and 4 steps at (2, 4096) read through
+                ``CachedShardReader``, not cacheable), evaluate and serve
+                (``ServingEngine.generate`` on the trained params) on
+                ``LocalEngine(enable_speculation=False, profile_steps=True)``,
+                submitted twice: each step's record and profile, the train
+                steps' times by CUDA events against the profile's fenced
+                ``execute_s``, exact launches per train step and serve pass,
+                prepare-corpus Cached and shard-cache hits the second time,
+                and the time of the serve step's content key over the
+                trained params; then reduced checks in fp32: a recomputed
+                CUDA tensor artifact leaves its consumer Cached, a
+                checkpoint-wired train step resumes after mid-step kills
+                with an uninterrupted run's losses, a profiled step that
+                returns with ~50 ms of products queued has an
+                ``execute_s`` that covers them, and ``train_real_model``
+                ends lower at lr 3e-3 than at 3.0.
 
 Then a summary line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero before
@@ -306,6 +325,356 @@ def sdpa_mask(torch, Sq: int, Sk: int, causal: bool, prefix: int, device):
 def bound(nbytes: float, ops_s: float):
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_bytes, ops_s), ("bytes" if t_bytes >= ops_s else "operations")
+
+
+# The workflow phase: stablelm-1.6b's production loop as Couler steps over a
+# corpus of 8 shards of 8,192 tokens over the model's vocab, of which the
+# warm-up step and TRAIN_STEPS steps at (TRAIN_BATCH, TRAIN_SEQ) read 40,970.
+WF_ARCH = "stablelm-1.6b"
+WF_SHARDS, WF_SHARD_TOKENS = 8, 8192
+# The reduced checks: checkpoint-resume after a mid-step kill (as
+# tests/test_faults.py sets it) and the Fig. 8 payload's two learning rates.
+WF_RESUME_ITERS = 6
+WF_KILL_PLAN = dict(seed=5, worker_loss_rate=1.0, max_failures_per_site=2,
+                    mid_step_kill_window=4)
+WF_GOOD_LR, WF_BAD_LR, WF_TUNE_STEPS = 3e-3, 3.0, 30
+
+
+def workflow_phase(torch, cuda, main_paths, every_kernel) -> None:
+    """Phase 7. The full-width production loop of ``WF_ARCH`` (bf16, its own
+    TrainConfig) as a Couler workflow on the port's ``LocalEngine``
+    (speculation off, every step profiled), submitted twice; then reduced
+    checks on the card in fp32: a recomputed tensor artifact keeps its
+    consumer Cached, a checkpoint-wired train step resumes after mid-step
+    kills with the losses of an uninterrupted run, a profiled step's
+    ``execute_s`` covers the card work it left queued, and
+    ``train_real_model`` orders a good and a bad learning rate. Adds the loop's launches to
+    ``main_paths``; raises on any failed check."""
+    import shutil
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import couler
+    from repro_torch.core.autotune import train_real_model
+    from repro_torch.core.caching import CacheStore, CoulerPolicy
+    from repro_torch.core.engines.base import StepStatus
+    from repro_torch.core.engines.local import LocalEngine, cache_key
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.data.pipeline import (CachedShardReader, ShardedCorpus,
+                                           synthetic_batches)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training import train as TR
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_workflow"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg, tcfg = launch_train.configs(WF_ARCH, full=True)
+    expect_step = TR.kernel_launches_per_step(cfg, tcfg.remat)
+    decode_steps = SERVE_PROMPT + SERVE_GEN - 1
+    expect_serve = every_kernel({"rmsnorm": decode_steps * (2 * cfg.num_layers + 1)})
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator().manual_seed(4))
+    cache = CacheStore(capacity_bytes=1 << 30, policy=CoulerPolicy())
+    inside = []        # per submission: what its train and serve steps measured
+
+    def launches_since(before):
+        return {k: v - before.get(k, 0) for k, v in ops.LAUNCHES.items()}
+
+    def prepare_corpus():
+        corpus = ShardedCorpus(str(work / "shards"), n_shards=WF_SHARDS,
+                               tokens_per_shard=WF_SHARD_TOKENS, vocab=cfg.vocab_size)
+        corpus.materialize()
+        return corpus
+
+    def train(corpus):
+        """A warm-up step and TRAIN_STEPS steps on batches read through the
+        artifact cache, each timed by CUDA events, its launches counted on
+        the host. Nothing here waits for the card: the step returns while
+        the last update still runs, and the engine's fence waits for it."""
+        rec = inside[-1]
+        hits, misses = cache.stats["hits"], cache.stats["misses"]
+        reader = CachedShardReader(corpus, cache=cache)
+        state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
+        step_fn = TR.make_train_step(cfg, tcfg)
+        batches = reader.batches(TRAIN_BATCH, TRAIN_SEQ)
+        losses, gnorms = [], []
+        for _ in range(1 + TRAIN_STEPS):
+            batch = TR.to_device(next(batches), cuda)
+            before = dict(ops.LAUNCHES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step_fn(state, batch)
+            end.record()
+            rec["train_launches"].append(launches_since(before))
+            rec["events"].append((start, end))
+            losses.append(m["loss"])
+            gnorms.append(m["grad_norm"])
+        h, ms = cache.stats["hits"] - hits, cache.stats["misses"] - misses
+        rec["shard_reads"] = {"hits": h, "misses": ms}
+        return {"losses": torch.stack(losses), "grad_norms": torch.stack(gnorms),
+                "params": state["params"]}
+
+    def evaluate(result):
+        losses = result["losses"].tolist()
+        return losses[-1] < losses[0]
+
+    def serve(result):
+        rec = inside[-1]
+        engine = ServingEngine(cfg, result["params"], max_len=SERVE_PROMPT + SERVE_GEN,
+                               device=cuda)
+        before = dict(ops.LAUNCHES)
+        res = engine.generate(prompts, gen_len=SERVE_GEN)
+        rec["serve_launches"].append(launches_since(before))
+        rec["serve"] = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
+                        "tokens_per_s": res.tokens_per_s,
+                        "decode_step_ms": 1e3 * res.decode_s / (SERVE_GEN - 1)}
+        return res.tokens
+
+    def build():
+        with couler.workflow(f"train-serve-{WF_ARCH}") as ir:
+            corpus = couler.run_step(prepare_corpus, step_name="prepare-corpus")
+            result = couler.run_step(train, corpus, step_name="train", cacheable=False)
+            couler.run_step(evaluate, result, step_name="evaluate")
+            couler.run_step(serve, result, step_name="serve")
+        return ir
+
+    # the main path: both submissions, counted from 0
+    eng = LocalEngine(cache=cache, enable_speculation=False, profile_steps=True)
+    runs = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    try:
+        for _ in range(2):
+            inside.append({"train_launches": [], "events": [], "serve_launches": []})
+            runs.append(eng.submit(build()))
+    finally:
+        eng.close()
+    path_launches = dict(ops.LAUNCHES)
+
+    def shard_hit_ratio(rec):
+        n = rec["shard_reads"]["hits"] + rec["shard_reads"]["misses"]
+        return rec["shard_reads"]["hits"] / n if n else 0.0
+
+    subs, ok = [], True
+    want_total = every_kernel({})
+    for run, rec in zip(runs, inside):
+        steps = {name: {"status": r.status.value, "seconds": r.end - r.start,
+                        "attempts": r.attempts, "profile": r.profile,
+                        **({"error": r.error} if r.error else {})}
+                 for name, r in run.steps.items()}
+        sub = {"status": run.status, "steps": steps}
+        if run.succeeded():
+            event_s = [a.elapsed_time(b) / 1e3 for a, b in rec["events"]]
+            prof = run.steps["train"].profile or {}
+            result = run.artifacts["train:out"]
+            sub.update({
+                "evaluate": run.artifacts["evaluate:out"],
+                "losses": result["losses"].tolist(),
+                "grad_norms": result["grad_norms"].tolist(),
+                "train_step_s_by_events": event_s,
+                "train_execute_s": prof.get("execute_s"),
+                "train_device_bytes_in_use": prof.get("device_bytes_in_use"),
+                "shard_reads": rec["shard_reads"],
+                "shard_hit_ratio": shard_hit_ratio(rec),
+                "train_launches_per_step": rec["train_launches"],
+                "serve_launches": rec["serve_launches"],
+                "serve": rec.get("serve")})
+            ok = (ok and run.artifacts["evaluate:out"] is True
+                  and len(rec["train_launches"]) == 1 + TRAIN_STEPS
+                  and all(ls == expect_step for ls in rec["train_launches"])
+                  and all(ls == expect_serve for ls in rec["serve_launches"])
+                  and prof.get("execute_s", 0.0) >= sum(event_s)
+                  and prof.get("device_bytes_in_use", 0.0) > 0
+                  and all(map(math.isfinite, sub["losses"] + sub["grad_norms"])))
+            for ls in rec["train_launches"] + rec["serve_launches"]:
+                want_total = {k: want_total[k] + ls[k] for k in want_total}
+        else:
+            ok = False
+        subs.append(sub)
+    ok = (ok and path_launches == want_total
+          and runs[1].steps["prepare-corpus"].status == StepStatus.CACHED
+          and shard_hit_ratio(inside[1]) > 0)
+
+    # the content key of the serve step: the trained params, hashed on the host
+    params = runs[-1].artifacts["train:out"]["params"]
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    t0 = time.perf_counter()
+    key = cache_key(runs[-1].workflow.jobs["serve"], runs[-1].artifacts)
+    key_s = time.perf_counter() - t0
+    emit({"phase": "workflow", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": cfg.compute_dtype,
+          "optimizer": tcfg.optimizer, "remat": tcfg.remat, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "reduced": TRAIN_CUT,
+          "corpus": {"shards": WF_SHARDS, "tokens_per_shard": WF_SHARD_TOKENS,
+                     "vocab": cfg.vocab_size},
+          "engine": {"enable_speculation": False, "profile_steps": True},
+          "submissions": subs, "expected_train_launches_per_step": expect_step,
+          "expected_serve_launches": expect_serve, "launches": path_launches,
+          "expected_launches": want_total,
+          "serve_cache_key": {"seconds": key_s, "param_bytes": param_bytes,
+                              "key": key},
+          "ok": ok, "seconds": time.perf_counter() - t_phase})
+    if not ok:
+        fail(f"the {WF_ARCH} workflow phase failed: {subs}")
+    for name, n in want_total.items():
+        if n and path_launches[name] == 0:
+            fail(f"kernel {name} was never launched on the {WF_ARCH} workflow path")
+    main_paths[f"{WF_ARCH}/workflow"] = path_launches
+    del runs, params, inside, subs
+    torch.cuda.empty_cache()
+
+    # reduced checks on the card, fp32 -----------------------------------------
+    t_phase = time.perf_counter()
+    small = reduced(get_arch(WF_ARCH).model).replace(param_dtype="float32",
+                                                     compute_dtype="float32")
+    small_tcfg = dataclasses.replace(get_arch(WF_ARCH).train, learning_rate=1e-3,
+                                     remat="none")
+    made, used = [], []
+    tokens = torch.randint(0, small.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(2)).to(cuda)
+
+    def make_logits():
+        """Non-cacheable: the same logits on the card in a new tensor."""
+        with torch.inference_mode():
+            logits, _ = T.apply_lm(T.init_lm(small, 1, device=cuda), small, tokens)
+        made.append(logits)
+        return logits
+
+    def consume(logits):
+        used.append(1)
+        return float(logits.abs().sum())
+
+    def build_recompute():
+        with couler.workflow("recompute") as ir:
+            t = couler.run_step(make_logits, step_name="make", cacheable=False)
+            couler.run_step(consume, t, step_name="consume")
+        return ir
+
+    eng = LocalEngine(cache=CacheStore(), enable_speculation=False)
+    try:
+        rr = [eng.submit(build_recompute()) for _ in range(2)]
+    finally:
+        eng.close()
+    recompute = {"statuses": [{k: r.steps[k].status.value for k in r.steps} for r in rr],
+                 "logits_on": str(made[0].device) if made else None,
+                 "equal_values": bool(len(made) == 2 and torch.equal(made[0], made[1])),
+                 "new_tensor": bool(len(made) == 2 and made[0] is not made[1]
+                                    and made[0].data_ptr() != made[1].data_ptr()),
+                 "consumer_calls": len(used)}
+    rec_ok = (all(r.succeeded() for r in rr) and made[0].device == cuda
+              and recompute["equal_values"] and recompute["new_tensor"]
+              and rr[1].steps["consume"].status == StepStatus.CACHED
+              and len(used) == 1)
+    del made
+
+    batches = list(synthetic_batches(2, 16, small.vocab_size, seed=3, n=WF_RESUME_ITERS))
+
+    def ckpt_train(losses, log, starts):
+        def train(n, ckpt=None):
+            state = TR.init_train_state(small, small_tcfg, 0, device=cuda)
+            start = 0
+            if ckpt.latest_step() is not None:
+                state = ckpt.restore(like=state)
+                start = ckpt.latest_step() + 1
+            starts.append(start)
+            step = TR.make_train_step(small, small_tcfg)
+            for i in range(start, n):
+                ckpt.tick(i)                      # interruption point
+                log.append(i)
+                state, m = step(state, TR.to_device(batches[i], cuda))
+                losses[i] = float(m["loss"])
+                ckpt.save(i, state)
+            return int(state["step"])
+        return train
+
+    resume = {}
+    for name, plan in (("uninterrupted", None),
+                       ("killed", FaultPlan(targets=frozenset(["ck/train"]),
+                                            **WF_KILL_PLAN))):
+        losses, log, starts = {}, [], []
+        with couler.workflow("ck") as ir:
+            couler.add_job(ckpt_train(losses, log, starts), WF_RESUME_ITERS,
+                           checkpoint=str(work / f"ckpt_{name}"), step_name="train",
+                           retry_limit=8)
+        eng = LocalEngine(cache=CacheStore(), enable_speculation=False,
+                          retry_backoff_s=0.001, retry_backoff_max_s=0.01,
+                          fault_plan=plan)
+        try:
+            run = eng.submit(ir)
+        finally:
+            eng.close()
+        resume[name] = {"status": run.status, "attempts": run.steps["train"].attempts,
+                        "iterations_run": len(log), "attempt_starts": starts,
+                        "mid_step_kills": (eng.injector.stats["mid_step_kill"]
+                                           if eng.injector else 0),
+                        "losses": [losses.get(i) for i in range(WF_RESUME_ITERS)]}
+    got, want = resume["killed"]["losses"], resume["uninterrupted"]["losses"]
+    resume_ok = (all(v["status"] == "Succeeded" for v in resume.values())
+                 and resume["killed"]["mid_step_kills"] == 2
+                 and resume["killed"]["attempts"] == 3
+                 and resume["killed"]["iterations_run"] < 3 * WF_RESUME_ITERS
+                 and resume["killed"]["attempt_starts"][-1] > 0
+                 and None not in got + want
+                 and all(abs(a - b) <= TRAIN_TOL * (1 + abs(b)) for a, b in zip(got, want)))
+
+    # the fence: a profiled step that queues ~50 ms of fp32 products and
+    # returns at once (nothing in it allocates or waits); the full-width
+    # train step cannot show it, as launching a step takes the host about
+    # as long as the card takes to run it
+    a = torch.randn(4096, 4096, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(5)) / 64.0
+    prod = torch.empty_like(a)
+    torch.mm(a, a, out=prod)
+    torch.cuda.synchronize()
+    marks = []
+
+    def products():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            torch.mm(a, a, out=prod)
+        end.record()
+        marks.append((start, end))
+        return prod
+
+    with couler.workflow("fence") as ir:
+        couler.run_step(products, step_name="products", cacheable=False)
+    eng = LocalEngine(enable_speculation=False, profile_steps=True)
+    try:
+        run = eng.submit(ir)
+    finally:
+        eng.close()
+    marks[0][1].synchronize()
+    fence = {"execute_s": (run.steps["products"].profile or {}).get("execute_s"),
+             "device_s_by_events": marks[0][0].elapsed_time(marks[0][1]) / 1e3}
+    fence_ok = run.succeeded() and fence["execute_s"] >= fence["device_s_by_events"] > 0.01
+    del a, prod, marks
+
+    good = train_real_model({"learning_rate": WF_GOOD_LR, "batch_size": 16},
+                            steps=WF_TUNE_STEPS, device=cuda)
+    bad = train_real_model({"learning_rate": WF_BAD_LR, "batch_size": 16},
+                           steps=WF_TUNE_STEPS, device=cuda)
+    tune_ok = (math.isfinite(good["final_loss"])
+               and good["final_loss"] < bad["final_loss"])
+    emit({"phase": "workflow", "what": "reduced checks on the card", "arch": small.name,
+          "dtype": "float32", "recompute": {**recompute, "ok": rec_ok},
+          "resume": {**resume, "tol": TRAIN_TOL, "ok": resume_ok},
+          "fence": {**fence, "ok": fence_ok},
+          "train_real_model": {"good": {"learning_rate": WF_GOOD_LR,
+                                        "final_loss": good["final_loss"]},
+                               "bad": {"learning_rate": WF_BAD_LR,
+                                       "final_loss": bad["final_loss"]},
+                               "steps": WF_TUNE_STEPS, "ok": tune_ok},
+          "ok": rec_ok and resume_ok and fence_ok and tune_ok,
+          "seconds": time.perf_counter() - t_phase})
+    if not (rec_ok and resume_ok and fence_ok and tune_ok):
+        fail(f"workflow reduced checks failed: recompute {rec_ok}, resume "
+             f"{resume_ok}, fence {fence_ok}, train_real_model {tune_ok}")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1144,6 +1513,9 @@ def main() -> int:
     # remat full, where each body's kernels run again in the recompute
     train("vit-base-16", VIT_BATCH, VIT_TOKENS, "the paper's RQ2 ViT-B/16 batch: "
           "64 images of 196 patches, 16 text tokens", remat="full")
+
+    # 7. workflow: the paper's production loop through the port's Couler layer
+    workflow_phase(torch, cuda, main_paths, every_kernel)
 
     # summary -----------------------------------------------------------------
     main_case = {"rmsnorm": "serve_decode", "flash_attention": "serve_forward",

@@ -8,7 +8,7 @@ moments for bf16 params), bias correction from an int32 count, weight decay
 added to the step, the result cast back to the param's type. Unlike JAX,
 ``adamw_update`` writes the new values into the parameters in place, so a
 full-width model does not hold two copies of its weights or moments.
-Adafactor comes later (ROADMAP queue 1, item 6).
+Adafactor comes later (ROADMAP queue 1, its Adafactor item).
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree, *, lr,
 
 def _adafactor(*args, **kwargs):
     raise NotImplementedError("adafactor is not ported yet: ROADMAP queue 1, "
-                              "item 6 (the optimizer of deepseek-v3-671b)")
+                              "the Adafactor item (the optimizer of deepseek-v3-671b)")
 
 
 def opt_init(name: str):

@@ -628,3 +628,52 @@ def test_ssd_scan_autograd_launches_the_backward_kernel(cuda, three_d):
     assert ops.LAUNCHES["ssd_scan"] == 1 and ops.LAUNCHES["ssd_scan_bwd"] == 1
     for g, w in zip(got, run("cpu")):
         torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3)
+
+
+def test_profiled_workflow_step_fences_the_card(cuda):
+    """A profiled step of the port's engine that launches card work and
+    returns a CUDA tensor without a sync: its ``execute_s`` covers the work's
+    device time by CUDA events (unfenced it would read the launches only),
+    and ``device_bytes_in_use`` the tensor. The step allocates nothing and
+    cuBLAS is warm before it, so nothing in it waits for the card."""
+    from repro_torch.core import couler
+    from repro_torch.core.engines.local import LocalEngine
+    a = torch.randn(4096, 4096, device=cuda) / 64.0
+    out = torch.empty_like(a)
+    torch.mm(a, a, out=out)
+    torch.cuda.synchronize()
+    events = []
+
+    def work():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):                      # about 50 ms of fp32 products
+            torch.mm(a, a, out=out)
+        end.record()
+        events.append((start, end))
+        return out
+
+    with couler.workflow("fence") as ir:
+        couler.run_step(work, step_name="work", cacheable=False)
+    eng = LocalEngine(profile_steps=True, enable_speculation=False)
+    try:
+        run = eng.submit(ir)
+    finally:
+        eng.close()
+    assert run.succeeded(), run.steps["work"].error
+    assert run.artifacts["work:out"].is_cuda
+    start, end = events[0]
+    end.synchronize()
+    device_s = start.elapsed_time(end) / 1e3
+    prof = run.steps["work"].profile
+    assert "compile_s" not in prof
+    assert prof["execute_s"] >= device_s > 0.01
+    assert prof["device_bytes_in_use"] >= 2 * out.numel() * out.element_size()
+
+
+def test_content_key_of_a_card_tensor_is_the_cpu_tensors(cuda):
+    from repro_torch.core.engines.local import _hash_value
+    t = torch.randn(3, 5, generator=torch.Generator().manual_seed(0)).bfloat16()
+    assert _hash_value({"w": t.to(cuda)}) == _hash_value({"w": t})
+    assert _hash_value(t.to(cuda).t()) == _hash_value(t.t().contiguous())

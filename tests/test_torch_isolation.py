@@ -38,7 +38,10 @@ def test_no_jax_or_repro_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving.engine, repro_torch.launch.serve, "
             "repro_torch.bridge, repro_torch.launch.train, "
-            "repro_torch.training.checkpoint, repro_torch.data.pipeline\n"
+            "repro_torch.training.checkpoint, repro_torch.data.pipeline, "
+            "repro_torch.core.engines.local, repro_torch.core.autotune, "
+            "repro_torch.core.api, repro_torch.examples.train_lm, "
+            "repro_torch.examples.serve_lm, repro_torch.examples.automl_pipeline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro'))\n"
             "assert not bad, bad\n")
