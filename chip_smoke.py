@@ -37,7 +37,11 @@ its seconds:
                 ``ssd_scan_bwd`` case records its five
                 launches' device times (``torch.profiler``), each gradient
                 is also held by norm, and the slow-decay case against a
-                control without the carried state gradient;
+                control without the carried state gradient; the moe
+                family's widths: the flash forward at MLA's serve shape
+                (128 heads, qk 192, v 128 a strided view beside k_nope),
+                flash forward and backward at olmoe's train shape (16 heads
+                of 128), rmsnorm at rows of 7168, 1536 and 512;
 4. consistency  stablelm-1.6b, mamba2-370m, zamba2-1.2b and whisper-large-v3
                 at full width in float32: decode logits at every prompt
                 position equal the full forward's (the ssm/hybrid archs over
@@ -47,10 +51,17 @@ its seconds:
                 on the CPU; reduced stablelm, mamba2, zamba2, paligemma
                 (MQA, prefix 8), whisper and vit (fp32, each arch's remat)
                 train 3 steps on the card and on the CPU from one init, with
-                equal losses and grad norms;
+                equal losses and grad norms; olmoe-1b-7b at full width and
+                deepseek-v3-671b's full-width 2-layer cut (mtp_depth 0) in
+                float32, decode against forward with capacity_factor E / k
+                so that neither path drops a token; reduced olmoe (AdamW)
+                and deepseek (Adafactor, MLA, MTP) train steps card vs CPU;
+                each moe line names the smallest gap between a token's k-th
+                and (k+1)-th router score;
 5. serve        the serving paths: stablelm-1.6b, mamba2-370m, zamba2-1.2b,
-                paligemma-3b and whisper-large-v3 at full width in bf16 each
-                serve a batch through ``ServingEngine.generate``, then
+                paligemma-3b, whisper-large-v3, olmoe-1b-7b and the
+                deepseek-v3-671b 2-layer cut with its MTP head at full width
+                in bf16 each serve a batch through ``ServingEngine.generate``, then
                 ``apply_lm`` runs on the same model (paligemma with 256
                 patches before the tokens, whisper over 1500 frames); the
                 launch counts of each path must be exactly the path's, which
@@ -60,9 +71,11 @@ its seconds:
                 full) at seq 4096, batch 2 (the train_4k global batch of 256
                 cut to what one card holds), whisper-large-v3 the same over
                 1500 frames, and vit-base-16 at batch 64 (196 patches, 16
-                tokens; remat full), through ``launch/train.py``'s loop: one
-                warm-up step, then 4 steps on one fixed batch, each with
-                exactly its launches;
+                tokens; remat full), and olmoe-1b-7b cut to 4 layers at full
+                width (AdamW, remat full, (2, 4096)), through
+                ``launch/train.py``'s loop: one warm-up step, then 4 steps on
+                one fixed batch, each with exactly its launches; olmoe's run
+                twice from one init, with equal bits;
 7. workflow     the paper's production loop through the port's Couler layer
                 (``repro_torch.core``): full-width bf16 stablelm-1.6b as the
                 steps prepare-corpus (a ``ShardedCorpus``), train (a warm-up
@@ -75,13 +88,15 @@ its seconds:
                 ``execute_s``, exact launches per train step and serve pass,
                 prepare-corpus Cached and shard-cache hits the second time,
                 and the time of the serve step's content key over the
-                trained params; then reduced checks in fp32: a recomputed
-                CUDA tensor artifact leaves its consumer Cached, a
-                checkpoint-wired train step resumes after mid-step kills
-                with an uninterrupted run's losses, a profiled step that
-                returns with ~50 ms of products queued has an
-                ``execute_s`` that covers them, and ``train_real_model``
-                ends lower at lr 3e-3 than at 3.0.
+                trained params; a repeat workflow whose train step cycles
+                two batches (each seen at least twice) with an evaluate
+                gate on a margin predicted in advance; then reduced checks
+                in fp32: a recomputed CUDA tensor artifact leaves its
+                consumer Cached, a checkpoint-wired train step resumes
+                after mid-step kills with an uninterrupted run's losses, a
+                profiled step that returns with ~50 ms of products queued
+                has an ``execute_s`` that covers them, and
+                ``train_real_model`` ends lower at lr 3e-3 than at 3.0.
 
 Then a summary line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero before
@@ -132,6 +147,13 @@ SSM_CONSISTENCY_PROMPT = 512        # two chunks of 256
 SSM_FORWARD_LEN = 1024              # apply_lm after an ssm/hybrid serve run
 # vit-base-16's train batch: 64 images of 196 patches and 16 text tokens
 VIT_BATCH, VIT_TOKENS = 64, 16
+# deepseek-v3-671b at full width, cut to 2 layers (one first_k_dense layer
+# and one moe layer): 14.87 B params with the MTP head, 29.74 GB in bf16
+DEEPSEEK_CUT = dict(num_layers=2, first_k_dense=1)
+DEEPSEEK_CUT_TEXT = "61 layers cut to 2: first_k_dense 3 -> 1, one moe layer"
+# olmoe-1b-7b trains at full width per layer, 16 layers cut to 4: 1.88 B
+# params, 22.6 GB with AdamW (the full model's step would take about 83 GB)
+OLMOE_TRAIN_CUT = dict(num_layers=4)
 
 
 def emit(obj) -> None:
@@ -338,6 +360,15 @@ WF_RESUME_ITERS = 6
 WF_KILL_PLAN = dict(seed=5, worker_loss_rate=1.0, max_failures_per_site=2,
                     mid_step_kill_window=4)
 WF_GOOD_LR, WF_BAD_LR, WF_TUNE_STEPS = 3e-3, 3.0, 30
+# Per submission, what its train and serve steps measured. A module global:
+# a step's key covers its closure's contents, so a record that grows in a
+# closure cell would give the serve step a new key on every submission.
+WF_INSIDE = []
+# The repeat workflow: its train step cycles WF_REPEAT_BATCHES batches over
+# the warm-up and TRAIN_STEPS steps, so each is seen at least twice; its
+# evaluate gate wants the last loss below the first by WF_REPEAT_MARGIN
+# (half the margin PERF.md predicts from the train phase's one-batch run).
+WF_REPEAT_BATCHES, WF_REPEAT_MARGIN = 2, 0.5
 
 
 def workflow_phase(torch, cuda, main_paths, every_kernel) -> None:
@@ -376,7 +407,8 @@ def workflow_phase(torch, cuda, main_paths, every_kernel) -> None:
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                             generator=torch.Generator().manual_seed(4))
     cache = CacheStore(capacity_bytes=1 << 30, policy=CoulerPolicy())
-    inside = []        # per submission: what its train and serve steps measured
+    inside = WF_INSIDE
+    inside.clear()
 
     def launches_since(before):
         return {k: v - before.get(k, 0) for k, v in ops.LAUNCHES.items()}
@@ -392,7 +424,7 @@ def workflow_phase(torch, cuda, main_paths, every_kernel) -> None:
         artifact cache, each timed by CUDA events, its launches counted on
         the host. Nothing here waits for the card: the step returns while
         the last update still runs, and the engine's fence waits for it."""
-        rec = inside[-1]
+        rec = WF_INSIDE[-1]
         hits, misses = cache.stats["hits"], cache.stats["misses"]
         reader = CachedShardReader(corpus, cache=cache)
         state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
@@ -421,7 +453,7 @@ def workflow_phase(torch, cuda, main_paths, every_kernel) -> None:
         return losses[-1] < losses[0]
 
     def serve(result):
-        rec = inside[-1]
+        rec = WF_INSIDE[-1]
         engine = ServingEngine(cfg, result["params"], max_len=SERVE_PROMPT + SERVE_GEN,
                                device=cuda)
         before = dict(ops.LAUNCHES)
@@ -521,8 +553,66 @@ def workflow_phase(torch, cuda, main_paths, every_kernel) -> None:
     for name, n in want_total.items():
         if n and path_launches[name] == 0:
             fail(f"kernel {name} was never launched on the {WF_ARCH} workflow path")
-    main_paths[f"{WF_ARCH}/workflow"] = path_launches
     del runs, params, inside, subs
+    torch.cuda.empty_cache()
+
+    # the repeat workflow: a train step that sees each batch at least twice,
+    # and an evaluate gate with a margin predicted in advance
+    t_phase = time.perf_counter()
+    repeat = {"launches": []}
+
+    def train_repeat(corpus):
+        reader = CachedShardReader(corpus, cache=cache)
+        it = reader.batches(TRAIN_BATCH, TRAIN_SEQ)
+        distinct = [next(it) for _ in range(WF_REPEAT_BATCHES)]
+        state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
+        step_fn = TR.make_train_step(cfg, tcfg)
+        losses = []
+        for i in range(1 + TRAIN_STEPS):
+            before = dict(ops.LAUNCHES)
+            state, m = step_fn(state, TR.to_device(distinct[i % WF_REPEAT_BATCHES], cuda))
+            repeat["launches"].append(launches_since(before))
+            losses.append(m["loss"])
+        return {"losses": torch.stack(losses)}
+
+    def evaluate_margin(result):
+        losses = result["losses"].tolist()
+        return losses[0] - losses[-1] >= WF_REPEAT_MARGIN
+
+    with couler.workflow(f"train-repeat-{WF_ARCH}") as ir:
+        corpus = couler.run_step(prepare_corpus, step_name="prepare-corpus")
+        result = couler.run_step(train_repeat, corpus, step_name="train-repeat",
+                                 cacheable=False)
+        couler.run_step(evaluate_margin, result, step_name="evaluate-repeat")
+    eng = LocalEngine(cache=cache, enable_speculation=False)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    try:
+        rrun = eng.submit(ir)
+    finally:
+        eng.close()
+    repeat_launches = dict(ops.LAUNCHES)
+    r_losses = rrun.artifacts["train-repeat:out"]["losses"].tolist() if rrun.succeeded() else []
+    want_repeat = every_kernel({k: (1 + TRAIN_STEPS) * v for k, v in expect_step.items()})
+    repeat_ok = (rrun.succeeded() and rrun.artifacts["evaluate-repeat:out"] is True
+                 and rrun.steps["prepare-corpus"].status == StepStatus.CACHED
+                 and all(ls == expect_step for ls in repeat["launches"])
+                 and repeat_launches == want_repeat
+                 and all(map(math.isfinite, r_losses)))
+    emit({"phase": "workflow", "what": "repeat: each batch seen at least twice",
+          "arch": cfg.name, "batches": WF_REPEAT_BATCHES, "steps": 1 + TRAIN_STEPS,
+          "statuses": {k: r.status.value for k, r in rrun.steps.items()},
+          "losses": r_losses,
+          "margin": (r_losses[0] - r_losses[-1]) if r_losses else None,
+          "margin_gate": WF_REPEAT_MARGIN, "launches": repeat_launches,
+          "expected_launches": want_repeat, "ok": repeat_ok,
+          "seconds": time.perf_counter() - t_phase})
+    if not repeat_ok:
+        fail(f"the {WF_ARCH} repeat workflow failed: losses {r_losses}, "
+             f"statuses {[r.status.value for r in rrun.steps.values()]}")
+    main_paths[f"{WF_ARCH}/workflow"] = {k: path_launches[k] + repeat_launches[k]
+                                         for k in path_launches}
+    del rrun, repeat
     torch.cuda.empty_cache()
 
     # reduced checks on the card, fp32 -----------------------------------------
@@ -531,7 +621,7 @@ def workflow_phase(torch, cuda, main_paths, every_kernel) -> None:
                                                      compute_dtype="float32")
     small_tcfg = dataclasses.replace(get_arch(WF_ARCH).train, learning_rate=1e-3,
                                      remat="none")
-    made, used = [], []
+    made = []
     tokens = torch.randint(0, small.vocab_size, (2, 32),
                            generator=torch.Generator().manual_seed(2)).to(cuda)
 
@@ -543,8 +633,10 @@ def workflow_phase(torch, cuda, main_paths, every_kernel) -> None:
         return logits
 
     def consume(logits):
-        used.append(1)
+        consume.calls += 1          # on the function: a closure cell is keyed
         return float(logits.abs().sum())
+
+    consume.calls = 0
 
     def build_recompute():
         with couler.workflow("recompute") as ir:
@@ -562,11 +654,11 @@ def workflow_phase(torch, cuda, main_paths, every_kernel) -> None:
                  "equal_values": bool(len(made) == 2 and torch.equal(made[0], made[1])),
                  "new_tensor": bool(len(made) == 2 and made[0] is not made[1]
                                     and made[0].data_ptr() != made[1].data_ptr()),
-                 "consumer_calls": len(used)}
+                 "consumer_calls": consume.calls}
     rec_ok = (all(r.succeeded() for r in rr) and made[0].device == cuda
               and recompute["equal_values"] and recompute["new_tensor"]
               and rr[1].steps["consume"].status == StepStatus.CACHED
-              and len(used) == 1)
+              and consume.calls == 1)
     del made
 
     batches = list(synthetic_batches(2, 16, small.vocab_size, seed=3, n=WF_RESUME_ITERS))
@@ -694,6 +786,7 @@ def main() -> int:
     from repro_torch import bridge
     from repro_torch.data.pipeline import synthetic_batches
     from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.training import train as TR
@@ -803,7 +896,15 @@ def main() -> int:
              "bfloat16", "bfloat16", warp),
             ("zamba2_shared_forward", SERVE_BATCH * SSM_FORWARD_LEN, 4096,
              "bfloat16", "bfloat16", warp),
-            ("train_forward", TRAIN_BATCH * TRAIN_SEQ, 2048, "bfloat16", "bfloat16", warp)]:
+            ("train_forward", TRAIN_BATCH * TRAIN_SEQ, 2048, "bfloat16", "bfloat16", warp),
+            # the moe family: deepseek's d_model and MLA's q_norm and kv_norm
+            # over the serve forward's 512 rows; olmoe's train forward
+            ("deepseek_d7168", SERVE_BATCH * SERVE_PROMPT, 7168, "bfloat16", "bfloat16",
+             block),
+            ("mla_q_norm_1536", SERVE_BATCH * SERVE_PROMPT, 1536, "bfloat16", "bfloat16",
+             warp),
+            ("mla_kv_norm_512", SERVE_BATCH * SERVE_PROMPT, 512, "bfloat16", "bfloat16",
+             warp)]:
         x = randn(R, D, dtype=dtype)
         s = 1.0 + 0.1 * randn(D, dtype=sdtype)
         s_lib = s.to(x.dtype)
@@ -821,14 +922,17 @@ def main() -> int:
                    shape=[R, D])
 
     def attn_case(case, B, H, KH, Sq, Sk, D, Dv, dtype, causal, model_layout,
-                  lse=False, prefix=0):
+                  lse=False, prefix=0, v_offset=0):
         """``lse``: the train path's forward, which also writes the rows'
         logsumexp; o and lse are each held to the plain version's.
-        ``prefix``: the prefix-LM mask's prefix_len (under ``causal``)."""
+        ``prefix``: the prefix-LM mask's prefix_len (under ``causal``).
+        ``v_offset``: v is the last Dv of each head's v_offset + Dv values,
+        a strided view, as MLA hands it over (k_nope beside v)."""
         if model_layout:   # (B,S,heads,hd) transposed, as the model hands it over
             q = randn(B, Sq, H, D, dtype=dtype).transpose(1, 2)
             k = randn(B, Sk, KH, D, dtype=dtype).transpose(1, 2)
-            v = randn(B, Sk, KH, Dv, dtype=dtype).transpose(1, 2)
+            v = randn(B, Sk, KH, v_offset + Dv,
+                      dtype=dtype)[..., v_offset:].transpose(1, 2)
         else:
             q = randn(B, H, Sq, D, dtype=dtype)
             k = randn(B, KH, Sk, D, dtype=dtype)
@@ -855,7 +959,7 @@ def main() -> int:
                     + (4 * B * H * Sq if lse else 0)),
             flops=2 * B * H * pairs * (D + Dv), valid_pairs=pairs,
             shape={"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "D": D,
-                   "Dv": Dv}, causal=causal, prefix_len=prefix)
+                   "Dv": Dv}, causal=causal, prefix_len=prefix, v_stride=list(v.stride()))
 
     P = SERVE_PROMPT
     attn_case("serve_forward", SERVE_BATCH, 32, 32, P, P, 64, 64, "bfloat16", True, True)
@@ -886,6 +990,12 @@ def main() -> int:
               "bfloat16", False, True, lse=True)
     attn_case("ragged_prefix_small", 1, 4, 2, 100, 100, 48, 48, "float32", True, True,
               lse=True, prefix=37)
+    # the moe family: MLA's serve forward (128 heads, qk 192 = nope 128 + rope
+    # 64, v 128 beside k_nope), olmoe's train forward (16 heads of 128)
+    attn_case("mla_serve_forward", SERVE_BATCH, 128, 128, P, P, 192, 128, "bfloat16",
+              True, True, v_offset=128)
+    attn_case("olmoe_train_forward", TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 128, 128,
+              "bfloat16", True, True, lse=True)
 
     # the Pallas kernel's own contract: (BH, S, D)
     q3, k3, v3 = (randn(8, 256, 64, dtype="float32") for _ in range(3))
@@ -1063,6 +1173,8 @@ def main() -> int:
                   False, wg64)
     attn_bwd_case("ragged_prefix_small_bwd", 1, 4, 2, 100, 100, 48, "float32", True, cores,
                   prefix=37)
+    attn_bwd_case("olmoe_train_bwd", TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 128,
+                  "bfloat16", True, ["tensor_cores", [128, 32]])
 
     # prefix 0 and a prefix past Sk: the causal and non-causal launches' bits
     def same_bits(case, B, H, KH, S, D, dtype):
@@ -1199,6 +1311,21 @@ def main() -> int:
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase})
 
     # 4. consistency ----------------------------------------------------------
+    router_gap = []        # per _route call of a moe path: its smallest top-k gap
+    route = M._route
+
+    def gap_route(p, cfg, x):
+        """``moe._route``, also noting the smallest gap between a token's
+        k-th and (k+1)-th router score: a near-tie can flip an expert
+        choice between the card and the CPU."""
+        logits = x.float() @ p["router"].float()
+        scores = (torch.sigmoid(logits) if cfg.router_type == "sigmoid"
+                  else torch.softmax(logits, dim=-1))
+        top = torch.topk(scores, cfg.experts_per_token + 1, dim=-1).values
+        router_gap.append((top[..., -2] - top[..., -1]).min().item())
+        return route(p, cfg, x)
+
+    M._route = gap_route
     def reduced_card_vs_cpu(aid, S, **kw):
         small = reduced(get_arch(aid).model).replace(
             param_dtype="float32", compute_dtype="float32", **kw)
@@ -1214,15 +1341,19 @@ def main() -> int:
         name at 0: a serving path launches no backward kernel."""
         return {**{name: 0 for name in ops.LAUNCHES}, **counts}
 
-    def decode_vs_forward(aid, prompt, expect):
-        """Full width and depth in float32, batch 1: decode logits at every
-        position against the forward's; the forward's launches must be
-        exactly ``expect``. encdec: the forward over ``enc_seq`` seeded
-        frames, the decode over cross caches filled from the encoder's
-        output of the same frames."""
+    def decode_vs_forward(aid, prompt, expect, **cfg_kw):
+        """Full width in float32 (depth too, unless ``cfg_kw`` cuts it),
+        batch 1: decode logits at every position against the forward's; the
+        forward's launches must be exactly ``expect``. encdec: the forward
+        over ``enc_seq`` seeded frames, the decode over cross caches filled
+        from the encoder's output of the same frames. moe: the record names
+        the smallest gap between a token's k-th and (k+1)-th router score."""
         t_phase = time.perf_counter()
-        base = get_arch(aid).model
+        base = get_arch(aid).model.replace(**cfg_kw)
         cfg32 = base.replace(param_dtype="float32", compute_dtype="float32")
+        router_gap.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         params = T.init_lm(cfg32, 0, device=cuda)
         toks = torch.randint(0, cfg32.vocab_size, (1, prompt),
                              generator=torch.Generator().manual_seed(3)).to(cuda)
@@ -1255,7 +1386,10 @@ def main() -> int:
                   if extra else {}),
                "decode_vs_forward_max_abs_err": err, "tol": CONSISTENCY_TOL,
                "logits_abs_max": full.abs().max().item(), "forward_s": fwd_s,
-               "forward_launches": fwd_launches, "expected_launches": expect}
+               "forward_launches": fwd_launches, "expected_launches": expect,
+               **({"changed": cfg_kw} if cfg_kw else {}),
+               **({"min_router_gap": min(router_gap)} if router_gap else {}),
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
         del params, caches, full, dec, outs
         torch.cuda.empty_cache()
         return rec, ok and fwd_launches == every_kernel(expect), t_phase
@@ -1302,6 +1436,26 @@ def main() -> int:
         if not ok:
             fail("whisper-large-v3 consistency phase failed")
 
+        # the moe family, capacity_factor E / k (the one changed field) so
+        # that neither the forward nor the decode drops a token
+        ocfg = get_arch("olmoe-1b-7b").model
+        n = ocfg.num_layers
+        rec, ok, t_phase = decode_vs_forward(
+            "olmoe-1b-7b", CONSISTENCY_PROMPT, {"flash_attention": n, "rmsnorm": 2 * n + 1},
+            capacity_factor=ocfg.num_experts / ocfg.experts_per_token)
+        emit({**rec, "ok": ok, "seconds": time.perf_counter() - t_phase})
+        if not ok:
+            fail("olmoe-1b-7b consistency phase failed")
+        dcfg = get_arch("deepseek-v3-671b").model
+        rec, ok, t_phase = decode_vs_forward(
+            "deepseek-v3-671b", CONSISTENCY_PROMPT,
+            {"flash_attention": 2, "rmsnorm": 4 * 2 + 1}, **DEEPSEEK_CUT, mtp_depth=0,
+            capacity_factor=dcfg.num_experts / dcfg.experts_per_token)
+        emit({**rec, "reduced": DEEPSEEK_CUT_TEXT + "; mtp_depth 0", "ok": ok,
+              "seconds": time.perf_counter() - t_phase})
+        if not ok:
+            fail("deepseek-v3-671b consistency phase failed")
+
     def train_card_vs_cpu(aid, label, **kw):
         """A reduced model (fp32, the arch's TrainConfig) trains 3 steps on
         the card (kernels) and on the CPU (plain versions) from one init;
@@ -1316,6 +1470,7 @@ def main() -> int:
         step_fn = TR.make_train_step(small, spec.train)
         expect = TR.kernel_launches_per_step(small, spec.train.remat)
         rows, ok = [], True
+        router_gap.clear()
         for batch in launch_train.with_modality_inputs(
                 small, synthetic_batches(2, 64, small.vocab_size, seed=1, n=3), seed=1):
             ops.reset_launches()
@@ -1330,8 +1485,9 @@ def main() -> int:
             rows.append(row)
         emit({"phase": "consistency", "arch": label, "what": "train steps, card vs cpu",
               "dtype": "float32", "remat": spec.train.remat, "steps": rows,
-              "tol": TRAIN_TOL, "expected_launches": expect, "ok": ok,
-              "seconds": time.perf_counter() - t_phase})
+              "tol": TRAIN_TOL, "expected_launches": expect, "optimizer": spec.train.optimizer,
+              **({"min_router_gap": min(router_gap)} if router_gap else {}),
+              "ok": ok, "seconds": time.perf_counter() - t_phase})
         if not ok:
             fail(f"reduced {aid} train steps on the card differ from the CPU's")
 
@@ -1348,18 +1504,26 @@ def main() -> int:
                       "decoder layers, d_model 64, 16 frames)")
     train_card_vs_cpu("vit-base-16", "vit-base-16 (reduced: 2 layers, d_model 64, "
                       "8 patches as the prefix)")
+    train_card_vs_cpu("olmoe-1b-7b", "olmoe-1b-7b (reduced: 2 layers, d_model 64, 8 "
+                      "experts top-2, AdamW)")
+    train_card_vs_cpu("deepseek-v3-671b", "deepseek-v3-671b (reduced: 1 dense and 1 moe "
+                      "layer, MLA 16 + 8 / 16, 8 experts top-2 and a shared one, MTP, "
+                      "Adafactor)")
+    M._route = route
 
     # 5. serve: the main paths ------------------------------------------------
-    def serve(aid, forward_len, per_pass, decode_rmsnorm=None):
-        """bf16 at full width: ``generate`` then ``apply_lm`` on (batch,
-        forward_len) tokens that start with the prompts (vlm: after seeded
-        patches; encdec: over seeded frames; the engine, as the JAX one,
-        decodes from the tokens alone). Launch counts are reset just before
-        and read just after; they must equal ``per_pass`` once for the
-        forward and, for rmsnorm, ``decode_rmsnorm`` (by default the
-        forward's) for every decode step."""
+    def serve(aid, forward_len, per_pass, decode_rmsnorm=None, label=None, cut=None,
+              **cfg_kw):
+        """bf16 at full width (``cfg_kw`` may cut the depth, ``cut`` says
+        how): ``generate`` then ``apply_lm`` on (batch, forward_len) tokens
+        that start with the prompts (vlm: after seeded patches; encdec: over
+        seeded frames; the engine, as the JAX one, decodes from the tokens
+        alone; moe with the MTP head: its logits too). Launch counts are
+        reset just before and read just after; they must equal ``per_pass``
+        once for the forward and, for rmsnorm, ``decode_rmsnorm`` (by
+        default the forward's) for every decode step."""
         t_phase = time.perf_counter()
-        cfg = get_arch(aid).model   # bf16 params and compute, full width
+        cfg = get_arch(aid).model.replace(**cfg_kw)   # bf16 params and compute
         params = T.init_lm(cfg, 0, device=cuda)
         n_params = sum(p.numel() for p in params.parameters())
         toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, forward_len),
@@ -1382,10 +1546,11 @@ def main() -> int:
         res = engine.generate(prompts, gen_len=SERVE_GEN)
         with torch.inference_mode():
             t0 = time.perf_counter()
-            logits, _ = T.apply_lm(params, cfg, toks.to(cuda), **extra)
+            logits, aux = T.apply_lm(params, cfg, toks.to(cuda), **extra)
             torch.cuda.synchronize()
             fwd_s = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
+        mtp = aux.get("mtp_logits")
 
         steps = SERVE_PROMPT + SERVE_GEN - 1
         decode_rms = per_pass["rmsnorm"] if decode_rmsnorm is None else decode_rmsnorm
@@ -1398,8 +1563,11 @@ def main() -> int:
         ok = (launches == expect and tokens.shape == (SERVE_BATCH, SERVE_GEN)
               and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.padded_vocab
               and bool(torch.isfinite(logits).all())
-              and logits.shape == (SERVE_BATCH, prefix + forward_len, cfg.padded_vocab))
-        emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+              and logits.shape == (SERVE_BATCH, prefix + forward_len, cfg.padded_vocab)
+              and (mtp is not None) == bool(cfg.family == "moe" and cfg.mtp_depth)
+              and (mtp is None or (mtp.shape == logits.shape
+                                   and bool(torch.isfinite(mtp).all()))))
+        emit({"phase": "serve", "arch": label or cfg.name, "layers": cfg.num_layers,
               "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
               "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
               "prefill_s": res.prefill_s, "decode_s": res.decode_s,
@@ -1409,14 +1577,17 @@ def main() -> int:
               **{f"apply_lm_{k}": list(v.shape) for k, v in extra.items()},
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "launches": launches, "expected_launches": expect,
-              "first_token_matches_forward_argmax": first_match, "ok": ok,
-              "seconds": time.perf_counter() - t_phase})
+              "first_token_matches_forward_argmax": first_match,
+              **({"reduced": cut} if cut else {}),
+              **({"moe_aux": float(aux["moe_aux"]), "mtp_logits": list(mtp.shape)
+                  if mtp is not None else None} if cfg.family == "moe" else {}),
+              "ok": ok, "seconds": time.perf_counter() - t_phase})
         if not ok:
             fail(f"{aid} serve phase failed: launches {launches}, expected {expect}")
         for name, n in per_pass.items():
             if n and launches[name] == 0:
                 fail(f"kernel {name} was never launched on the {aid} path")
-        del engine, params, logits, extra
+        del engine, params, logits, extra, aux, mtp
         torch.cuda.empty_cache()
         return launches
 
@@ -1442,15 +1613,29 @@ def main() -> int:
         "whisper-large-v3", SERVE_PROMPT,
         {"flash_attention": ne + 2 * n, "rmsnorm": 2 * ne + 1 + 3 * n + 1},
         decode_rmsnorm=3 * n + 1)
+    n = get_arch("olmoe-1b-7b").model.num_layers
+    main_paths["olmoe-1b-7b"] = serve(
+        "olmoe-1b-7b", SERVE_PROMPT, {"flash_attention": n, "rmsnorm": 2 * n + 1})
+    # deepseek's 2-layer cut with its MTP head: flash 2 + the MTP block's;
+    # rmsnorm per MLA layer ln1, q_norm, kv_norm, ln2, the final norm, and
+    # the MTP head's 5; a decode step runs no MTP
+    main_paths["deepseek-v3-671b (2-layer cut)"] = serve(
+        "deepseek-v3-671b", SERVE_PROMPT, {"flash_attention": 2 + 1, "rmsnorm": 4 * 2 + 1 + 5},
+        decode_rmsnorm=4 * 2 + 1, label="deepseek-v3-671b (2-layer cut, MTP)",
+        cut=DEEPSEEK_CUT_TEXT, **DEEPSEEK_CUT)
 
     # 6. train: the training paths -------------------------------------------
-    def train(aid, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ, cut=TRAIN_CUT, **tcfg_kw):
-        """The arch's own config and TrainConfig (``tcfg_kw`` replaced in it)
-        at full width through ``launch/train.py``'s loop, the batch with its
-        seeded frames or patches: a warm-up step, then TRAIN_STEPS steps on
-        one fixed batch, each with exactly ``kernel_launches_per_step``."""
+    def train(aid, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ, cut=TRAIN_CUT, cfg_kw=None,
+              twice=False, **tcfg_kw):
+        """The arch's own config (``cfg_kw`` replaced in it) and TrainConfig
+        (``tcfg_kw`` replaced) at full width through ``launch/train.py``'s
+        loop, the batch with its seeded frames or patches: a warm-up step,
+        then TRAIN_STEPS steps on one fixed batch, each with exactly
+        ``kernel_launches_per_step``. ``twice``: the whole run again from
+        the same init must give the same losses and params, bit for bit."""
         t_phase = time.perf_counter()
         cfg, tcfg = launch_train.configs(aid, full=True)
+        cfg = cfg.replace(**(cfg_kw or {}))
         tcfg = dataclasses.replace(tcfg, **tcfg_kw)
         state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
         n_params = sum(p.numel() for p in state["params"].parameters())
@@ -1482,6 +1667,24 @@ def main() -> int:
         finite = all(map(math.isfinite, losses + gnorms + [steps[0][1], steps[0][2]]))
         ok = (finite and all(ls == expect for ls in per_step) and losses[-1] < losses[0]
               and len(timed_steps) == TRAIN_STEPS)
+        again = None
+        if twice:
+            first = [p.detach().clone() for p in state["params"].parameters()]
+            del state
+            torch.cuda.empty_cache()
+            state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
+            seen = []
+            launch_train.train_loop(
+                state, TR.make_train_step(cfg, tcfg), iter([batch] * (1 + TRAIN_STEPS)),
+                steps=1 + TRAIN_STEPS, device=cuda, log_every=0,
+                on_step=lambda step, m: seen.append(float(m["loss"])),
+                compute_dtype=cfg.compute_dtype)
+            again = {"losses": seen[1:],
+                     "equal_bits": bool(seen[1:] == losses and all(
+                         torch.equal(a, b) for a, b in
+                         zip(first, state["params"].parameters())))}
+            ok = ok and again["equal_bits"]
+            del first
         emit({"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
               "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
               "optimizer": tcfg.optimizer, "learning_rate": tcfg.learning_rate,
@@ -1496,6 +1699,7 @@ def main() -> int:
                   for t in step_s],
               "max_memory_allocated_bytes": peak, "losses": losses, "grad_norms": gnorms,
               "launches_per_step": per_step, "expected_launches_per_step": expect,
+              **({"second_run": again} if again is not None else {}),
               "ok": ok, "seconds": time.perf_counter() - t_phase})
         if not ok:
             fail(f"{aid} train phase failed: losses {losses}, launches {per_step}, "
@@ -1503,7 +1707,7 @@ def main() -> int:
         for name, n in expect.items():
             if n and train_total[name] == 0:
                 fail(f"kernel {name} was never launched on the {aid} train path")
-        main_paths[f"{aid}/train"] = train_total
+        main_paths[f"{aid}/train"] = train_total     # the first run's
         del state
         torch.cuda.empty_cache()
 
@@ -1513,6 +1717,8 @@ def main() -> int:
     # remat full, where each body's kernels run again in the recompute
     train("vit-base-16", VIT_BATCH, VIT_TOKENS, "the paper's RQ2 ViT-B/16 batch: "
           "64 images of 196 patches, 16 text tokens", remat="full")
+    train("olmoe-1b-7b", cut=TRAIN_CUT + "; 16 layers cut to 4 (AdamW's full-model "
+          "step would take about 83 GB)", cfg_kw=OLMOE_TRAIN_CUT, twice=True)
 
     # 7. workflow: the paper's production loop through the port's Couler layer
     workflow_phase(torch, cuda, main_paths, every_kernel)

@@ -27,11 +27,12 @@ ORIGINAL = ROOT / "src" / "repro" / "core"
 PORT = ROOT / "src" / "repro_torch" / "core"
 
 # The torch seams, by file under core/ and qualified name: content hashing of
-# tensors, the port's checkpoint session, the profiled call without an AOT
-# phase, the CUDA fence, the CUDA memory reading; and the port's payload of
-# the Fig. 8 tuner.
+# tensors, content keys of a step's function and literal arguments, the
+# port's checkpoint session, the profiled call without an AOT phase, the
+# CUDA fence, the CUDA memory reading; and the port's payload of the Fig. 8
+# tuner.
 DIVERGENT: Dict[str, Tuple[str, ...]] = {
-    "engines/local.py": ("_hash_value", "LocalEngine._ckpt_session",
+    "engines/local.py": ("_hash_value", "cache_key", "LocalEngine._ckpt_session",
                          "LocalEngine._profiled_invoke", "_block_until_ready",
                          "_device_memory_bytes"),
     "autotune.py": ("train_real_model",),

@@ -3,10 +3,10 @@
 
     PYTHONPATH=src python scripts/profile_torch_train.py
         [--arch stablelm-1.6b|mamba2-370m|zamba2-1.2b|whisper-large-v3|...]
-        [--batch 2] [--seq 4096] [--steps 1] [--timed 0]
+        [--batch 2] [--seq 4096] [--steps 1] [--timed 0] [--layers N]
 
-The arch's own config and TrainConfig (bf16, AdamW, its remat) at full
-width on seeded random weights and one fixed
+The arch's own config and TrainConfig (bf16, its optimizer and remat) at
+full width, its depth cut to ``--layers`` where given, on seeded random weights and one fixed
 batch of ``synthetic_batches`` (with seeded frames or patches for the
 encdec and vlm families, as ``launch/train.py`` feeds them); the
 default shape is train_4k's sequence with its global batch of 256 cut to 2,
@@ -69,6 +69,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=1)
     ap.add_argument("--timed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (olmoe-1b-7b trains as 4)")
     args = ap.parse_args(argv)
 
     import torch
@@ -81,6 +83,8 @@ def main(argv=None) -> int:
 
     cuda = dev.resolve("cuda")
     cfg, tcfg = launch_train.configs(args.arch, full=True)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
     batch = TR.to_device(next(launch_train.with_modality_inputs(
         cfg, synthetic_batches(args.batch, args.seq, cfg.vocab_size, n=1))), cuda,

@@ -6,17 +6,21 @@ np.asarray, params)``) and returns the port's parameter module;
 by ``/``-joined paths, the convention of the JAX package's checkpoints
 (``training/checkpoint.py::_path_str``). The JAX tree stacks the layers on
 leading axes; the port keeps one module per layer, so stacked leaves are
-unstacked and restacked: ``layers/*`` (dense, vlm, ssm), ``leftover/*``
-(hybrid), ``enc_layers/*`` and ``dec_layers/*`` (encdec) on one axis,
-hybrid's ``groups/*`` on two (group, layer in group). ``shared/*``,
-``enc_norm/*`` and the other leaves pass as they are. bfloat16 leaves pass
+unstacked and restacked: ``layers/*`` (dense, vlm, ssm, moe),
+``dense_layers/*`` (moe), ``leftover/*`` (hybrid), ``enc_layers/*`` and
+``dec_layers/*`` (encdec) on one axis, hybrid's ``groups/*`` on two (group,
+layer in group). A moe layer's ``moe/experts/*`` keeps its expert axis
+inside the leaf. ``shared/*``, ``enc_norm/*``, ``mtp/*`` and the other
+leaves pass as they are. bfloat16 leaves pass
 through float32, which is exact, because ``torch.from_numpy`` rejects
 numpy's bfloat16 extension type.
 
 Train states: ``state_from_jax`` takes the JAX ``init_train_state`` tree
-(``params``, ``opt/mu``, ``opt/nu``, ``opt/count``, ``step``) as numpy and
-returns the port's (``training/train.py``), its params requiring grad and
-its moments keyed by parameter name; ``state_to_numpy`` gives the reverse.
+(``params``, the optimizer's moments: AdamW's ``opt/mu`` and ``opt/nu`` or
+Adafactor's ``opt/vr``, ``opt/vc`` and ``opt/v``; ``opt/count``, ``step``)
+as numpy and returns the port's (``training/train.py``), its params
+requiring grad and its moments keyed by parameter name; ``state_to_numpy``
+gives the reverse.
 ``state_to_flat`` and ``load_flat`` serve the checkpoints: ``{JAX path:
 CPU tensor}`` in the stacked layout with each dtype kept, and back into a
 state in place.
@@ -31,8 +35,13 @@ import torch
 from torch import nn
 
 from repro_torch import device as dev
-from repro_torch.models.ssm import FP32_PARAMS
+from repro_torch.models.ssm import FP32_PARAMS as _SSM_FP32
 from repro_torch.models.transformer import hybrid_split
+from repro_torch.training.optimizer import PATH_KEYED
+
+# Leaves that stay float32 under any param type: the ssm blocks' and the
+# moe router (kept fp32, as in JAX).
+FP32_PARAMS = _SSM_FP32 + ("router",)
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, Any]:
@@ -72,6 +81,11 @@ def _stacks(cfg) -> Dict[str, Tuple[int, ...]]:
     """The stacked subtrees of the JAX tree and their leading axes."""
     if cfg.family in ("dense", "vlm", "ssm"):
         return {"layers": (cfg.num_layers,)}
+    if cfg.family == "moe":
+        out = {"layers": (cfg.num_layers - cfg.first_k_dense,)}
+        if cfg.first_k_dense:
+            out["dense_layers"] = (cfg.first_k_dense,)
+        return out
     if cfg.family == "encdec":
         return {"enc_layers": (cfg.num_enc_layers,), "dec_layers": (cfg.num_layers,)}
     if cfg.family == "hybrid":
@@ -80,7 +94,7 @@ def _stacks(cfg) -> Dict[str, Tuple[int, ...]]:
         if leftover:
             out["leftover"] = (leftover,)
         return out
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _module_list(per_index: Dict[tuple, dict], shape: Tuple[int, ...]) -> nn.ModuleList:
@@ -104,7 +118,7 @@ def params_from_jax(np_tree, cfg, device: dev.DeviceLike = "cuda",
 
     ``dtype=None`` keeps each leaf's type (bfloat16 stays bfloat16). A
     ``dtype`` plays the part of the param type: it casts every leaf but the
-    ssm blocks' ``FP32_PARAMS``, which stay float32 under any param type.
+    ``FP32_PARAMS``, which stay float32 under any param type.
     """
     stacks = _stacks(cfg)
     d = dev.resolve(device)
@@ -141,7 +155,7 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _jax_key(name: str) -> Tuple[str, Tuple[int, ...]]:
+def jax_key(name: str) -> Tuple[str, Tuple[int, ...]]:
     """A port parameter name -> (its JAX path, its index on the stacked
     axes): ``layers.3.attn.wq`` -> (``layers/attn/wq``, (3,))."""
     parts = name.split(".")
@@ -160,7 +174,7 @@ def _stacked(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, torch.Tenso
     out: Dict[str, torch.Tensor] = {}
     stacked: Dict[str, Dict[tuple, torch.Tensor]] = {}
     for name, t in named:
-        path, idx = _jax_key(name)
+        path, idx = jax_key(name)
         t = t.detach().to("cpu", copy=True)
         if idx:
             stacked.setdefault(path, {})[idx] = t
@@ -191,14 +205,23 @@ def params_to_numpy(params: nn.Module) -> Dict[str, Any]:
                       for k, t in _stacked(params.named_parameters()).items()})
 
 
+def _moments(opt: Dict[str, Any]):
+    """(name, tree) of an optimizer state's moments: every entry but the
+    count (AdamW's mu, nu; Adafactor's vr, vc, v)."""
+    return [(m, tree) for m, tree in opt.items() if m != "count"]
+
+
 def state_to_flat(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A port train state -> {JAX path: CPU tensor} in the JAX tree's stacked
     layout, each leaf copied and its dtype kept."""
     flat = {f"params/{k}": t
             for k, t in _stacked(state["params"].named_parameters()).items()}
-    for moment in ("mu", "nu"):
-        flat.update({f"opt/{moment}/{k}": t
-                     for k, t in _stacked(state["opt"][moment].items()).items()})
+    for moment, tree in _moments(state["opt"]):
+        if moment in PATH_KEYED:        # Adafactor's: already by JAX path
+            flat.update({f"opt/{moment}/{k}": t.detach().to("cpu", copy=True)
+                         for k, t in tree.items()})
+        else:
+            flat.update({f"opt/{moment}/{k}": t for k, t in _stacked(tree.items()).items()})
     flat["opt/count"] = state["opt"]["count"].detach().to("cpu", copy=True)
     flat["step"] = state["step"].detach().to("cpu", copy=True)
     return flat
@@ -214,14 +237,18 @@ def state_from_jax(np_state, cfg, device: dev.DeviceLike = "cuda",
                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The JAX train-state tree (numpy or torch leaves) -> the port's train
     state on ``device``: params as ``params_from_jax`` makes them (``dtype``
-    as there), requiring grad; fp32 moments keyed by parameter name; int32
-    count and step."""
+    as there), requiring grad; fp32 moments, AdamW's keyed by parameter
+    name, Adafactor's by JAX path; int32 count and step."""
     d = dev.resolve(device)
     params = params_from_jax(np_state["params"], cfg, d, dtype)
     params.requires_grad_(True)
-    opt = {m: {k: p.detach() for k, p in
-               params_from_jax(np_state["opt"][m], cfg, d).named_parameters()}
-           for m in ("mu", "nu")}
+    opt = {}
+    for m, tree in _moments(np_state["opt"]):
+        if m in PATH_KEYED:
+            opt[m] = {k: _to_torch(v, d, torch.float32) for k, v in flatten(tree).items()}
+        else:
+            opt[m] = {k: p.detach() for k, p in
+                      params_from_jax(tree, cfg, d).named_parameters()}
     opt["count"] = _to_torch(np_state["opt"]["count"], d, torch.int32)
     return {"params": params, "opt": opt,
             "step": _to_torch(np_state["step"], d, torch.int32)}
@@ -241,11 +268,11 @@ def load_flat(state: Dict[str, Any], flat: Dict[str, Any]) -> Dict[str, Any]:
         dst.copy_(src)
 
     for name, p in state["params"].named_parameters():
-        path, idx = _jax_key(name)
+        path, idx = jax_key(name)
         put(p, f"params/{path}", idx)
-    for moment in ("mu", "nu"):
-        for name, t in state["opt"][moment].items():
-            path, idx = _jax_key(name)
+    for moment, tree in _moments(state["opt"]):
+        for name, t in tree.items():
+            path, idx = (name, ()) if moment in PATH_KEYED else jax_key(name)
             put(t, f"opt/{moment}/{path}", idx)
     put(state["opt"]["count"], "opt/count", ())
     put(state["step"], "step", ())

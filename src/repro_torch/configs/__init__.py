@@ -1,6 +1,6 @@
 """Architecture registry of the port: ``get_arch(id)`` / ``reduced(cfg)``.
 
-Only the families the port runs are registered: ``ARCHS`` holds the
+Every family of the JAX registry is ported: ``ARCHS`` holds the
 registry's archs, ``BONUS_ARCHS`` the paper's own RQ2 workload models
 (``paper_workload.py``: nanogpt-124m, vit-base-16), kept apart as in the
 JAX package; ``get_arch`` finds either. The dataclasses and the specs are
@@ -12,13 +12,16 @@ from typing import Dict, List
 
 from repro_torch.configs.base import (ArchSpec, LM_SHAPES, ModelConfig,
                                       ShapeConfig, TrainConfig)
-from repro_torch.configs import (granite_3_8b, mamba2_370m, mistral_nemo_12b,
-                                 paligemma_3b, stablelm_1_6b, starcoder2_7b,
-                                 whisper_large_v3, zamba2_1_2b)
+from repro_torch.configs import (deepseek_v3_671b, granite_3_8b, mamba2_370m,
+                                 mistral_nemo_12b, olmoe_1b_7b, paligemma_3b,
+                                 stablelm_1_6b, starcoder2_7b, whisper_large_v3,
+                                 zamba2_1_2b)
 from repro_torch.configs.paper_workload import BONUS_ARCHS
 
 ARCHS: Dict[str, ArchSpec] = {
     "mamba2-370m": mamba2_370m.SPEC,
+    "olmoe-1b-7b": olmoe_1b_7b.SPEC,
+    "deepseek-v3-671b": deepseek_v3_671b.SPEC,
     "paligemma-3b": paligemma_3b.SPEC,
     "starcoder2-7b": starcoder2_7b.SPEC,
     "stablelm-1.6b": stablelm_1_6b.SPEC,
@@ -29,14 +32,13 @@ ARCHS: Dict[str, ArchSpec] = {
 }
 
 ARCH_IDS: List[str] = list(ARCHS) + list(BONUS_ARCHS)
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "vlm", "encdec")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 def get_arch(arch_id: str) -> ArchSpec:
     spec = ARCHS.get(arch_id) or BONUS_ARCHS.get(arch_id)
     if spec is None:
-        raise KeyError(f"arch {arch_id!r} is not ported; the port runs family "
-                       f"{'/'.join(PORTED_FAMILIES)}: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
     return spec
 
 
@@ -55,6 +57,13 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
             kw["num_kv_heads"] = 1
     if cfg.d_ff:
         kw["d_ff"] = 128
+    if cfg.attention == "mla":
+        kw.update(q_lora_rank=32, kv_lora_rank=16, qk_rope_dim=8,
+                  qk_nope_dim=16, v_head_dim=16)
+    if cfg.num_experts:
+        kw.update(num_experts=8, experts_per_token=2, moe_d_ff=64,
+                  first_k_dense=min(cfg.first_k_dense, 1),
+                  mtp_depth=min(cfg.mtp_depth, 1))
     if cfg.ssm_state:
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)  # d_inner=128 -> 8 heads
     if cfg.shared_attn_interval:

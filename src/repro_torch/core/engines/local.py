@@ -54,33 +54,13 @@ def _hash_value(v: Any) -> str:
     ``t.detach().contiguous()`` on the host. A tensor pickles by identity
     otherwise (two equal tensors give two keys), where a JAX array pickles
     by content. Equal values give equal keys whatever their device, storage,
-    strides or offset; a value without tensors hashes as its plain pickle."""
-    import torch
-
-    class _Digest:                      # a file that hashes what is written
-        def __init__(self):
-            self.h = hashlib.sha256()
-
-        def write(self, b):
-            self.h.update(b)
-
-    class _ContentPickler(pickle.Pickler):
-        def reducer_override(self, obj):
-            if not isinstance(obj, torch.Tensor):
-                return NotImplemented
-            t = obj.detach().contiguous().cpu()
-            # the bytes of any dtype, bf16 too (numpy has none)
-            digest = hashlib.sha256(
-                t.reshape(-1).view(torch.uint8).numpy()).hexdigest()
-            return str, (f"torch.Tensor {t.dtype} {tuple(t.shape)} {digest}",)
-
-    out = _Digest()
-    try:
-        _ContentPickler(out).dump(v)
-    except Exception:
-        out = _Digest()
-        out.write(repr(v).encode())
-    return out.h.hexdigest()[:16]
+    strides or offset; a value without tensors hashes as its plain pickle,
+    or, where that fails, as its ``repr``. A value that does not pickle is
+    keyed through its dicts, lists and tuples, each tensor by content (the
+    ``repr`` of a large tensor is summarised); None, no reusable key, where
+    a part holding a tensor cannot be keyed (``repro_torch.content_key``)."""
+    from repro_torch.content_key import digest
+    return digest(v)[0]
 
 
 def cache_key(job: Job, artifact_values: Dict[str, Any],
@@ -88,20 +68,46 @@ def cache_key(job: Job, artifact_values: Dict[str, Any],
     """Content key for a step's outputs. For a chunk-wise consumer
     (``stream_key`` given) the streamed input's contribution is the
     *producer's* cache key instead of a hash of the (possibly not yet
-    materialized) value — equal producer key implies equal chunk stream."""
+    materialized) value — equal producer key implies equal chunk stream.
+
+    The step's function is keyed by its code, constants, closure cells'
+    contents and defaults, and a literal argument that holds a tensor by
+    content (``repro_torch.content_key``); a tensor-free literal by its
+    ``repr``, as the reference keys every literal. A step with a part that
+    cannot be keyed by content gets a fresh key, so it never hits."""
+    import uuid
+    from repro_torch.content_key import digest, function_digest
+    fresh = f"nokey-{uuid.uuid4().hex}"
     parts = [job.name, job.kind, job.image, ",".join(job.command)]
     if job.fn is not None and hasattr(job.fn, "__code__"):
-        parts.append(hashlib.sha256(job.fn.__code__.co_code).hexdigest()[:12])
+        fn_key = function_digest(job.fn)
+        if fn_key is None:
+            return fresh
+        parts.append(fn_key)
+
+    def literal(v):
+        key, tensor = digest(v) if not isinstance(v, (str, int, float)) else (None, False)
+        return (key if tensor else repr(v)), tensor and key is None
+
     for a in (job.args or ()):
         if isinstance(a, StepOutput):
             if stream_key is not None and a.artifact == job.stream_arg:
                 parts.append(f"stream:{stream_key}")
             else:
-                parts.append(_hash_value(artifact_values.get(a.artifact)))
+                key = _hash_value(artifact_values.get(a.artifact))
+                if key is None:
+                    return fresh
+                parts.append(key)
         else:
-            parts.append(repr(a))
+            text, unkeyable = literal(a)
+            if unkeyable:
+                return fresh
+            parts.append(text)
     for k in sorted(job.kwargs or {}):
-        parts.append(f"{k}={job.kwargs[k]!r}")
+        text, unkeyable = literal(job.kwargs[k])
+        if unkeyable:
+            return fresh
+        parts.append(f"{k}={text}")
     return hashlib.sha256("|".join(parts).encode()).hexdigest()[:24]
 
 

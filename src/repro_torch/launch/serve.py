@@ -2,8 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 --gen-len 32
 
-Runs the reduced config of ``--arch`` on seeded random weights, on the card
-unless ``--device cpu`` is given. As in the JAX engine, the vlm and encdec
+Runs the reduced config of ``--arch`` (any arch of the registry, the moe
+ones included) on seeded random weights, on the card unless ``--device
+cpu`` is given. As in the JAX engine, the vlm and encdec
 archs decode from the tokens alone: no patches, and whisper's cross caches
 stay zero (the encoder does not run).
 """

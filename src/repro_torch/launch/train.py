@@ -7,7 +7,8 @@ with periodic asynchronous checkpoints and restart from the latest.
 Port of ``repro/launch/train.py`` without its mesh and sharding strategies
 (they come with the distributed queue). ``--reduced`` (the default) trains
 the reduced config in float32 with lr 1e-3 and no remat, as the JAX
-launcher does; ``--full`` the arch's own config and ``TrainConfig``. Runs on
+launcher does, with the arch's optimizer (deepseek-v3-671b: Adafactor);
+``--full`` the arch's own config and ``TrainConfig``. Runs on
 the card unless ``--device cpu`` is given.
 
 For the vlm and encdec families each batch also carries seeded standard

@@ -1,14 +1,17 @@
-"""Attention, GQA/MHA half: full-sequence and single-token decode paths.
+"""Attention: GQA/MHA and MLA (DeepSeek latent), full + decode paths.
 
-Port of the GQA half of ``repro/models/attention.py`` in the same layouts:
-q (B, H, S, hd) and a KV cache (B, KH, S, hd). The full-sequence path goes
-through ``ops.flash_attention`` (the CUDA kernel on the card), which takes
-GQA by head index and any S. ``blockwise_attention`` stays as the plain
-model-level version (key padding, separate ``qpos``/``kpos``) that the
-kernel is held against. Decode attention had no Pallas kernel and stays
-plain PyTorch. The full path takes the prefix-LM mask of the vlm family
-and of the encoder (``prefix_len``); MLA (and its own scale) comes with the
-moe slice.
+Port of ``repro/models/attention.py`` in the same layouts: q (B, H, S, hd)
+and a KV cache (B, KH, S, hd); MLA caches the compressed latent (B, S,
+kv_lora_rank) and the shared RoPE key (B, S, qk_rope_dim). The
+full-sequence paths go through ``ops.flash_attention`` (the CUDA kernel on
+the card), which takes GQA by head index, Dv != D and any S; MLA's runs at
+D = qk_nope + qk_rope and Dv = v_head_dim, where the kernel's scale D^-0.5
+is the reference's explicit ``(nope + rope) ** -0.5``. ``blockwise_attention``
+stays as the plain model-level version (key padding, separate
+``qpos``/``kpos``) that the kernel is held against. Decode attention had no
+Pallas kernel and stays plain PyTorch (MLA's absorbed form with fp32 scores
+and softmax). The full GQA path takes the prefix-LM mask of the vlm family
+and of the encoder (``prefix_len``).
 """
 from __future__ import annotations
 
@@ -145,3 +148,98 @@ def apply_attention_decode(p, cfg, x, cache, index: int):
     o = torch.einsum("bkgs,bksd->bkgd", w.to(v_c.dtype), v_c)
     o = o.reshape(B, 1, H * hd).to(dt)
     return o @ p["wo"].to(dt), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg, dtype=torch.float32) -> nn.ParameterDict:
+    D, H = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return nn.ParameterDict({
+        "wq_a": L._param(L.dense_init(gen, D, qr, dtype)),
+        "q_norm": L.init_rmsnorm(qr, dtype, gen.device),
+        "wq_b": L._param(L.dense_init(gen, qr, H * (nope + rope), dtype)),
+        "wkv_a": L._param(L.dense_init(gen, D, kvr + rope, dtype)),
+        "kv_norm": L.init_rmsnorm(kvr, dtype, gen.device),
+        "wkv_b": L._param(L.dense_init(gen, kvr, H * (nope + vd), dtype)),
+        "wo": L._param(L.dense_init(gen, H * vd, D, dtype)),
+    })
+
+
+def _mla_qkv(p, cfg, x, positions):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope), c_kv (B,S,kvr) normed,
+    k_rope (B,S,1,rope)), RoPE applied."""
+    B, S, _ = x.shape
+    H, kvr = cfg.num_heads, cfg.kv_lora_rank
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    dt = x.dtype
+    q = L.apply_rmsnorm(p["q_norm"], x @ p["wq_a"].to(dt), cfg.norm_eps)
+    q = (q @ p["wq_b"].to(dt)).reshape(B, S, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    kv = x @ p["wkv_a"].to(dt)                           # (B,S,kvr+rope)
+    c_kv = L.apply_rmsnorm(p["kv_norm"], kv[..., :kvr], cfg.norm_eps)
+    k_rope = L.apply_rope(kv[..., kvr:][..., None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def apply_mla_full(p, cfg, x, positions):
+    """x: (B,S,D) -> (B,S,D), causal, through the kernel at D = nope + rope
+    (the reference's scale (nope + rope)^-0.5 is the kernel's D^-0.5) and
+    Dv = v_head_dim. k_nope and v are one product of the latent with
+    ``wkv_b``, split by head; the RoPE key is broadcast to the H heads."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = x.dtype
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    kv = (c_kv @ p["wkv_b"].to(dt)).reshape(B, S, H, nope + vd)
+    k = torch.cat([kv[..., :nope], k_rope.expand(B, S, H, rope)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    v = kv[..., nope:]                                   # a strided view, by head
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=True)
+    out = out.transpose(1, 2).reshape(B, S, H * vd)
+    return out @ p["wo"].to(dt)
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device: dev.DeviceLike = "cuda"):
+    """MLA caches the COMPRESSED latent (this is the point of MLA)."""
+    device = dev.resolve(device)
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                                  device=device)}
+
+
+def apply_mla_decode(p, cfg, x, cache, index: int):
+    """Absorbed-matmul MLA decode: attends in latent space over the cache,
+    scores and softmax in fp32. Writes the new latent and RoPE key into
+    ``cache`` in place; returns (out (B,1,D), cache)."""
+    B = x.shape[0]
+    H, kvr = cfg.num_heads, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = x.dtype
+    pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, cfg, x, pos)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    c_kv[:, index] = c_kv_new[:, 0].to(c_kv.dtype)
+    k_rope[:, index] = k_rope_new[:, 0, 0].to(k_rope.dtype)
+
+    kvb = p["wkv_b"].to(dt).reshape(kvr, H, nope + vd)
+    w_uk, w_uv = kvb[..., :nope], kvb[..., nope:]
+    # absorb W_uk into the query -> latent-space scores
+    q_lat = torch.einsum("bshn,chn->bshc", q_nope, w_uk)          # (B,1,H,kvr)
+    s = torch.einsum("bshc,btc->bhst", q_lat.float(), c_kv.float())
+    s = s + torch.einsum("bshr,btr->bhst", q_rope.float(), k_rope.float())
+    s = s * (nope + rope) ** -0.5
+    valid = torch.arange(c_kv.shape[1], device=x.device) <= index
+    s = torch.where(valid, s, torch.full_like(s, NEG))
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhst,btc->bshc", w.to(c_kv.dtype), c_kv)  # latent ctx
+    o = torch.einsum("bshc,chn->bshn", ctx.to(dt), w_uv)          # (B,1,H,vd)
+    return o.reshape(B, 1, H * vd) @ p["wo"].to(dt), cache

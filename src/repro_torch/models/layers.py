@@ -35,7 +35,7 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype=torch.float32) -> torch.Tensor:
     w = torch.randn((in_dim, out_dim), generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w / math.sqrt(in_dim)).to(dtype)
+    return w.div_(math.sqrt(in_dim)).to(dtype)         # one fp32 copy alive
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
@@ -56,9 +56,12 @@ def init_rmsnorm(dim: int, dtype=torch.float32,
 
 
 def apply_rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """fp32 math, result in x.dtype; the (B*S, D) view goes to ``ops.rmsnorm``."""
+    """fp32 math, result in x.dtype; the (B*S, D) rows go to ``ops.rmsnorm``,
+    copied where they are not contiguous (a slice of a wider projection, as
+    MLA's latent)."""
     D = x.shape[-1]
-    return ops.rmsnorm(x.reshape(-1, D), p["scale"], eps=eps).reshape(x.shape)
+    return ops.rmsnorm(x.reshape(-1, D).contiguous(), p["scale"],
+                       eps=eps).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Model assembly, families ``dense``, ``ssm``, ``hybrid``, ``vlm`` and
-``encdec``: parameters, forward and decode.
+"""Model assembly for all six families (dense / moe / ssm / hybrid / encdec
+/ vlm): parameters, forward and decode.
 
-Port of those families in ``repro/models/transformer.py``. The parameters
+Port of ``repro/models/transformer.py``. The parameters
 are an ``nn.ModuleDict`` whose keys follow the JAX tree: ``embed/table``,
 ``final_norm/scale``, ``lm_head/w`` and, per layer, ``layers/<i>/...``
 (dense and vlm: ``ln1``, ``attn/{wq,wk,wv,wo}``, ``ln2``,
@@ -14,10 +14,17 @@ frames, bidirectional), ``enc_norm/scale`` and ``dec_layers/<i>/...``
 (``ln1``, ``self_attn``, ``ln_x``, ``cross_attn`` over the encoder's
 output, ``ln2``, ``mlp``). The vlm family (paligemma, vit) is the dense
 stack over ``concat(patches, embed(tokens))`` with the patches a
-bidirectional prefix. The modality frontends are stubs, as in the JAX
-package: frames and patches arrive as (B, n, d_model) embeddings. The JAX
-package stacks the layers on leading axes and scans over them; here they
-are ``nn.ModuleList``s and loops. The moe family comes with a later slice.
+bidirectional prefix. The moe family (olmoe, deepseek-v3) has
+``dense_layers/<i>/...`` (deepseek's ``first_k_dense``: ``ln1``, ``attn``
+(MLA or GQA), ``ln2``, ``mlp``), ``layers/<i>/...`` (the same with ``moe``
+in place of ``mlp``: ``router``, ``experts/{gate,up,down}`` stacked on the
+expert axis, ``shared``) and, with ``mtp_depth``, ``mtp/{proj, norm_h,
+norm_e, block}``: the multi-token-prediction head, whose block is a dense
+GQA layer at ``d_ff = moe_d_ff * experts_per_token``, as in JAX. The
+modality frontends are stubs, as in the JAX package: frames and patches
+arrive as (B, n, d_model) embeddings. The JAX package stacks the layers on
+leading axes and scans over them; here they are ``nn.ModuleList``s and
+loops.
 
 ``apply_lm``         : full-sequence forward -> (logits, aux)  [train/prefill]
 ``apply_lm_decode``  : one-token forward with caches -> (logits, caches)
@@ -47,16 +54,14 @@ from repro_torch.configs import PORTED_FAMILIES
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-
-_LATER = {"moe": "the moe slice"}
 
 
 def _check_family(cfg) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; it comes with "
-            f"{_LATER.get(cfg.family, 'a later slice')}")
+        raise ValueError(f"unknown family {cfg.family!r}; the families are "
+                         f"{'/'.join(PORTED_FAMILIES)}")
 
 
 def _cdt(cfg) -> torch.dtype:
@@ -103,6 +108,35 @@ def _init_dense_layer(gen, cfg, dtype) -> nn.ModuleDict:
         "ln2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
         "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype),
     })
+
+
+def _init_moe_attention(gen, cfg, dtype):
+    return (A.init_mla(gen, cfg, dtype) if cfg.attention == "mla"
+            else A.init_attention(gen, cfg, dtype=dtype))
+
+
+def _init_moe_layer(gen, cfg, dtype) -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "ln1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "attn": _init_moe_attention(gen, cfg, dtype),
+        "ln2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "moe": M.init_moe(gen, cfg, dtype),
+    })
+
+
+def _init_moe_dense_layer(gen, cfg, dtype) -> nn.ModuleDict:
+    """DeepSeek first_k_dense layers: MLA attention + dense MLP."""
+    return nn.ModuleDict({
+        "ln1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "attn": _init_moe_attention(gen, cfg, dtype),
+        "ln2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype),
+    })
+
+
+def _mtp_cfg(cfg):
+    """The MTP block's config: a dense GQA layer at moe_d_ff x k."""
+    return cfg.replace(d_ff=cfg.moe_d_ff * cfg.experts_per_token)
 
 
 def _init_ssm_layer(gen, cfg, dtype) -> nn.ModuleDict:
@@ -153,6 +187,16 @@ def init_lm(cfg, seed: int = 0, *, device: dev.DeviceLike = "cuda") -> nn.Module
 
     if cfg.family in ("dense", "vlm"):
         params["layers"] = stack(_init_dense_layer, cfg.num_layers)
+    elif cfg.family == "moe":
+        if cfg.first_k_dense:
+            params["dense_layers"] = stack(_init_moe_dense_layer, cfg.first_k_dense)
+        params["layers"] = stack(_init_moe_layer, cfg.num_layers - cfg.first_k_dense)
+        if cfg.mtp_depth:
+            params["mtp"] = nn.ParameterDict({
+                "proj": L._param(L.dense_init(gen, 2 * D, D, dtype)),
+                "norm_h": L.init_rmsnorm(D, dtype, d),
+                "norm_e": L.init_rmsnorm(D, dtype, d),
+                "block": _init_dense_layer(gen, _mtp_cfg(cfg), dtype)})
     elif cfg.family == "ssm":
         params["layers"] = stack(_init_ssm_layer, cfg.num_layers)
     elif cfg.family == "encdec":
@@ -180,6 +224,38 @@ def _dense_body(cfg, lp, h, positions, prefix_len=None):
                                    positions, prefix_len)
     return h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
                            cfg.act)
+
+
+def _moe_attention(cfg, lp, x, positions):
+    if cfg.attention == "mla":
+        return A.apply_mla_full(lp["attn"], cfg, x, positions)
+    return A.apply_attention_full(lp["attn"], cfg, x, positions)
+
+
+def _moe_dense_body(cfg, lp, h, positions):
+    """DeepSeek first_k_dense layers: MLA (or GQA) attention + dense MLP."""
+    h = h + _moe_attention(cfg, lp, L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps), positions)
+    return h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
+                           cfg.act)
+
+
+def _moe_body(cfg, lp, h, positions):
+    h = h + _moe_attention(cfg, lp, L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps), positions)
+    y, aux = M.apply_moe(lp["moe"], cfg, L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps))
+    return h + y, aux
+
+
+def _mtp(params, cfg, h, tokens, positions):
+    """The multi-token-prediction head's logits: the next token's embedding
+    beside the final hidden state, projected, one dense GQA block, the final
+    norm and the head. Outside the remat'd layers, as in JAX."""
+    mp = params["mtp"]
+    e = L.apply_embed(params["embed"], torch.roll(tokens, -1, dims=1)).to(h.dtype)
+    m = torch.cat([L.apply_rmsnorm(mp["norm_h"], h, cfg.norm_eps),
+                   L.apply_rmsnorm(mp["norm_e"], e, cfg.norm_eps)], dim=-1)
+    m = m @ mp["proj"].to(h.dtype)
+    m = _dense_body(_mtp_cfg(cfg), mp["block"], m, positions)
+    return _head(params, cfg, L.apply_rmsnorm(params["final_norm"], m, cfg.norm_eps))
 
 
 def _ssm_body(cfg, lp, h):
@@ -258,7 +334,9 @@ def apply_lm(params, cfg, tokens: torch.Tensor, *, frames=None, patches=None,
     [vlm], placed before the tokens as a bidirectional prefix. Returns
     (logits (B, S*, V) fp32, with S* = P + S for vlm, and an aux dict).
     ``remat`` wraps each layer body (none | full | dots), as the JAX
-    ``apply_lm``."""
+    ``apply_lm``. The aux dict holds ``moe_aux`` (the moe layers' summed
+    load-balance loss, 0 for other families) and, for a moe model whose
+    params have the ``mtp`` head, ``mtp_logits``."""
     _check_family(cfg)
     B = tokens.shape[0]
     h = L.apply_embed(params["embed"], tokens).to(_cdt(cfg))
@@ -269,11 +347,23 @@ def apply_lm(params, cfg, tokens: torch.Tensor, *, frames=None, patches=None,
     S_ = h.shape[1]
     positions = torch.arange(S_, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S_)
+    moe_aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    mtp_logits = None
     if cfg.family in ("dense", "vlm"):
         body = _remat(lambda hh, lp: _dense_body(cfg, lp, hh, positions, prefix_len),
                       remat)
         for lp in params["layers"]:
             h = body(h, lp)
+    elif cfg.family == "moe":
+        dbody = _remat(lambda hh, lp: _moe_dense_body(cfg, lp, hh, positions), remat)
+        for lp in (params["dense_layers"] if "dense_layers" in params else ()):
+            h = dbody(h, lp)
+        body = _remat(lambda hh, lp: _moe_body(cfg, lp, hh, positions), remat)
+        for lp in params["layers"]:
+            h, a = body(h, lp)
+            moe_aux = moe_aux + a
+        if cfg.mtp_depth and "mtp" in params:
+            mtp_logits = _mtp(params, cfg, h, tokens, positions)
     elif cfg.family == "encdec":
         he = _encode(params, cfg, frames, remat=remat)
         body = _remat(lambda hh, lp, e: _decoder_body(cfg, lp, hh, positions, e), remat)
@@ -293,7 +383,9 @@ def apply_lm(params, cfg, tokens: torch.Tensor, *, frames=None, patches=None,
             for lp in (params["leftover"] if "leftover" in params else ()):
                 h = body(h, lp)
     h = L.apply_rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+    aux = {"moe_aux": moe_aux}
+    if mtp_logits is not None:
+        aux["mtp_logits"] = mtp_logits
     return _head(params, cfg, h), aux
 
 
@@ -308,7 +400,8 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
     hybrid {"groups": [[ssm cache, ...], ...], "shared": [kv cache per group],
     "leftover": [...]}; encdec {"self": [kv cache per decoder layer],
     "cross": [kv cache of ``enc_seq`` per decoder layer]}, the cross caches
-    zero until ``fill_cross_caches`` writes them. The ssm caches are fp32
+    zero until ``fill_cross_caches`` writes them; moe {"layers": [...],
+    "dense_layers": [...]}, MLA caches ({"c_kv", "k_rope"}) or KV caches. The ssm caches are fp32
     whatever ``dtype`` is, as in the JAX package."""
     _check_family(cfg)
     d = dev.resolve(device)
@@ -319,6 +412,14 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
     if cfg.family in ("dense", "vlm"):
         return {"layers": [A.init_kv_cache(cfg, batch, max_len, dtype, d)
                            for _ in range(cfg.num_layers)]}
+    if cfg.family == "moe":
+        init = A.init_mla_cache if cfg.attention == "mla" else A.init_kv_cache
+        c = {"layers": [init(cfg, batch, max_len, dtype, d)
+                        for _ in range(cfg.num_layers - cfg.first_k_dense)]}
+        if cfg.first_k_dense:
+            c["dense_layers"] = [init(cfg, batch, max_len, dtype, d)
+                                 for _ in range(cfg.first_k_dense)]
+        return c
     if cfg.family == "encdec":
         return {"self": [A.init_kv_cache(cfg, batch, max_len, dtype, d)
                          for _ in range(cfg.num_layers)],
@@ -389,6 +490,21 @@ def apply_lm_decode(params, cfg, token: torch.Tensor, caches, index: int):
             h = h + a
             h = h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
                                 cfg.act)
+    elif cfg.family == "moe":
+        dec = A.apply_mla_decode if cfg.attention == "mla" else A.apply_attention_decode
+        for lp, cache in zip(params["dense_layers"] if "dense_layers" in params else (),
+                             caches.get("dense_layers", ())):
+            a, _ = dec(lp["attn"], cfg, L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps),
+                       cache, index)
+            h = h + a
+            h = h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
+                                cfg.act)
+        for lp, cache in zip(params["layers"], caches["layers"]):
+            a, _ = dec(lp["attn"], cfg, L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps),
+                       cache, index)
+            h = h + a
+            y, _ = M.apply_moe(lp["moe"], cfg, L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps))
+            h = h + y
     elif cfg.family == "encdec":
         for lp, scache, xcache in zip(params["dec_layers"], caches["self"],
                                       caches["cross"]):

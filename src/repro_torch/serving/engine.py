@@ -5,8 +5,9 @@ prefilled through the one-token decode path, greedy decoding takes the
 argmax, and caches are float32 unless asked otherwise. Temperature
 sampling draws from a ``torch.Generator`` seeded per call, so it gives
 other samples than ``jax.random`` from the same seed. Every host time read
-waits for the card first. Every ported family runs through
-``init_caches`` and ``apply_lm_decode``; as in the JAX engine, the vlm
+waits for the card first. Every family runs through ``init_caches`` and
+``apply_lm_decode`` (moe with MLA's latent caches for deepseek, its MoE
+capacity from each step's own B tokens); as in the JAX engine, the vlm
 family decodes without its patches and the encdec family with zero cross
 caches, because the engine never runs the encoder.
 """

@@ -1,15 +1,17 @@
 """Train-step factory of the port: loss, grads, microbatch accumulation,
 clipping, update.
 
-Port of ``repro/training/train.py`` for the families the port runs. The
-train state is a dict ``{"params": nn.ModuleDict (requires_grad), "opt":
-{"mu", "nu", "count"}, "step": int32 tensor}``; ``make_train_step(cfg,
+Port of ``repro/training/train.py``. The train state is a dict
+``{"params": nn.ModuleDict (requires_grad), "opt": {"mu", "nu", "count"}
+(AdamW) or {"vr", "vc", "v", "count"} (Adafactor), "step": int32 tensor}``; ``make_train_step(cfg,
 tcfg)`` returns ``(state, batch) -> (state, metrics)``, which updates the
 state in place and returns it. A batch is ``{"tokens", "targets"}`` (B, S)
 integer tensors on the state's device (``to_device``), with ``"frames"``
 (B, enc_seq, d_model) for the encdec family and ``"patches"`` (B,
 num_patches, d_model) for the vlm family; for vlm the loss reads the text
-positions' logits only. The entry points default to the card.
+positions' logits only. The moe family's loss adds ``moe_aux`` and, with
+the MTP head, 0.3 times the cross entropy of ``mtp_logits`` against the
+targets rolled one to the left. The entry points default to the card.
 
 As in the JAX package, ``TrainConfig.beta1`` and ``beta2`` never reach the
 optimizer: only ``learning_rate`` and ``weight_decay`` are passed, so
@@ -50,6 +52,9 @@ def make_loss_fn(cfg, tcfg):
         if cfg.family == "vlm":                   # text positions only
             logits = logits[:, cfg.num_patches:, :]
         loss = cross_entropy(logits, batch["targets"]) + aux["moe_aux"]
+        if "mtp_logits" in aux:                   # deepseek's MTP head
+            loss = loss + 0.3 * cross_entropy(aux["mtp_logits"],
+                                              torch.roll(batch["targets"], -1, dims=1))
         return loss, {"ce": loss}
     return loss_fn
 
@@ -119,23 +124,31 @@ def kernel_launches_per_step(cfg, remat: str) -> Dict[str, int]:
     "dots" each layer's forward kernels run again in the recompute; the
     final norm, and the hybrid family's shared attention block, are outside
     it (as in the JAX package, ``repro/models/transformer.py:316-320``), as
-    is the encdec encoder's ``enc_norm``. A forward of n layers launches:
-    dense and vlm flash n, rmsnorm 2n + 1; ssm ssd_scan n, rmsnorm 2n + 1;
-    hybrid (n mamba layers, g shared blocks) ssd_scan n, flash g, rmsnorm
-    2n + 2g + 1; encdec (ne encoder and n decoder layers) flash ne + 2n,
-    rmsnorm 2ne + 1 + 3n + 1. Each backward kernel runs once per forward
-    call outside the recompute."""
+    are the encdec encoder's ``enc_norm`` and the moe family's MTP head. A
+    forward of n layers launches: dense and vlm flash n, rmsnorm 2n + 1;
+    ssm ssd_scan n, rmsnorm 2n + 1; hybrid (n mamba layers, g shared blocks)
+    ssd_scan n, flash g, rmsnorm 2n + 2g + 1; encdec (ne encoder and n
+    decoder layers) flash ne + 2n, rmsnorm 2ne + 1 + 3n + 1; moe (n layers,
+    ``first_k_dense`` ones included) flash n, rmsnorm r n + 1 with r 2, or
+    4 under MLA (its ``q_norm`` and ``kv_norm``), and with the MTP head one
+    flash and 5 rmsnorm more (``norm_h``, ``norm_e``, its block's two, the
+    final norm again). Each backward kernel runs once per forward call
+    outside the recompute."""
     twice = 1 if remat == "none" else 2
     n = cfg.num_layers
     ne = cfg.num_enc_layers
     g = T.hybrid_split(cfg)[0] if cfg.family == "hybrid" else 0
+    r = 4 if cfg.attention == "mla" else 2
+    mtp = 1 if cfg.family == "moe" and cfg.mtp_depth else 0
     dense = {"flash_attention": (n, 0), "rmsnorm": (2 * n, 1)}
     fwd = {"dense": dense, "vlm": dense,
            "ssm": {"ssd_scan": (n, 0), "rmsnorm": (2 * n, 1)},
            "hybrid": {"ssd_scan": (n, 0), "flash_attention": (0, g),
                       "rmsnorm": (2 * n, 2 * g + 1)},
            "encdec": {"flash_attention": (ne + 2 * n, 0),
-                      "rmsnorm": (2 * ne + 3 * n, 2)}}[cfg.family]
+                      "rmsnorm": (2 * ne + 3 * n, 2)},
+           "moe": {"flash_attention": (n, mtp),
+                   "rmsnorm": (r * n, 1 + 5 * mtp)}}[cfg.family]
     counts = {name: 0 for name in ops.LAUNCHES}
     for name, (in_remat, outside) in fwd.items():
         counts[name] = twice * in_remat + outside

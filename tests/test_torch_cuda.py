@@ -459,8 +459,10 @@ def test_autograd_on_card_matches_cpu(cuda, dtype):
     ("stablelm-1.6b", {"num_layers": 3, "num_kv_heads": 2}, 64),
     ("mamba2-370m", {"num_layers": 3}, 64),
     ("zamba2-1.2b", {"num_layers": 5}, 64),
-    ("paligemma-3b", {}, 64), ("whisper-large-v3", {}, 64), ("vit-base-16", {}, 64)],
-    ids=["stablelm", "mamba2", "zamba2", "paligemma", "whisper", "vit"])
+    ("paligemma-3b", {}, 64), ("whisper-large-v3", {}, 64), ("vit-base-16", {}, 64),
+    ("olmoe-1b-7b", {}, 64), ("deepseek-v3-671b", {}, 64)],
+    ids=["stablelm", "mamba2", "zamba2", "paligemma", "whisper", "vit", "olmoe",
+         "deepseek"])
 def test_train_steps_on_card_match_cpu(cuda, remat, aid, kw, S):
     """Reduced models in fp32: two steps on the card through the kernels
     and on the CPU through the plain versions, from the same init; the
@@ -677,3 +679,101 @@ def test_content_key_of_a_card_tensor_is_the_cpu_tensors(cuda):
     t = torch.randn(3, 5, generator=torch.Generator().manual_seed(0)).bfloat16()
     assert _hash_value({"w": t.to(cuda)}) == _hash_value({"w": t})
     assert _hash_value(t.to(cuda).t()) == _hash_value(t.t().contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the moe family's widths: MLA's (192, 128) flash under its strides, olmoe's
+# 16 heads of 128 backward, the norms of 7168, 1536 and 512
+# ---------------------------------------------------------------------------
+
+def test_flash_forward_at_mla_width_under_its_strides(cuda):
+    """MLA hands the kernel q and k concatenated (nope 128 + rope 64) and v
+    a strided view of the latent's product, every head's 128 values 256
+    apart (``attention.apply_mla_full``): the (192, 128) tile."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, S, H, nope, rope, vd = 2, 130, 16, 128, 64, 128
+    q = _randn(gen, (B, S, H, nope + rope), torch.bfloat16, cuda)
+    k = _randn(gen, (B, S, H, nope + rope), torch.bfloat16, cuda)
+    kv = _randn(gen, (B, S, H, nope + vd), torch.bfloat16, cuda)
+    v = kv[..., nope:]
+    assert not v.is_contiguous()
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert fa.plan(*args) == ("tensor_cores", (192, 128))
+    before = ops.LAUNCHES["flash_attention"]
+    with torch.inference_mode():
+        o = ops.flash_attention(*args, causal=True)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ops.flash_attention_plain(*args, causal=True)
+    torch.testing.assert_close(o.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_flash_backward_at_olmoe_heads(cuda):
+    """16 heads of 128 through the autograd Function, as olmoe's layers
+    hand them over; gradients against the plain backward's by norm."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    B, S, H, D = 1, 512, 16, 128
+    q, k, v = (_randn(gen, (B, S, H, D), torch.bfloat16, cuda).transpose(1, 2)
+               .requires_grad_(True) for _ in range(3))
+    do = _randn(gen, (B, H, S, D), torch.bfloat16, cuda)
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    grads = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    assert fa.BWD_ROUTE == ("tensor_cores", (128, 32))
+    o, lse = ops.flash_attention_plain(q.detach(), k.detach(), v.detach(), return_lse=True)
+    want = ref.reference_attention_bwd(q.detach(), k.detach(), v.detach(), o, lse, do)
+    for g, w in zip(grads, want):
+        assert ((g.float() - w.float()).norm() / w.float().norm()).item() < 1e-2
+
+
+@pytest.mark.parametrize("D", [7168, 1536, 512])
+@pytest.mark.parametrize("R", [4, 512])
+def test_rmsnorm_at_the_moe_widths(cuda, R, D):
+    """deepseek's d_model 7168, MLA's q_norm 1536 and kv_norm 512, bf16,
+    forward and backward."""
+    gen = torch.Generator(device=cuda).manual_seed(R + D)
+    x = _randn(gen, (R, D), torch.bfloat16, cuda).requires_grad_(True)
+    s = (1.0 + 0.1 * _randn(gen, (D,), torch.float32, cuda)).bfloat16().requires_grad_(True)
+    dy = _randn(gen, (R, D), torch.bfloat16, cuda)
+    y = ops.rmsnorm(x, s)
+    torch.testing.assert_close(y.float(), ref.reference_rmsnorm(x.detach(), s.detach()).float(),
+                               atol=2e-2, rtol=2e-2)
+    dx, ds = torch.autograd.grad(y, (x, s), dy)
+    wdx, wds = ref.reference_rmsnorm_bwd(x.detach(), s.detach(), dy)
+    torch.testing.assert_close(dx.float(), wdx.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(ds.float(), wds.float(), atol=2e-2 * R ** 0.5, rtol=2e-2)
+
+
+def test_olmoe_train_steps_give_equal_bits(cuda):
+    """Two runs of two bf16 steps from one state: equal params, as a
+    content-keyed cache needs; the dispatch has no atomics."""
+    cfg = reduced(get_arch("olmoe-1b-7b").model).replace(d_model=128, moe_d_ff=128)
+    tcfg = get_arch("olmoe-1b-7b").train
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=torch.Generator().manual_seed(1))
+    batch = TR.to_device({"tokens": toks[:, :-1], "targets": toks[:, 1:]}, cuda)
+    runs = []
+    for _ in range(2):
+        state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
+        step = TR.make_train_step(cfg, tcfg)
+        for _ in range(2):
+            state, m = step(state, batch)
+        runs.append([p.detach().clone() for p in state["params"].parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_a_card_tensor_literal_argument_keys_as_the_cpu_one(cuda):
+    from repro_torch.core import couler
+    from repro_torch.core.engines.local import cache_key
+
+    def use(t):
+        return float(t.sum())
+
+    def job(arg):
+        with couler.workflow("lit") as ir:
+            couler.run_step(use, arg, step_name="use")
+        return ir.jobs["use"]
+
+    t = torch.randn(4096, generator=torch.Generator().manual_seed(2))
+    t2 = t.clone()
+    t2[2048] += 1
+    assert cache_key(job(t.to(cuda)), {}) == cache_key(job(t), {})
+    assert cache_key(job(t2.to(cuda)), {}) != cache_key(job(t.to(cuda)), {})

@@ -37,7 +37,8 @@ def test_no_jax_or_repro_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving.engine, repro_torch.launch.serve, "
-            "repro_torch.bridge, repro_torch.launch.train, "
+            "repro_torch.bridge, repro_torch.launch.train, repro_torch.models.moe, "
+            "repro_torch.content_key, "
             "repro_torch.training.checkpoint, repro_torch.data.pipeline, "
             "repro_torch.core.engines.local, repro_torch.core.autotune, "
             "repro_torch.core.api, repro_torch.examples.train_lm, "

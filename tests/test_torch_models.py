@@ -40,7 +40,8 @@ def _close(tx, jx, tol=TOL):
 
 
 @pytest.mark.parametrize("aid", ["stablelm-1.6b", "mistral-nemo-12b",
-                                 "mamba2-370m", "zamba2-1.2b"])
+                                 "mamba2-370m", "zamba2-1.2b", "olmoe-1b-7b",
+                                 "deepseek-v3-671b"])
 def test_configs_are_copies(aid):
     port, ref = configs.get_arch(aid), jcfg.get_arch(aid)
     assert dataclasses.asdict(port.model) == dataclasses.asdict(ref.model)
@@ -52,11 +53,16 @@ def test_configs_are_copies(aid):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(KeyError, match="dense/ssm/hybrid"):
-        configs.get_arch("olmoe-1b-7b")
-    cfg = configs.get_arch("stablelm-1.6b").model.replace(family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
+    """Every arch of the registry is ported now: an unknown arch id raises
+    KeyError naming the archs, an unknown family raises."""
+    with pytest.raises(KeyError, match="olmoe-1b-7b"):
+        configs.get_arch("gpt-5")
+    cfg = configs.get_arch("stablelm-1.6b").model.replace(family="retnet")
+    with pytest.raises(ValueError, match="retnet"):
         T.init_lm(cfg, device="cpu")
+    with pytest.raises(ValueError, match="retnet"):
+        T.apply_lm(T.init_lm(configs.reduced(configs.get_arch("stablelm-1.6b").model),
+                             device="cpu"), cfg, torch.zeros((1, 2), dtype=torch.long))
 
 
 def test_rope_split_half():

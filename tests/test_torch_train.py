@@ -145,11 +145,22 @@ def test_adamw_update_matches_jax(dtype):
 
 
 def test_adamw_init_fp32_moments_and_adafactor_waits():
+    """AdamW's moments are fp32 for bf16 params; Adafactor's state follows
+    the JAX leaves: vr/vc for a factored leaf (its layers stacked), v for
+    an unfactored one, fp32, keyed by JAX path (tests/test_torch_moe.py
+    holds the update to JAX's)."""
     params = {"w": torch.zeros(3, 2, dtype=torch.bfloat16)}
     st = O.opt_init("adamw")(params)
     assert st["mu"]["w"].dtype == torch.float32 and st["count"].dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        O.opt_init("adafactor")(params)
+    params = {"w": torch.zeros(3, 2, dtype=torch.bfloat16), "b": torch.zeros(4),
+              "layers.0.s": torch.zeros(5), "layers.1.s": torch.zeros(5)}
+    st = O.opt_init("adafactor")(params)
+    shapes = {m: {k: tuple(v.shape) for k, v in st[m].items()} for m in ("vr", "vc", "v")}
+    assert shapes == {"vr": {"w": (3,), "b": (1,), "layers/s": (2,)},
+                      "vc": {"w": (2,), "b": (1,), "layers/s": (5,)},
+                      "v": {"w": (1,), "b": (4,), "layers/s": (1,)}}
+    assert all(v.dtype == torch.float32 for m in ("vr", "vc", "v") for v in st[m].values())
+    assert st["count"].dtype == torch.int32 and int(st["count"]) == 0
 
 
 def test_bridged_state_round_trips():

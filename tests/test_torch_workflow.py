@@ -74,7 +74,7 @@ def test_the_copy_has_every_file_and_no_other():
 
 def test_only_the_named_seams_diverge():
     assert port_core.DIVERGENT == {
-        "engines/local.py": ("_hash_value", "LocalEngine._ckpt_session",
+        "engines/local.py": ("_hash_value", "cache_key", "LocalEngine._ckpt_session",
                              "LocalEngine._profiled_invoke", "_block_until_ready",
                              "_device_memory_bytes"),
         "autotune.py": ("train_real_model",)}
@@ -176,20 +176,149 @@ def test_the_reference_key_hashes_a_tensor_by_identity():
     assert L._hash_value(a) == L._hash_value(b)
 
 
+# ---------------------------------------------------------------------------
+# (b2) the reference's three wrong-hit keys, repaired in the port
+# ---------------------------------------------------------------------------
+
+def _job(fn, *args, **kwargs):
+    """The IR job of one step running ``fn``."""
+    with couler.workflow("keys") as ir:
+        couler.run_step(fn, *args, step_name="step", **kwargs)
+    return ir.jobs["step"]
+
+
+def test_a_value_that_does_not_pickle_keys_its_tensors_by_content():
+    """The reference's fallback keys such a value by its ``repr``, which
+    summarises a tensor of more than 1,000 elements: one element apart, the
+    two values got one key. Tensor-free, the fallback stays the reference's."""
+    f = lambda x: x                                   # noqa: E731
+    w = torch.zeros(4096)
+    w2 = w.clone()
+    w2[2048] = 1
+    a, b = {"w": w, "f": f}, {"w": w2, "f": f}
+    assert repr(a) == repr(b)
+    assert L._hash_value(a) != L._hash_value(b)
+    assert L._hash_value(a) == L._hash_value({"w": w.clone(), "f": f})
+    plain = {"n": np.zeros(3), "f": f}
+    assert L._hash_value(plain) == JL._hash_value(plain)
+
+
+def test_a_tensor_in_a_part_that_does_not_pickle_gets_no_reusable_key():
+    """A part whose pickle meets a tensor and then fails (here a partial
+    with a lambda among its keywords) cannot be keyed by content."""
+    import functools
+    f = lambda x: x                                   # noqa: E731
+    part = functools.partial(torch.add, torch.zeros(3), alpha=f)
+    v = {"p": part, "t": torch.ones(2)}
+    assert L._hash_value(v) is None
+    job = _job(lambda t: t, v)
+    assert L.cache_key(job, {}) != L.cache_key(job, {})
+
+
+def test_a_literal_tensor_argument_is_keyed_by_content():
+    """The reference keys a literal argument by ``repr``: a tensor of 4096
+    zeros and the same with one element set got one key."""
+    def use(t, scale=None):
+        return float(t.sum())
+
+    w = torch.zeros(4096)
+    w2 = w.clone()
+    w2[2048] = 1
+    assert repr(w) == repr(w2)
+    assert L.cache_key(_job(use, w), {}) != L.cache_key(_job(use, w2), {})
+    assert L.cache_key(_job(use, w), {}) == L.cache_key(_job(use, w.clone()), {})
+    assert L.cache_key(_job(use, 1, scale=w), {}) != L.cache_key(_job(use, 1, scale=w2), {})
+    # a tensor-free literal keeps the reference's repr
+    assert L.cache_key(_job(use, (1, "a")), {}) != L.cache_key(_job(use, (1, "b")), {})
+
+
+def _make_train(lr):
+    def train(steps):
+        return lr * steps
+    return train
+
+
+def _f():
+    return 0.1
+
+
+def _g():
+    return 0.2
+
+
+def test_a_function_is_keyed_by_its_constants_closure_and_defaults():
+    """The reference keys a step's function by ``co_code`` alone: closures
+    built at two learning rates, and two functions that differ in a
+    constant, each got one key. Closures built afresh with equal contents
+    still get one key."""
+    def key(fn, *args):
+        return L.cache_key(_job(fn, *args), {})
+
+    assert key(_make_train(3e-4), 5) != key(_make_train(3e-3), 5)
+    assert key(_make_train(3e-4), 5) == key(_make_train(3e-4), 5)
+    assert key(_f) != key(_g)
+
+    def with_default(x, lr=3e-4):
+        return x * lr
+
+    def with_other_default(x, lr=3e-3):
+        return x * lr
+
+    def with_kwdefault(x, *, lr=3e-4):
+        return x * lr
+
+    def with_other_kwdefault(x, *, lr=3e-3):
+        return x * lr
+
+    assert key(with_default, 1) != key(with_other_default, 1)
+    assert key(with_kwdefault, 1) != key(with_other_kwdefault, 1)
+
+    def nested(lr):                 # a closure over a closure, and a cycle
+        inner = _make_train(lr)
+
+        def step(n):
+            return inner(n) + (step is not None)
+        return step
+
+    assert key(nested(3e-4), 2) == key(nested(3e-4), 2)
+    assert key(nested(3e-4), 2) != key(nested(3e-3), 2)
+    lam = [lambda: 1, lambda: 2]
+    assert key(lam[0]) != key(lam[1])
+
+
+def test_a_sweep_of_closures_under_one_step_name_gets_each_trials_result():
+    """§IV.C's shape: trials built as closures under one step name, in one
+    engine. Each gets its own result, and a repeated trial hits."""
+    def build(lr):
+        with couler.workflow("sweep") as ir:
+            couler.run_step(_make_train(lr), 10, step_name="trial")
+        return ir
+
+    eng = L.LocalEngine(cache=CacheStore(), enable_speculation=False)
+    try:
+        runs = [eng.submit(build(lr)) for lr in (3e-4, 3e-3, 3e-4)]
+    finally:
+        eng.close()
+    assert [r.artifacts["trial:out"] for r in runs] == [3e-4 * 10, 3e-3 * 10, 3e-4 * 10]
+    assert [r.steps["trial"].status for r in runs] == [
+        StepStatus.SUCCEEDED, StepStatus.SUCCEEDED, StepStatus.CACHED]
+
+
 def test_recomputed_equal_tensor_keeps_its_consumer_cached():
     """A non-cacheable step returns an equal tensor artifact in a new tensor
     on every submission; its cacheable consumer is Cached the second time.
-    With the reference's pickle key it would run again."""
-    calls = {"make": 0, "use": 0}
-
+    With the reference's pickle key it would run again. The call counts sit
+    on the functions: a closure's contents are part of its key."""
     def make():
-        calls["make"] += 1
+        make.calls += 1
         return {"w": torch.arange(64.).reshape(8, 8) * 0.5,
                 "b": [torch.ones(3, dtype=torch.bfloat16)]}
 
     def use(t):
-        calls["use"] += 1
+        use.calls += 1
         return float(t["w"].sum()) + float(t["b"][0].sum())
+
+    make.calls = use.calls = 0
 
     def build():
         with couler.workflow("recompute") as ir:
@@ -205,7 +334,7 @@ def test_recomputed_equal_tensor_keeps_its_consumer_cached():
     assert r1.succeeded() and r2.succeeded()
     assert r2.steps["make"].status == StepStatus.SUCCEEDED
     assert r2.steps["use"].status == StepStatus.CACHED
-    assert calls == {"make": 2, "use": 1}
+    assert (make.calls, use.calls) == (2, 1)
     assert r2.artifacts["use:out"] == r1.artifacts["use:out"] == 1011.0
     assert r1.artifacts["make:out"]["w"] is not r2.artifacts["make:out"]["w"]
 
@@ -222,11 +351,14 @@ def _system_cfgs():
     return cfg, spec.train.__class__(**tkw), jcfg, jspec.train.__class__(**tkw)
 
 
-def _tokenize_fn(vocab, calls):
+def _tokenize_fn(vocab):
+    """The call count sits on the function: the port keys a closure's
+    contents, so a count in a closure cell would change the step's key."""
     def tokenize():
-        calls["n"] += 1
+        tokenize.calls += 1
         rng = np.random.default_rng(0)
         return rng.integers(0, vocab, (8, 33)).astype(np.int32)
+    tokenize.calls = 0
     return tokenize
 
 
@@ -275,13 +407,13 @@ def test_ml_workflow_with_real_training_matches_the_jax_workflow():
             losses.append(float(m["loss"]))
         return losses
 
-    jcalls, calls = {"n": 0}, {"n": 0}
+    jtokenize, tokenize = _tokenize_fn(jcfg.vocab_size), _tokenize_fn(cfg.vocab_size)
     jruns = _run_twice(jcouler, JL.LocalEngine(
         cache=JCacheStore(capacity_bytes=1 << 24, policy=JCoulerPolicy()),
-        enable_speculation=False), _tokenize_fn(jcfg.vocab_size, jcalls), jtrain)
+        enable_speculation=False), jtokenize, jtrain)
     runs = _run_twice(couler, L.LocalEngine(
         cache=CacheStore(capacity_bytes=1 << 24, policy=CoulerPolicy()),
-        enable_speculation=False), _tokenize_fn(cfg.vocab_size, calls), train)
+        enable_speculation=False), tokenize, train)
     for jr, r in zip(jruns, runs):
         assert r.succeeded() and jr.succeeded()
         assert {k: s.status.value for k, s in r.steps.items()} == \
@@ -289,7 +421,7 @@ def test_ml_workflow_with_real_training_matches_the_jax_workflow():
     assert runs[0].artifacts["eval:out"] is True
     assert runs[1].steps["tokenize"].status == StepStatus.CACHED
     assert jruns[1].steps["tokenize"].status == JStepStatus.CACHED
-    assert calls == jcalls == {"n": 1}
+    assert tokenize.calls == jtokenize.calls == 1
     np.testing.assert_allclose(runs[0].artifacts["train:out"],
                                jruns[0].artifacts["train:out"], rtol=STEP_RTOL)
 
