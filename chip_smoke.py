@@ -96,7 +96,23 @@ its seconds:
                 after mid-step kills with an uninterrupted run's losses, a
                 profiled step that returns with ~50 ms of products queued
                 has an ``execute_s`` that covers them, and
-                ``train_real_model`` ends lower at lr 3e-3 than at 3.0.
+                ``train_real_model`` ends lower at lr 3e-3 than at 3.0;
+8. distributed  the mesh loop of ``launch/train.py`` (``mesh_state``,
+                ``mesh_step``) on NCCL at world size 1, mesh (1,1) over
+                ("data", "model"): full-width bf16 stablelm-1.6b under the
+                baseline and pure_fsdp strategies (params, AdamW moments and
+                batch as DTensors, every kernel entered on local shards), a
+                warm-up step and 4 steps on the train phase's batch and
+                init, and mamba2-370m under baseline for 2 steps; each step's
+                loss within 1e-3 relative of the train phase's, the last
+                below the first, exactly the train phase's launches per
+                step, and step_s, tokens_per_s and peak memory beside the
+                card line. The multi-rank checks (EP, all-to-all, moe_rs,
+                the compressed mean, the pipeline) would need gloo on this
+                one card; it takes CUDA tensors for its all-to-all,
+                all-gather, reduce-scatter and MAX all-reduce but not for
+                send/recv, which the pipeline's ring permute needs
+                (``GLOO_TAKES_CUDA``), so they run in the CPU tests only.
 
 Then a summary line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero before
@@ -369,6 +385,111 @@ WF_INSIDE = []
 # evaluate gate wants the last loss below the first by WF_REPEAT_MARGIN
 # (half the margin PERF.md predicts from the train phase's one-batch run).
 WF_REPEAT_BATCHES, WF_REPEAT_MARGIN = 2, 0.5
+# The distributed phase: world size 1 on NCCL, mesh (1,1); each arch's
+# strategies and timed steps, and each loss against the train phase's.
+DIST_RUNS = (("stablelm-1.6b", "baseline", TRAIN_STEPS),
+             ("stablelm-1.6b", "pure_fsdp", TRAIN_STEPS),
+             ("mamba2-370m", "baseline", 2))
+DIST_LOSS_RTOL = 1e-3
+# scripts/probe_gloo_cuda.py on the H100 (torch 2.11.0+cu128): gloo takes
+# CUDA tensors (int8 and fp32) for all_to_all_single, all_gather_into_tensor,
+# reduce_scatter_tensor and a MAX all_reduce, but send/recv fails on them
+# ("writev ... Bad address"), so not every collective the multi-rank checks
+# use: they stay in the CPU tests, and this phase runs world size 1 only.
+GLOO_TAKES_CUDA = False
+
+
+def distributed_phase(torch, cuda, main_paths, train_losses) -> None:
+    """Phase 8. ``DIST_RUNS`` through ``launch/train.py``'s mesh loop on
+    NCCL at world size 1, each from the train phase's init (seed 0) on its
+    batch, held to its losses (``train_losses[aid]``) and launches. Adds
+    each run's launches to ``main_paths``; raises on any failed check."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.sharding.rules import rules_for
+    from repro_torch.training import train as TR
+
+    if not GLOO_TAKES_CUDA:
+        emit({"phase": "distributed", "what": "multi-rank checks (EP, all-to-all, "
+              "moe_rs, compressed mean, pipeline)", "on_card": False,
+              "where": "tests/test_torch_distributed.py on the CPU: gloo's send/recv "
+              "takes no CUDA tensor here, and NCCL needs a card per rank"})
+    store = Path(tempfile.mkdtemp(dir=ROOT / "build")) / "rdzv"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        for aid, strategy, n_steps in DIST_RUNS:
+            t_phase = time.perf_counter()
+            cfg, tcfg = launch_train.configs(aid, full=True)
+            rules = rules_for(aid, strategy)
+            batch = next(launch_train.with_modality_inputs(
+                cfg, synthetic_batches(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, seed=0, n=1)))
+            steps = []
+
+            def on_step(step, m):
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter(), float(m["loss"]),
+                              float(m["grad_norm"]), dict(ops.LAUNCHES)))
+                ops.reset_launches()
+
+            with use_mesh(mesh, rules, strategy):
+                state = launch_train.mesh_state(cfg, tcfg, mesh, rules, strategy, cuda)
+                placements = sorted({str(tuple(p.placements)) for p in
+                                     state["params"].parameters()})
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launches()
+                launch_train.train_loop(state, launch_train.mesh_step(cfg, tcfg, mesh, rules),
+                                        iter([batch] * (1 + n_steps)), steps=1 + n_steps,
+                                        device=cuda, log_every=0, on_step=on_step,
+                                        compute_dtype=cfg.compute_dtype)
+            peak = torch.cuda.max_memory_allocated()
+            timed = steps[1:]
+            step_s = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
+            losses = [st[1] for st in timed]
+            per_step = [st[3] for st in timed]
+            want = train_losses[aid][:n_steps]
+            expect = TR.kernel_launches_per_step(cfg, tcfg.remat)
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+            ok = (len(timed) == n_steps and all(r <= DIST_LOSS_RTOL for r in rel)
+                  and losses[-1] < losses[0] and all(ls == expect for ls in per_step)
+                  and all(map(math.isfinite, losses + [st[2] for st in timed])))
+            emit({"phase": "distributed", "arch": cfg.name, "strategy": strategy,
+                  "mesh": {"data": 1, "model": 1}, "backend": "nccl", "world": 1,
+                  "param_placements": placements, "layers": cfg.num_layers,
+                  "dtype": cfg.compute_dtype, "optimizer": tcfg.optimizer,
+                  "remat": tcfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                  "reduced": TRAIN_CUT,
+                  "warmup_step": {"loss": steps[0][1], "launches": steps[0][3]},
+                  "step_s": step_s,
+                  "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / t for t in step_s],
+                  "max_memory_allocated_bytes": peak, "losses": losses,
+                  "train_phase_losses": want, "loss_rel_err": rel,
+                  "grad_norms": [st[2] for st in timed], "launches_per_step": per_step,
+                  "expected_launches_per_step": expect, "card": dev_card_line(),
+                  "ok": ok, "seconds": time.perf_counter() - t_phase})
+            if not ok:
+                fail(f"{aid} {strategy} distributed phase failed: losses {losses} "
+                     f"against {want}, launches {per_step}, expected {expect}")
+            total = {k: sum(ls[k] for ls in per_step) for k in expect}
+            for name, n in expect.items():
+                if n and total[name] == 0:
+                    fail(f"kernel {name} was never launched on the {aid} mesh path")
+            main_paths[f"{aid}/mesh {strategy}"] = total
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def dev_card_line() -> str:
+    from repro_torch import device as dev
+    return dev.card_line()
 
 
 def workflow_phase(torch, cuda, main_paths, every_kernel) -> None:
@@ -1708,9 +1829,11 @@ def main() -> int:
             if n and train_total[name] == 0:
                 fail(f"kernel {name} was never launched on the {aid} train path")
         main_paths[f"{aid}/train"] = train_total     # the first run's
+        train_losses[aid] = losses
         del state
         torch.cuda.empty_cache()
 
+    train_losses = {}
     for aid in ("stablelm-1.6b", "mamba2-370m", "zamba2-1.2b", "whisper-large-v3"):
         train(aid)
     # its own TrainConfig has remat none; the train phase holds every path to
@@ -1722,6 +1845,9 @@ def main() -> int:
 
     # 7. workflow: the paper's production loop through the port's Couler layer
     workflow_phase(torch, cuda, main_paths, every_kernel)
+
+    # 8. distributed: the mesh loop at world size 1 ---------------------------
+    distributed_phase(torch, cuda, main_paths, train_losses)
 
     # summary -----------------------------------------------------------------
     main_case = {"rmsnorm": "serve_decode", "flash_attention": "serve_forward",

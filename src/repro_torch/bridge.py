@@ -175,7 +175,7 @@ def _stacked(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, torch.Tenso
     stacked: Dict[str, Dict[tuple, torch.Tensor]] = {}
     for name, t in named:
         path, idx = jax_key(name)
-        t = t.detach().to("cpu", copy=True)
+        t = _full(t).detach().to("cpu", copy=True)
         if idx:
             stacked.setdefault(path, {})[idx] = t
         else:
@@ -211,14 +211,21 @@ def _moments(opt: Dict[str, Any]):
     return [(m, tree) for m, tree in opt.items() if m != "count"]
 
 
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (a collective: every rank calls it)."""
+    from repro_torch.sharding.ctx import is_dtensor
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def state_to_flat(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A port train state -> {JAX path: CPU tensor} in the JAX tree's stacked
-    layout, each leaf copied and its dtype kept."""
+    layout, each leaf copied and its dtype kept. A state placed on a mesh
+    (DTensors) is gathered, so every rank must call it."""
     flat = {f"params/{k}": t
             for k, t in _stacked(state["params"].named_parameters()).items()}
     for moment, tree in _moments(state["opt"]):
         if moment in PATH_KEYED:        # Adafactor's: already by JAX path
-            flat.update({f"opt/{moment}/{k}": t.detach().to("cpu", copy=True)
+            flat.update({f"opt/{moment}/{k}": _full(t).detach().to("cpu", copy=True)
                          for k, t in tree.items()})
         else:
             flat.update({f"opt/{moment}/{k}": t for k, t in _stacked(tree.items()).items()})
@@ -257,7 +264,10 @@ def state_from_jax(np_state, cfg, device: dev.DeviceLike = "cuda",
 @torch.no_grad()
 def load_flat(state: Dict[str, Any], flat: Dict[str, Any]) -> Dict[str, Any]:
     """Copies {JAX path: leaf} (the stacked layout of ``state_to_flat``) into
-    ``state``'s tensors in place; returns ``state``."""
+    ``state``'s tensors in place; returns ``state``. A DTensor takes its
+    local block, so a state placed on any mesh restores."""
+    from repro_torch.sharding.ctx import is_dtensor, local_slices
+
     def put(dst: torch.Tensor, key: str, idx: tuple) -> None:
         if key not in flat:
             raise KeyError(f"{key} is not in the checkpoint")
@@ -265,7 +275,11 @@ def load_flat(state: Dict[str, Any], flat: Dict[str, Any]) -> Dict[str, Any]:
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{key}{list(idx)}: {tuple(src.shape)} does not fit "
                              f"{tuple(dst.shape)}")
-        dst.copy_(src)
+        if is_dtensor(dst):
+            dst.to_local().copy_(src[local_slices(src.shape, dst.device_mesh,
+                                                  dst.placements)])
+        else:
+            dst.copy_(src)
 
     for name, p in state["params"].named_parameters():
         path, idx = jax_key(name)

@@ -19,7 +19,12 @@ defaults. Here:
   pickle and was seen to hold a tensor gets no key (``None``);
 - a function is keyed by its code (``co_code``, ``co_names`` and
   ``co_consts``, nested code objects by the same rule), its closure cells'
-  contents, ``__defaults__`` and ``__kwdefaults__``. A function in any of
+  contents, ``__defaults__``, ``__kwdefaults__`` and the values of the
+  module globals its code names (``co_names`` found in ``__globals__``,
+  nested code included) that are plain data: numbers, strings, bytes,
+  tensors, numpy arrays, and tuples, lists and dicts of those. A global
+  module, function or class stays keyed by its name. A bound method is
+  keyed by its function and by its ``__self__``'s content. A function in any of
   these that cannot be imported by name (a lambda, a closure) is keyed by
   the same rule, the pickler's memo standing guard against cycles; one that
   can, and a module, by name. Any other part that does not pickle gives no
@@ -72,6 +77,26 @@ def _importable(f: types.FunctionType) -> bool:
     return obj is f
 
 
+def _plain_data(v: Any) -> bool:
+    import numpy as np
+    if v is None or isinstance(v, (bool, int, float, complex, str, bytes,
+                                   torch.Tensor, np.ndarray, np.generic)):
+        return True
+    if type(v) in (tuple, list):
+        return all(_plain_data(x) for x in v)
+    if type(v) is dict:
+        return all(_plain_data(k) and _plain_data(x) for k, x in v.items())
+    return False
+
+
+def _names(code: types.CodeType) -> set:
+    out = set(code.co_names)
+    for c in code.co_consts:
+        if isinstance(c, types.CodeType):
+            out |= _names(c)
+    return out
+
+
 def _function_parts(f: types.FunctionType) -> tuple:
     cells = []
     for cell in f.__closure__ or ():
@@ -79,7 +104,10 @@ def _function_parts(f: types.FunctionType) -> tuple:
             cells.append(cell.cell_contents)
         except ValueError:
             cells.append(_EmptyCell())
-    return (f.__code__, tuple(cells), f.__defaults__, f.__kwdefaults__)
+    g = f.__globals__
+    data = tuple((n, g[n]) for n in sorted(_names(f.__code__))
+                 if n in g and _plain_data(g[n]))
+    return (f.__code__, tuple(cells), f.__defaults__, f.__kwdefaults__, data)
 
 
 class _ContentPickler(pickle.Pickler):
@@ -162,6 +190,14 @@ def digest(v: Any) -> Tuple[Optional[str], bool]:
 
 
 def function_digest(fn: Any) -> Optional[str]:
-    """The content key of a step's function (a bound method by its
-    function), or None where a part cannot be keyed by content."""
-    return _pickled(getattr(fn, "__func__", fn), functions=True)[0]
+    """The content key of a step's function (a bound method by its function
+    and its ``__self__``), or None where a part cannot be keyed by content."""
+    if isinstance(fn, types.MethodType):
+        out = _Digest()
+        p = _ContentPickler(out, True, top=fn.__func__)
+        try:
+            p.dump((fn.__func__, fn.__self__))
+        except Exception:
+            return None
+        return out.key()
+    return _pickled(fn, functions=True)[0]

@@ -16,6 +16,19 @@ scratch (cum, the chunk states, the final state) and launches
 ``ssd_scan_bwd`` (without grad the scratch is dropped). Each backward call
 counts one in ``LAUNCHES`` under its own name. On the CPU the same Functions
 run the plain forward and backward versions (``ref.py``).
+
+Under a device mesh the inputs arrive as ``DTensor``s, and the kernels take
+raw pointers, so each wrapper enters on local shards (``enter_local``): the
+inputs are redistributed to the placements the kernel can compute on
+locally, the kernel (or the plain version) runs once on this rank's shards,
+exactly as it runs unsharded, and the result is wrapped back. rmsnorm keeps
+rows sharded; flash keeps batch and heads sharded (``heads`` over
+``model``, as ``repro/models/attention.py:120-122`` sets them), ssd_scan
+batch and ``ssm_heads``; every other sharded dim is gathered. K/V (or the B/C
+groups) that cannot follow q's (x's) head sharding are gathered and cut to
+this rank's heads locally. An input replicated over an axis on which the
+result is sharded gets a partial gradient there (the rmsnorm scale, such
+K/V or B/C). The counts in ``LAUNCHES`` stay one per call.
 """
 from __future__ import annotations
 
@@ -25,6 +38,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
+from repro_torch.sharding import ctx
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0,
             "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
@@ -75,6 +89,11 @@ class _RMSNormFn(torch.autograd.Function):
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-5) -> torch.Tensor:
     """x: (R, D); scale: (D,). Returns (R, D) in x.dtype, fp32 math."""
+    if ctx.is_dtensor(x):
+        keep = _kept(x, (0,))
+        (xl, sl), out = enter_local([(x, keep, None), (scale, _none(keep), _partial(keep))],
+                                    keep)
+        return out(_RMSNormFn.apply(xl, sl, eps))
     return _RMSNormFn.apply(x, scale, eps)
 
 
@@ -140,6 +159,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dividing H. Returns q's leading dims with Dv.
     """
     fa._check_prefix(prefix_len)
+    if ctx.is_dtensor(q):
+        return _split_heads(flash_attention, (q, k, v), 1,
+                            dict(causal=causal, prefix_len=prefix_len))
     three_d = q.dim() == 3
     if three_d:
         q, k, v = q[:, None], k[:, None], v[:, None]
@@ -233,6 +255,10 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     and, with ``return_state``, also the final state in fp32: (BH, N, P) or
     (Bsz, H, N, P).
     """
+    if ctx.is_dtensor(x):
+        return _split_heads(ssd_scan, (x, dA, Bm, Cm), 2,
+                            dict(chunk=chunk, return_state=return_state),
+                            state_heads=1 if return_state else None)
     three_d = x.dim() == 3
     if three_d:
         x, dA, Bm, Cm = x[:, :, None], dA[:, :, None], Bm[:, :, None], Cm[:, :, None]
@@ -254,3 +280,89 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     if three_d:
         y, state = y[:, :, 0], state[:, 0] if state is not None else None
     return (y, state) if return_state else y
+
+
+# ---------------------------------------------------------------------------
+# the kernel boundary under a mesh
+# ---------------------------------------------------------------------------
+
+def _kept(x, dims):
+    """x's placements with a Shard of one of ``dims`` kept and every other
+    placement (another dim's Shard, a Partial) turned to Replicate."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [p if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in x.placements]
+
+
+def _none(placements):
+    from torch.distributed.tensor import Replicate
+    return [Replicate()] * len(placements)
+
+
+def _partial(placements):
+    """Partial where the result is sharded (the local gradient of an input
+    replicated there covers this rank's shard only), Replicate elsewhere."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return [Partial() if isinstance(p, Shard) else Replicate() for p in placements]
+
+
+def enter_local(args, out_placements):
+    """[(tensor, placements, grad placements or None)] -> (the local shards,
+    a function wrapping a local result as a DTensor with ``out_placements``).
+    A plain tensor among the args is one every rank holds in full."""
+    from torch.distributed.tensor import DTensor
+    mesh = args[0][0].device_mesh
+    local = []
+    for t, pl, gpl in args:
+        if not ctx.is_dtensor(t):
+            t = DTensor.from_local(t, mesh, _none(pl), run_check=False)
+        t = t.redistribute(mesh, pl)
+        local.append(t.to_local(grad_placements=gpl) if gpl is not None else t.to_local())
+
+    def out(y, placements=out_placements):
+        return DTensor.from_local(y, mesh, placements, run_check=False)
+    return local, out
+
+
+def _split_heads(fn, args, head_dim, kwargs, state_heads=None):
+    """``fn`` on local shards of (q, k, v) / (x, dA, B, C): batch (dim 0) and
+    heads (``head_dim``) stay sharded as the first input has them. An input
+    of lower rank (dA) takes the same placements; the others (K/V heads, B/C
+    groups, on ``head_dim`` too) follow where their count divides the
+    shards, else they are gathered and expanded to this rank's heads, with a
+    partial gradient over the head axes. ``state_heads``: the head dim of a
+    second output (ssd_scan's final state), sharded as the heads."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    first = args[0]
+    main = _kept(first, (0, head_dim))
+    mesh = first.device_mesh
+    sizes = list(mesh.mesh.shape)
+    head_axes = [i for i, p in enumerate(main) if isinstance(p, Shard) and p.dim == head_dim]
+    n_shards = 1
+    for i in head_axes:
+        n_shards *= sizes[i]
+    H = first.shape[head_dim]
+    batch_only = [p if i not in head_axes else Replicate() for i, p in enumerate(main)]
+    entries, groups = [(first, main, None)], []
+    for t in args[1:]:
+        if t.dim() < first.dim() or t.shape[head_dim] % n_shards == 0:
+            entries.append((t, main, None))
+            groups.append(None)
+        else:
+            entries.append((t, batch_only, [Partial() if i in head_axes else p
+                                            for i, p in enumerate(batch_only)]))
+            groups.append(t.shape[head_dim])
+    local, out = enter_local(entries, main)
+    if any(g is not None for g in groups):
+        h_loc = local[0].shape[head_dim]
+        h0 = ctx.local_slices(first.shape, mesh, main)[head_dim].start
+        for j, n in enumerate(groups):
+            if n is not None:                       # this rank's heads' groups
+                t = local[j + 1].repeat_interleave(H // n, dim=head_dim)
+                local[j + 1] = t.narrow(head_dim, h0, h_loc)
+    res = fn(*local, **kwargs)
+    if state_heads is None:
+        return out(res)
+    y, state = res
+    spl = [Shard(state_heads) if i in head_axes else p for i, p in enumerate(main)]
+    return out(y), out(state, spl)

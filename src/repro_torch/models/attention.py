@@ -23,6 +23,7 @@ from torch import nn
 from repro_torch import device as dev
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding.ctx import shard
 
 KV_BLOCK = 1024
 NEG = -1e30
@@ -105,10 +106,13 @@ def apply_attention_full(p, cfg, x, positions, prefix_len=None):
     q, k, v = _qkv(p, cfg, x, S)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    # (B,S,heads,hd) -> (B,heads,S,hd) views; the kernel reads them by stride
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True,
-                              prefix_len=prefix_len or 0)
+    # (B,S,heads,hd) -> (B,heads,S,hd) views; the kernel reads them by stride.
+    # K/V keep their KH heads (the kernel takes GQA by head index) under the
+    # "heads" rule that JAX applies to them repeated to H.
+    q = shard(q.transpose(1, 2), "batch", "heads", "seq_q", None)
+    k = shard(k.transpose(1, 2), "batch", "heads", None, None)
+    v = shard(v.transpose(1, 2), "batch", "heads", None, None)
+    out = ops.flash_attention(q, k, v, causal=True, prefix_len=prefix_len or 0)
     out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.head_dim)
     return out @ p["wo"].to(x.dtype)
 
@@ -137,6 +141,8 @@ def apply_attention_decode(p, cfg, x, cache, index: int):
     k_c, v_c = cache["k"], cache["v"]
     k_c[:, :, index] = k[:, 0].to(k_c.dtype)
     v_c[:, :, index] = v[:, 0].to(v_c.dtype)
+    k_c = shard(k_c, "batch", "kv_heads", "kv_seq", None)
+    v_c = shard(v_c, "batch", "kv_heads", "kv_seq", None)
 
     G = H // KH
     qg = q.reshape(B, KH, G, hd)
@@ -200,8 +206,10 @@ def apply_mla_full(p, cfg, x, positions):
     k = torch.cat([kv[..., :nope], k_rope.expand(B, S, H, rope)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     v = kv[..., nope:]                                   # a strided view, by head
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=True)
+    q = shard(q.transpose(1, 2), "batch", "heads", "seq_q", None)
+    k = shard(k.transpose(1, 2), "batch", "heads", None, None)
+    v = shard(v.transpose(1, 2), "batch", "heads", None, None)
+    out = ops.flash_attention(q, k, v, causal=True)
     out = out.transpose(1, 2).reshape(B, S, H * vd)
     return out @ p["wo"].to(dt)
 
@@ -229,6 +237,8 @@ def apply_mla_decode(p, cfg, x, cache, index: int):
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     c_kv[:, index] = c_kv_new[:, 0].to(c_kv.dtype)
     k_rope[:, index] = k_rope_new[:, 0, 0].to(k_rope.dtype)
+    c_kv = shard(c_kv, "batch", "kv_seq", None)
+    k_rope = shard(k_rope, "batch", "kv_seq", None)
 
     kvb = p["wkv_b"].to(dt).reshape(kvr, H, nope + vd)
     w_uk, w_uv = kvb[..., :nope], kvb[..., nope:]

@@ -16,6 +16,7 @@ from torch import nn
 
 from repro_torch import device as dev
 from repro_torch.kernels import ops
+from repro_torch.sharding import ctx
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -129,7 +130,25 @@ def init_embed(gen: torch.Generator, vocab: int, dim: int,
 
 
 def apply_embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    table = p["table"]
+    if ctx.is_dtensor(table):
+        return _embed_local(table, tokens)
+    return table[tokens]
+
+
+def _embed_local(table, tokens):
+    """The lookup under a mesh, on local shards: the table gathered whole,
+    each rank's tokens looked up, the rows keeping the tokens' placements;
+    the table's gradient is partial over the axes that shard the tokens.
+    (DTensor's own lookup fails in the backward's ``index_put`` sharding
+    propagation on torch 2.11.)"""
+    from torch.distributed.tensor import Partial, Replicate
+    pl = tokens.placements if ctx.is_dtensor(tokens) else [Replicate()] * table.device_mesh.ndim
+    (tab, tok), out = ops.enter_local(
+        [(table, [Replicate()] * len(pl),
+          [Partial() if q.is_shard() else Replicate() for q in pl]),
+         (tokens, pl, None)], pl)
+    return out(tab[tok])
 
 
 def apply_lm_head(embed_params, x: torch.Tensor, head_params=None) -> torch.Tensor:

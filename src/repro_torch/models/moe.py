@@ -1,10 +1,30 @@
 """Mixture-of-Experts, the local (one-device) path.
 
-Port of ``repro/models/moe.py``'s ``init_moe``, ``_route``, ``_capacity``,
-``_expert_compute_local`` and ``apply_moe`` as the JAX ``apply_moe`` runs
-them without a mesh (``moe.py:228-231``). The expert-parallel paths
-(``_apply_moe_a2a``, the ``shard_map`` of ``apply_moe``, ``moe_rs``) belong
-to the distributed queue.
+Port of ``repro/models/moe.py``: ``init_moe``, ``_route``, ``_capacity``,
+``_expert_compute_local`` and ``apply_moe`` with its expert-parallel paths.
+Without a mesh ``apply_moe`` runs the local path (``moe.py:228-231``). Under
+a mesh (the activations ``DTensor``s) it runs, as JAX's ``shard_map``s do,
+explicit SPMD on local shards with ``sharding.collectives``:
+
+- EP over ``model`` (``_apply_moe_ep``, ``moe.py:236-288``): tokens sharded
+  over the batch axes and replicated over ``model``; each rank computes its
+  E/tp experts (``e0`` its ``model`` coordinate times ``e_local``) over its
+  local tokens, with the capacity from the LOCAL token count, as in JAX,
+  and the partial outputs are summed over ``model`` (``psum``), or under
+  ``moe_rs`` reduce-scattered, cast to bf16 and all-gathered. deepseek's
+  expert weights, d_model-sharded over ``data``, are all-gathered first.
+- all-to-all dispatch (``_apply_moe_a2a``, ``moe.py:114-209``) under
+  ``moe_a2a``/``moe_a2a_seqshard`` where B*S divides tp * dp: each
+  ``model`` rank slices its rows locally, sends fixed-capacity buckets to
+  the expert owners, computes, sends back, scatter-adds, and the rows are
+  gathered over ``model``.
+- EP off (a tp of 1, E not divisible, ``expert`` unmapped): the local path
+  on every rank over all tokens (gathered), so the capacity and the dropped
+  pairs are those of the global batch, as GSPMD computes it.
+
+The routing runs on local tokens; its load-balance means are averaged over
+the batch axes. Inputs replicated over an axis whose ranks each compute a
+part declare a partial gradient there (``to_local(grad_placements=)``).
 
 Dispatch is the reference's sort-based capacity buckets: the (token,
 choice) pairs are sorted stably by expert (``torch.argsort(stable=True)``;
@@ -32,7 +52,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.ops import enter_local
 from repro_torch.models import layers as L
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import ctx
 
 
 def init_moe(gen: torch.Generator, cfg, dtype=torch.float32) -> nn.ParameterDict:
@@ -57,8 +80,10 @@ def init_moe(gen: torch.Generator, cfg, dtype=torch.float32) -> nn.ParameterDict
     return p
 
 
-def _route(p, cfg, x: torch.Tensor):
-    """Returns (weights (B,S,k) in x.dtype, idx (B,S,k), aux_loss fp32)."""
+def _route(p, cfg, x: torch.Tensor, mean_over=None):
+    """Returns (weights (B,S,k) in x.dtype, idx (B,S,k), aux_loss fp32).
+    ``mean_over(t)`` averages the load-balance means over the ranks that
+    hold the other tokens (none: x holds them all)."""
     k, E = cfg.experts_per_token, cfg.num_experts
     logits = x.float() @ p["router"].float()                # (B,S,E)
     if cfg.router_type == "sigmoid":                        # deepseek-v3
@@ -70,6 +95,8 @@ def _route(p, cfg, x: torch.Tensor):
     probs = torch.softmax(logits, dim=-1)
     f = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
     pbar = probs.mean(dim=(0, 1))
+    if mean_over is not None:
+        f, pbar = mean_over(f), mean_over(pbar)
     aux = E * (f * pbar).sum() * cfg.aux_loss_coef
     return w.to(x.dtype), idx, aux
 
@@ -159,6 +186,8 @@ def apply_moe(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,D) -> (out (B,S,D), aux_loss). The capacity comes from this
     call's own token count, so decode (B tokens) and prefill (B S tokens)
     get different capacities, as in JAX."""
+    if ctx.is_dtensor(x):
+        return _apply_moe_mesh(p, cfg, x)
     B, S, D = x.shape
     w, idx, aux = _route(p, cfg, x)
     E, k = cfg.num_experts, cfg.experts_per_token
@@ -170,3 +199,182 @@ def apply_moe(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if "shared" in p:
         y = y + L.apply_mlp(p["shared"], x2d, "swiglu")
     return y.reshape(B, S, D).to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# under a mesh
+# ---------------------------------------------------------------------------
+
+def _pl(mesh, shards):
+    """Placements: ``shards`` maps an axis name to the dim it shards (or to
+    a placement); the other axes replicate."""
+    from torch.distributed.tensor import Placement, Replicate, Shard
+    out = []
+    for a in mesh.mesh_dim_names:
+        v = shards.get(a)
+        out.append(Replicate() if v is None else v if isinstance(v, Placement)
+                   else Shard(v))
+    return out
+
+
+def _apply_moe_mesh(p, cfg, x):
+    from torch.distributed.tensor import DTensor, Partial
+    from repro_torch.launch.mesh import axis_sizes
+    rules = ctx.axis_ctx()[1]
+    mesh = x.device_mesh
+    sizes = axis_sizes(mesh)
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    tp = sizes.get("model", 1)
+    exp_rule = rules.get("expert") if rules else None
+    ep_on = exp_rule == "model" or (isinstance(exp_rule, tuple) and "model" in exp_rule)
+    strategy = ctx.current_strategy()
+    dp = sizes.get("data", 1) * sizes.get("pod", 1)
+    batch_axes = [a for a in ("pod", "data") if a in sizes]
+
+    if tp == 1 or E % tp != 0 or not ep_on:
+        # the local path over every token, on every rank
+        rep = _pl(mesh, {})
+        (xl, rl, gl, ul, dl), out = enter_local(
+            [(x, rep, None), (p["router"], rep, None)] +
+            [(p["experts"][n], rep, None) for n in ("gate", "up", "down")], rep)
+        w, idx, aux = _route({"router": rl}, cfg, xl)
+        cap = _capacity(B * S, k, E, cfg.capacity_factor)
+        y = _expert_compute_local(xl.reshape(B * S, D), idx.reshape(B * S, k),
+                                  w.reshape(B * S, k), gl, ul, dl, 0, E, cap)
+        y = out(y.reshape(B, S, D))
+        aux = out(aux)
+    else:
+        # tokens over the batch axes, replicated over model; grads of what
+        # model ranks share are partial there
+        tok = _pl(mesh, {a: 0 for a in batch_axes})
+        tok_g = _pl(mesh, {**{a: 0 for a in batch_axes}, "model": Partial()})
+        fsdp = sizes.get("data", 1) > 1 and cfg.name.startswith("deepseek")
+        wpl, wgr = {}, {}
+        for n, d_axis in (("gate", 1), ("up", 1), ("down", 2)):
+            sh = {"model": 0}
+            if fsdp and D % sizes["data"] == 0:
+                sh["data"] = d_axis
+            wpl[n] = _pl(mesh, sh)
+            # each data rank's tokens give a part of the gradient
+            wgr[n] = _pl(mesh, {**sh, **{a: Partial() for a in batch_axes
+                                          if a not in sh}})
+        (xl, rl, gl, ul, dl), out = enter_local(
+            [(x, tok, tok_g), (p["router"], _pl(mesh, {}),
+                                _pl(mesh, {a: Partial() for a in sizes}))] +
+            [(p["experts"][n], wpl[n], wgr[n]) for n in ("gate", "up", "down")], tok)
+        if fsdp and D % sizes["data"] == 0:
+            gl = C.all_gather(gl, mesh, "data", 1)
+            ul = C.all_gather(ul, mesh, "data", 1)
+            dl = C.all_gather(dl, mesh, "data", 2)
+        def mean_over(t):
+            for a in batch_axes:
+                t = C.psum(t, mesh, a)
+            return t / dp
+
+        Bl = xl.shape[0]
+        w, idx, aux_l = _route({"router": rl}, cfg, xl, mean_over)
+        # every model rank routes the same tokens: the aux gradient, summed
+        # over model with the experts' partial ones, must count once
+        aux_l = _GradScale.apply(aux_l, 1.0 / tp)
+        x2d = xl.reshape(Bl * S, D)
+        idx2d, w2d = idx.reshape(Bl * S, k), w.reshape(Bl * S, k)
+        if (strategy in ("moe_a2a", "moe_a2a_seqshard")
+                and (B * S) % (tp * dp) == 0):
+            # this rank's rows: (B S) sharded over the batch axes, then model
+            rows = DTensor.from_local(
+                _apply_moe_a2a(cfg, mesh, x2d, idx2d, w2d, gl, ul, dl), mesh,
+                _pl(mesh, {a: 0 for a in batch_axes + ["model"]}), run_check=False)
+            y = rows.redistribute(mesh, tok).reshape(B, S, D)
+        else:
+            y = _apply_moe_ep(cfg, mesh, x2d, idx2d, w2d, gl, ul, dl,
+                              rs=strategy == "moe_rs" and (B * S) % (tp * dp) == 0)
+            y = out(y.reshape(Bl, S, D))
+        aux = DTensor.from_local(aux_l, mesh, _pl(mesh, {}), run_check=False)
+    if "shared" in p:
+        y = y + L.apply_mlp(p["shared"], x, "swiglu")
+    return y.to(x.dtype), aux
+
+
+class _GradScale(torch.autograd.Function):
+    """Identity forward; the backward scales the cotangent by ``c``."""
+
+    @staticmethod
+    def forward(ctx_, t, c):
+        ctx_.c = c
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx_, dy):
+        return dy * ctx_.c, None
+
+
+class _ReduceScatterGatherBF16(torch.autograd.Function):
+    """``moe_rs``'s sum over ``model``: reduce-scatter, the part cast to
+    bf16, all-gather, back to the input's dtype. Its output is replicated
+    over ``model``, so the backward passes the cotangent as ``psum``'s does,
+    rounded to bf16 as JAX's transpose of the pair rounds it."""
+
+    @staticmethod
+    def forward(ctx_, y, mesh):
+        g = C.group(mesh, "model")
+        part = C._scatter(y, g, 0).to(torch.bfloat16)
+        return C._gather(part, g, 0).to(y.dtype)
+
+    @staticmethod
+    def backward(ctx_, dy):
+        return dy.to(torch.bfloat16).to(dy.dtype), None
+
+
+def _apply_moe_ep(cfg, mesh, x2d, idx2d, w2d, gate, up, down, *, rs: bool):
+    """The mesh branch of JAX's ``apply_moe`` on this rank's tokens."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    tp = C.axis_size(mesh, "model")
+    e_local = E // tp
+    e0 = C.axis_index(mesh, "model") * e_local
+    # capacity from the LOCAL token count (x2d is the local block)
+    cap = _capacity(x2d.shape[0], k, E, cfg.capacity_factor)
+    y = _expert_compute_local(x2d, idx2d, w2d, gate, up, down, e0, e_local, cap)
+    if rs:
+        return _ReduceScatterGatherBF16.apply(y, mesh)
+    return C.psum(y, mesh, "model")
+
+
+def _apply_moe_a2a(cfg, mesh, x2d, idx2d, w2d, gate, up, down):
+    """Sequence-sharded EP with all-to-all dispatch on this rank's tokens
+    (replicated over ``model``): this ``model`` rank's slice of rows is
+    routed in fixed-capacity buckets (``c_send`` per destination) to the
+    expert owners, computed there (``c_comp`` per expert), sent back,
+    scatter-added with the routing weights. Returns this rank's t rows; the
+    caller gathers them over ``model``."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    tp = C.axis_size(mesh, "model")
+    e_local = E // tp
+    t = x2d.shape[0] // tp
+    c_send = _capacity(t, k, tp, cfg.capacity_factor)       # per-dest bucket
+    c_comp = _capacity(tp * c_send, 1, e_local, cfg.capacity_factor)
+    m = C.axis_index(mesh, "model")
+    x_ = x2d[m * t:(m + 1) * t]
+    idx_, w_ = idx2d[m * t:(m + 1) * t], w2d[m * t:(m + 1) * t]
+    D = x_.shape[1]
+    N = t * k
+    flat_e = idx_.reshape(N)
+    # the pairs bucketed by owning rank, in JAX's (stable) order
+    slot_flat, inv = dispatch_maps((flat_e // e_local).reshape(N, 1), 0, tp, c_send)
+    slot_tok = torch.where(slot_flat < N, slot_flat // k, torch.full_like(slot_flat, t))
+    valid = slot_flat < N
+    s_x = _GatherRows.apply(x_, slot_tok, inv.reshape(t, k))
+    s_e = torch.where(valid, flat_e[slot_flat.clamp(max=N - 1)], torch.zeros_like(slot_flat))
+    s_w = _GatherRows.apply(w_.reshape(N, 1), slot_flat, inv)      # (tp c_send, 1)
+
+    r_x = C.all_to_all(s_x, mesh, "model")
+    r_e = C.all_to_all(s_e, mesh, "model")
+    r_v = C.all_to_all(valid.to(torch.int8), mesh, "model").bool()
+
+    e0 = m * e_local
+    le = torch.where(r_v, r_e - e0, torch.full_like(r_e, e_local)).reshape(-1, 1)
+    ones = torch.ones((tp * c_send, 1), dtype=x_.dtype, device=x_.device)
+    out = _expert_compute_local(r_x, le, ones, gate, up, down, 0, e_local, c_comp)
+    out = C.all_to_all(out, mesh, "model")
+    # combine: weighted scatter-add back to the local tokens
+    return _GatherRows.apply(out * s_w, inv.reshape(t, k), slot_flat.reshape(-1, 1)).sum(1)

@@ -22,6 +22,8 @@ from torch import nn
 from repro_torch import device as dev
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import shard
 
 # Leaves drawn in float32 whatever the param type, as in the JAX code.
 FP32_PARAMS = ("dt_bias", "A_log", "D_skip")
@@ -64,13 +66,28 @@ def init_ssm(gen: torch.Generator, cfg, dtype=torch.float32) -> nn.ParameterDict
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. u: (B,S,C), w: (K,C)."""
+    """Depthwise causal conv. u: (B,S,C), w: (K,C). Under a mesh it runs on
+    local shards (batch and channels sharded as u has them, the sequence
+    whole): DTensor's propagation of its pad and slices fails in the
+    backward on torch 2.11."""
+    if ctx.is_dtensor(u):
+        return _causal_conv_local(u, w)
     K, S = w.shape[0], u.shape[1]
     pad = F.pad(u, (0, 0, K - 1, 0))
     out = torch.zeros_like(u)
     for i in range(K):                                   # K=4: unrolled taps
         out = out + pad[:, i: i + S, :] * w[i][None, None, :]
     return out
+
+
+def _causal_conv_local(u, w):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    upl = [p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in u.placements]
+    wpl = [Shard(1) if p.is_shard(2) else Replicate() for p in upl]
+    wgr = [Shard(1) if p.is_shard(2) else Partial() if p.is_shard(0) else Replicate()
+           for p in upl]
+    (ul, wl), out = ops.enter_local([(u, upl, None), (w, wpl, wgr)], upl)
+    return out(_causal_conv(ul, wl))
 
 
 def ssd_chunked(xh, dt, a_log, Bm, Cm, chunk: int):
@@ -100,7 +117,7 @@ def apply_ssm_full(p, cfg, x: torch.Tensor) -> torch.Tensor:
     xs, Bm, Cm = F.silu(xs), F.silu(Bm), F.silu(Cm)
     dt = F.softplus((x @ p["in_dt"].to(dt_)).float() + p["dt_bias"][None, None, :])
 
-    xh = xs.reshape(B, S, H, cfg.ssm_head_dim)
+    xh = shard(xs.reshape(B, S, H, cfg.ssm_head_dim), "batch", None, "ssm_heads", None)
     y, _ = ssd_chunked(xh, dt, p["A_log"], Bm.reshape(B, S, G, N),
                        Cm.reshape(B, S, G, N), cfg.ssm_chunk)
     y = y + xh * p["D_skip"].to(dt_)[None, None, :, None]

@@ -56,6 +56,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.sharding.ctx import shard
 
 
 def _check_family(cfg) -> None:
@@ -222,8 +223,9 @@ def _dense_body(cfg, lp, h, positions, prefix_len=None):
     h = h + A.apply_attention_full(lp["attn"], cfg,
                                    L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps),
                                    positions, prefix_len)
-    return h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
-                           cfg.act)
+    h = h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
+                        cfg.act)
+    return shard(h, "batch", None, None)
 
 
 def _moe_attention(cfg, lp, x, positions):
@@ -235,14 +237,15 @@ def _moe_attention(cfg, lp, x, positions):
 def _moe_dense_body(cfg, lp, h, positions):
     """DeepSeek first_k_dense layers: MLA (or GQA) attention + dense MLP."""
     h = h + _moe_attention(cfg, lp, L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps), positions)
-    return h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
-                           cfg.act)
+    h = h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
+                        cfg.act)
+    return shard(h, "batch", None, None)
 
 
 def _moe_body(cfg, lp, h, positions):
     h = h + _moe_attention(cfg, lp, L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps), positions)
     y, aux = M.apply_moe(lp["moe"], cfg, L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps))
-    return h + y, aux
+    return shard(h + y, "batch", None, None), aux
 
 
 def _mtp(params, cfg, h, tokens, positions):
@@ -259,8 +262,9 @@ def _mtp(params, cfg, h, tokens, positions):
 
 
 def _ssm_body(cfg, lp, h):
-    return h + S.apply_ssm_full(lp["ssm"], cfg,
-                                L.apply_rmsnorm(lp["ln"], h, cfg.norm_eps))
+    h = h + S.apply_ssm_full(lp["ssm"], cfg,
+                             L.apply_rmsnorm(lp["ln"], h, cfg.norm_eps))
+    return shard(h, "batch", None, None)
 
 
 def _shared_mlp(cfg, sp, h, emb0):
@@ -268,7 +272,7 @@ def _shared_mlp(cfg, sp, h, emb0):
     m = L.apply_rmsnorm(sp["ln2"], torch.cat([h, emb0], dim=-1), cfg.norm_eps)
     mlp, dt = sp["mlp"], h.dtype
     m = F.silu(m @ mlp["gate"].to(dt)) * (m @ mlp["up"].to(dt))
-    return h + m @ mlp["down"].to(dt)
+    return shard(h + m @ mlp["down"].to(dt), "batch", None, None)
 
 
 def _shared_body(cfg, sp, h, emb0, positions):
@@ -303,8 +307,9 @@ def _decoder_body(cfg, lp, h, positions, enc_out):
                                    L.apply_rmsnorm(lp["ln1"], h, cfg.norm_eps), positions)
     h = h + _cross_attention(lp["cross_attn"], cfg,
                              L.apply_rmsnorm(lp["ln_x"], h, cfg.norm_eps), enc_out)
-    return h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
-                           cfg.act)
+    h = h + L.apply_mlp(lp["mlp"], L.apply_rmsnorm(lp["ln2"], h, cfg.norm_eps),
+                        cfg.act)
+    return shard(h, "batch", None, None)
 
 
 def _encode(params, cfg, frames: torch.Tensor, *, remat: str = "none") -> torch.Tensor:
@@ -325,7 +330,7 @@ def _head(params, cfg, h):
         logits = h @ params["lm_head"]["w"].to(h.dtype)
     else:
         logits = h @ params["embed"]["table"].T.to(h.dtype)
-    return logits.float()
+    return shard(logits.float(), "batch", None, "vocab")
 
 
 def apply_lm(params, cfg, tokens: torch.Tensor, *, frames=None, patches=None,
@@ -344,6 +349,7 @@ def apply_lm(params, cfg, tokens: torch.Tensor, *, frames=None, patches=None,
     if cfg.family == "vlm":
         h = torch.cat([patches.to(h.dtype), h], dim=1)
         prefix_len = cfg.num_patches
+    h = shard(h, "batch", None, None)
     S_ = h.shape[1]
     positions = torch.arange(S_, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S_)

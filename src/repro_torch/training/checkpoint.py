@@ -15,7 +15,11 @@ checkpoint of the configured bf16 model restores; the JAX package's own
 ``restore`` hands such a leaf back as ``V2`` bytes that JAX rejects.
 
 ``restore()`` returns ``{path: CPU tensor}``; ``restore(like=state)`` copies
-the leaves into a port train state in place and returns it.
+the leaves into a port train state in place and returns it, each DTensor
+of a state placed on a mesh taking its local block; ``restore(placements=,
+mesh=)`` returns ``{path: DTensor}`` placed so (the counterpart of JAX's
+``restore(shardings=)``). The leaves are stored whole, so a checkpoint saved
+from one mesh restores onto another (elastic resharding).
 """
 from __future__ import annotations
 
@@ -114,9 +118,12 @@ class CheckpointManager:
         steps = sorted(int(p.name.split("_")[1]) for p in self.root.glob("step_*"))
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, like: Optional[Dict[str, Any]] = None):
+    def restore(self, step: Optional[int] = None, like: Optional[Dict[str, Any]] = None,
+                placements: Optional[Dict[str, Any]] = None, mesh=None):
         """{path: CPU tensor} of ``step`` (default the latest), or, with a
-        port train state ``like``, that state with the leaves copied in."""
+        port train state ``like``, that state with the leaves copied in, or,
+        with ``placements`` ({path: placements}) and ``mesh``, {path:
+        DTensor} for the paths named there, each rank keeping its block."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
@@ -124,6 +131,9 @@ class CheckpointManager:
         manifest = json.loads((d / "manifest.json").read_text())
         flat = {m["path"]: _decode(np.load(d / m["file"]), m["dtype"])
                 for m in manifest["leaves"]}
+        if placements is not None:
+            from repro_torch.sharding.ctx import place
+            return {k: place(flat[k], mesh, pl) for k, pl in placements.items()}
         return flat if like is None else bridge.load_flat(like, flat)
 
     def _gc(self) -> None:

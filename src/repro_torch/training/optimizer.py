@@ -18,6 +18,15 @@ update's RMS clip runs over the whole stacked leaf. The port keeps one
 tensor per layer, so its Adafactor stacks each JAX path's layers for the
 update (``jax_key``) and keys its ``vr``/``vc``/``v`` (fp32) by JAX path,
 in the JAX layout.
+
+Under a device mesh the parameters, gradients and moments are ``DTensor``s
+(``training/train.py::place_train_state``). The global norm then sums each
+leaf's local squares, divided by the number of ranks that hold the same
+shard, in one all-reduce; AdamW updates each leaf on the local shards of
+its moments' placement (the gradient reduce-scattered to it, the new
+parameter gathered back where the parameter is placed otherwise, as under
+``dp_zero1``), since the update is elementwise; Adafactor, whose factored
+moments and RMS clip reduce over whole leaves, runs on the DTensors.
 """
 from __future__ import annotations
 
@@ -25,25 +34,51 @@ from typing import Any, Dict, Iterable, List, Tuple
 
 import torch
 
+from repro_torch.sharding.ctx import is_dtensor
+
 Tree = Dict[str, torch.Tensor]
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_dtensor(t) else t
 
 
 def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
     """fp32 sqrt of the sum of squares over every leaf."""
-    return torch.sqrt(sum(x.float().square().sum() for x in leaves))
+    leaves = list(leaves)
+    if not any(is_dtensor(x) for x in leaves):
+        return torch.sqrt(sum(x.float().square().sum() for x in leaves))
+    import torch.distributed as dist
+    total = None
+    for x in leaves:
+        copies = 1                                  # ranks holding this shard
+        for size, pl in zip(x.device_mesh.mesh.shape, x.placements):
+            copies *= 1 if pl.is_shard() else int(size)
+        part = x.to_local().float().square().sum() / copies
+        total = part if total is None else total + part
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
     norm = global_norm(grads.values())
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     # the scale in each gradient's own dtype, as in JAX (no fp32 copy of the tree)
-    return {k: g * scale.to(g.dtype) for k, g in grads.items()}, norm
+    return {k: _scaled(g, scale) for k, g in grads.items()}, norm
+
+
+def _scaled(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    if not is_dtensor(g):
+        return g * scale.to(g.dtype)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(g.to_local() * scale.to(g.dtype), g.device_mesh,
+                              g.placements, run_check=False)
 
 
 def adamw_init(params: Tree) -> Dict[str, Any]:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    count_device = next(iter(params.values())).device
+        return torch.zeros(p.shape, dtype=torch.float32, device=_local(p).device)
+    count_device = _local(next(iter(params.values()))).device
     return {"mu": {k: zeros(p) for k, p in params.items()},
             "nu": {k: zeros(p) for k, p in params.items()},
             "count": torch.zeros((), dtype=torch.int32, device=count_device)}
@@ -61,6 +96,10 @@ def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree, *, lr,
     bc2 = 1.0 - beta2 ** c
     mu, nu = state["mu"], state["nu"]
     for k, p in params.items():
+        if is_dtensor(p):
+            mu[k], nu[k] = _adamw_sharded(p, grads[k], mu[k], nu[k], lr, beta1, beta2,
+                                          bc1, bc2, eps, weight_decay)
+            continue
         g = grads[k].float()
         m = beta1 * mu[k] + (1 - beta1) * g
         v = beta2 * nu[k] + (1 - beta2) * g.square()
@@ -69,6 +108,27 @@ def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree, *, lr,
         p.copy_((p.float() - lr * step).to(p.dtype))
         mu[k], nu[k] = m, v
     return params, {"mu": mu, "nu": nu, "count": count}
+
+
+def _adamw_sharded(p, g, mu, nu, lr, beta1, beta2, bc1, bc2, eps, weight_decay):
+    """AdamW on the local shards of the moments' placement; returns the new
+    moments. The parameter's new value is gathered back to its own
+    placement where that differs (ZeRO-1)."""
+    from torch.distributed.tensor import DTensor
+    mesh, mpl = mu.device_mesh, mu.placements
+    g = g.redistribute(mesh, mpl).to_local().float()
+    pl = p.redistribute(mesh, mpl).to_local()
+    m = beta1 * mu.to_local() + (1 - beta1) * g
+    v = beta2 * nu.to_local() + (1 - beta2) * g.square()
+    step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    step = step + weight_decay * pl.float()
+    new = (pl.float() - lr * step).to(pl.dtype)
+    if tuple(mpl) != tuple(p.placements):
+        new = DTensor.from_local(new, mesh, mpl, run_check=False).redistribute(
+            mesh, p.placements).to_local()
+    p.to_local().copy_(new)
+    return (DTensor.from_local(m, mesh, mpl, run_check=False),
+            DTensor.from_local(v, mesh, mpl, run_check=False))
 
 
 # Adafactor's moments are keyed by JAX path, in the stacked layout.
@@ -148,6 +208,14 @@ def adafactor_update(grads: Tree, state: Dict[str, Any], params: Tree, *, lr,
             u = u + weight_decay * p.float()
         new = (p.float() - lr * u).to(p.dtype).reshape((len(names),) + tuple(
             params[names[0]].shape))
+        if is_dtensor(new):                 # each layer back to its own placement
+            from torch.distributed.tensor import Replicate
+            new = new.redistribute(new.device_mesh, [
+                Replicate() if q.is_shard(0) else q for q in new.placements])
+            for name, t in zip(names, new):
+                dst = params[name]
+                dst.to_local().copy_(t.redistribute(dst.device_mesh, dst.placements).to_local())
+            continue
         for name, t in zip(names, new):
             params[name].copy_(t)
     return params, {**{m: state[m] for m in PATH_KEYED}, "count": count}

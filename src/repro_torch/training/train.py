@@ -13,6 +13,15 @@ positions' logits only. The moe family's loss adds ``moe_aux`` and, with
 the MTP head, 0.3 times the cross entropy of ``mtp_logits`` against the
 targets rolled one to the left. The entry points default to the card.
 
+Under a device mesh (``sharding.ctx.use_mesh``), ``place_train_state``
+places the params and moments as ``DTensor``s by ``param_specs`` and
+``opt_state_specs`` and ``place_batch`` the batch by ``batch_specs``; the
+same step then runs SPMD, as the JAX step does under ``jit`` with those
+shardings (``repro/launch/train.py:68-90``): each gradient is reduced over
+the data axes to its parameter's placement, the global norm spans every
+shard, and the update runs on local shards. The loss and grad norm come
+back as plain tensors, the same on every rank.
+
 As in the JAX package, ``TrainConfig.beta1`` and ``beta2`` never reach the
 optimizer: only ``learning_rate`` and ``weight_decay`` are passed, so
 AdamW's defaults (0.9, 0.95) always apply (``repro/training/train.py:79``).
@@ -26,12 +35,18 @@ import torch
 from repro_torch import device as dev
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
+from repro_torch.sharding import ctx
+from repro_torch.sharding import rules as R
 from repro_torch.training import optimizer as O
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """logits: (B,S,V) fp32 over the padded vocab; targets: (B,S) int.
     The mean of logsumexp minus the target's logit."""
+    if ctx.is_dtensor(logits):                    # the vocab whole, rows sharded
+        from torch.distributed.tensor import Replicate
+        logits = logits.redistribute(logits.device_mesh, [
+            p if p.is_shard(0) else Replicate() for p in logits.placements])
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, targets[..., None].long())[..., 0]
@@ -82,6 +97,47 @@ def init_train_state(cfg, tcfg, seed: int = 0, *,
             "step": torch.zeros((), dtype=torch.int32, device=d)}
 
 
+def _replace_param(params, name: str, value: torch.Tensor) -> None:
+    mod_name, _, key = name.rpartition(".")
+    mod = params.get_submodule(mod_name) if mod_name else params
+    mod[key] = torch.nn.Parameter(value, requires_grad=True)
+
+
+def place_train_state(state: Dict[str, Any], cfg, tcfg, mesh, rules,
+                      strategy: str = "baseline") -> Dict[str, Any]:
+    """The params and moments of ``state`` (full on every rank) as DTensors
+    placed by ``param_specs`` / ``opt_state_specs``, each rank keeping its
+    block; ``count`` and ``step`` stay replicated plain tensors."""
+    named = list(state["params"].named_parameters())
+    shapes = R.stacked_shapes(named)
+    pl = R.port_placements(named, R.param_specs(shapes, mesh, rules, cfg, strategy), mesh)
+    for name, p in named:
+        _replace_param(state["params"], name, ctx.place(p.detach(), mesh, pl[name]))
+    opt = state["opt"]
+    if tcfg.optimizer == "adamw":
+        specs = R.opt_state_specs({f"{m}/{path}": shape for m in ("mu", "nu")
+                                   for path, shape in shapes.items()},
+                                  mesh, rules, cfg, strategy)
+        for m in ("mu", "nu"):
+            mpl = R.port_placements(named, specs, mesh, prefix=f"{m}/")
+            opt[m] = {k: ctx.place(t, mesh, mpl[k]) for k, t in opt[m].items()}
+    else:
+        specs = R.opt_state_specs({f"{m}/{path}": t.shape for m in O.PATH_KEYED
+                                   for path, t in opt[m].items()},
+                                  mesh, rules, cfg, strategy)
+        for m in O.PATH_KEYED:
+            opt[m] = {path: ctx.place(t, mesh, ctx.to_placements(specs[f"{m}/{path}"], mesh))
+                      for path, t in opt[m].items()}
+    return state
+
+
+def place_batch(batch: Dict[str, torch.Tensor], mesh, rules) -> Dict[str, Any]:
+    """A batch every rank holds in full -> DTensors placed by ``batch_specs``."""
+    specs = R.batch_specs(batch, mesh, rules)
+    return {k: ctx.place(v, mesh, ctx.to_placements(specs[k], mesh))
+            for k, v in batch.items()}
+
+
 def make_train_step(cfg, tcfg):
     loss_fn = make_loss_fn(cfg, tcfg)
     update = O.opt_update(tcfg.optimizer)
@@ -107,7 +163,19 @@ def make_train_step(cfg, tcfg):
 
     def train_step(state, batch):
         params = state["params"]
-        loss, grads = compute_grads(params, batch)
+        if ctx.axis_ctx()[0] is None:
+            loss, grads = compute_grads(params, batch)
+        else:
+            from torch.distributed.tensor.experimental import implicit_replication
+            if tcfg.accum_steps > 1:
+                raise NotImplementedError("accum_steps > 1 under a mesh")
+            with implicit_replication():
+                loss, grads = compute_grads(params, batch)
+            named = dict(params.named_parameters())
+            # reduce over the data axes to each parameter's own placement
+            grads = {k: g.redistribute(named[k].device_mesh, named[k].placements)
+                     for k, g in grads.items()}
+            loss = loss.full_tensor()
         grads, gnorm = O.clip_by_global_norm(grads, tcfg.grad_clip)
         _, state["opt"] = update(grads, state["opt"], dict(params.named_parameters()),
                                  lr=tcfg.learning_rate,

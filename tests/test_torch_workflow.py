@@ -286,6 +286,48 @@ def test_a_function_is_keyed_by_its_constants_closure_and_defaults():
     assert key(lam[0]) != key(lam[1])
 
 
+class _Trainer:
+    def __init__(self, lr):
+        self.lr = lr
+
+    def step(self, n):
+        return self.lr * n
+
+
+def test_a_bound_method_is_keyed_by_its_self():
+    """The reference keys a bound method by its function: two trainers at
+    two learning rates, submitted as one step, got one key and the second
+    took the first's result."""
+    def key(fn, *args):
+        return L.cache_key(_job(fn, *args), {})
+
+    assert key(_Trainer(3e-4).step, 5) != key(_Trainer(3e-3).step, 5)
+    assert key(_Trainer(3e-4).step, 5) == key(_Trainer(3e-4).step, 5)
+
+
+LR = 3e-4
+
+
+def _global_step(n):
+    return LR * n
+
+
+def test_a_changed_global_changes_the_key():
+    """The reference keys the code but not the module globals it reads: a
+    global learning rate changed between two submissions still hit.
+    Functions and modules stay keyed by name."""
+    global LR
+    k0 = L.cache_key(_job(_global_step, 5), {})
+    try:
+        LR = 3e-3
+        k1 = L.cache_key(_job(_global_step, 5), {})
+        LR = 3e-4
+        assert L.cache_key(_job(_global_step, 5), {}) == k0
+    finally:
+        LR = 3e-4
+    assert k0 != k1
+
+
 def test_a_sweep_of_closures_under_one_step_name_gets_each_trials_result():
     """§IV.C's shape: trials built as closures under one step name, in one
     engine. Each gets its own result, and a repeated trial hits."""
