@@ -41,7 +41,10 @@ its seconds:
                 family's widths: the flash forward at MLA's serve shape
                 (128 heads, qk 192, v 128 a strided view beside k_nope),
                 flash forward and backward at olmoe's train shape (16 heads
-                of 128), rmsnorm at rows of 7168, 1536 and 512;
+                of 128), rmsnorm at rows of 7168, 1536 and 512; the flash
+                backward at paligemma's train shape (8 heads of 256 on one KV
+                head, 4352 positions, prefix 256; the width-256 tile) and an
+                fp32 case of the same heads at a small size;
 4. consistency  stablelm-1.6b, mamba2-370m, zamba2-1.2b and whisper-large-v3
                 at full width in float32: decode logits at every prompt
                 position equal the full forward's (the ssm/hybrid archs over
@@ -70,12 +73,19 @@ its seconds:
                 and zamba2-1.2b, each with its own TrainConfig (AdamW, remat
                 full) at seq 4096, batch 2 (the train_4k global batch of 256
                 cut to what one card holds), whisper-large-v3 the same over
-                1500 frames, and vit-base-16 at batch 64 (196 patches, 16
-                tokens; remat full), and olmoe-1b-7b cut to 4 layers at full
-                width (AdamW, remat full, (2, 4096)), through
+                1500 frames, paligemma-3b the same after 256 patches (4352
+                positions, head dim 256), and vit-base-16 at batch 64 (196
+                patches, 16 tokens; remat full), and olmoe-1b-7b cut to 4
+                layers at full width (AdamW, remat full, (2, 4096)), through
                 ``launch/train.py``'s loop: one warm-up step, then 4 steps on
                 one fixed batch, each with exactly its launches; olmoe's run
-                twice from one init, with equal bits;
+                twice from one init, with equal bits; after each run a
+                ``roofline`` line: the same step at world size 1 counted on
+                fake tensors (``roofline.count_step``, in worker processes
+                that run beside the build and end with it, so that no timed
+                phase shares the host with them), its model flops and
+                counted flops, the median step, ``mfu`` and
+                ``bound_fraction``;
 7. workflow     the paper's production loop through the port's Couler layer
                 (``repro_torch.core``): full-width bf16 stablelm-1.6b as the
                 steps prepare-corpus (a ``ShardedCorpus``), train (a warm-up
@@ -114,28 +124,33 @@ its seconds:
                 send/recv, which the pipeline's ring permute needs
                 (``GLOO_TAKES_CUDA``), so they run in the CPU tests only.
 
-Then a summary line {"kernels": [...]}, the nvidia-smi line, and last
+Then the run's seconds, a summary line {"kernels": [...]}, the nvidia-smi
+line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero before
 the last line. Needs one CUDA device; imports nothing of JAX.
 """
 import dataclasses
 import json
 import math
+import multiprocessing
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # fp32 outside tensor cores
+# The bound of each kernel case (``bound_ms``) and each train path's roofline
+# line read the published peaks of one H100 SXM (data sheet, dense, 700 W)
+# and the kernels' work from ``repro_torch/roofline/analysis.py``.
 # bf16: tests/test_kernels.py's tolerance. fp32: sums run in another order
 # than the plain version's, with TF32 off.
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # Decode logits against forward logits (tests/test_models.py:84).
 CONSISTENCY_TOL = 2e-2
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 128, 64
+# serve: 4 prompts of 128 tokens, then 32 greedy tokens (host-bound decode
+# steps, each path's launches exact per step)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 128, 32
 CONSISTENCY_PROMPT = 64
 # The train phase: train_4k's sequence (configs/base.py), its global batch of
 # 256 cut to 2 sequences, what one 80 GB card holds with fp32 AdamW moments.
@@ -170,6 +185,56 @@ DEEPSEEK_CUT_TEXT = "61 layers cut to 2: first_k_dense 3 -> 1, one moe layer"
 # olmoe-1b-7b trains at full width per layer, 16 layers cut to 4: 1.88 B
 # params, 22.6 GB with AdamW (the full model's step would take about 83 GB)
 OLMOE_TRAIN_CUT = dict(num_layers=4)
+# The train phase's runs: (arch, batch, seq, what the cut is, config fields
+# replaced, TrainConfig fields replaced). vit-base-16's own TrainConfig has
+# remat none; the phase holds every path to remat full, where each body's
+# kernels run again in the recompute.
+TRAIN_RUNS = tuple((aid, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CUT, {}, {}) for aid in (
+    "stablelm-1.6b", "mamba2-370m", "zamba2-1.2b", "whisper-large-v3",
+    "paligemma-3b")) + (
+    ("vit-base-16", VIT_BATCH, VIT_TOKENS, "the paper's RQ2 ViT-B/16 batch: 64 images "
+     "of 196 patches, 16 text tokens", {}, {"remat": "full"}),
+    ("olmoe-1b-7b", TRAIN_BATCH, TRAIN_SEQ, TRAIN_CUT + "; 16 layers cut to 4 (AdamW's "
+     "full-model step would take about 83 GB)", OLMOE_TRAIN_CUT, {}))
+
+
+# Processes counting the train runs' steps on fake tensors during the build:
+# one alone takes longer than the build, three about as long
+COUNT_WORKERS = 3
+
+
+def train_configs(aid: str, cfg_kw: dict, tcfg_kw: dict):
+    """The arch's own config and TrainConfig at full width, fields replaced."""
+    from repro_torch.launch import train as launch_train
+    cfg, tcfg = launch_train.configs(aid, full=True)
+    return cfg.replace(**cfg_kw), dataclasses.replace(tcfg, **tcfg_kw)
+
+
+def train_shape(batch_size: int, seq: int):
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig(f"train_{batch_size}x{seq}", seq, batch_size, "train")
+
+
+def count_train_step(aid: str, batch_size: int, seq: int, cfg_kw: dict, tcfg_kw: dict):
+    """One train run's step at world size 1 counted on fake tensors
+    (``roofline.count_step``: nothing allocated, no launch) and the seconds
+    the count took. Runs in a worker process beside the build, which sees
+    no card."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.roofline import analysis as RF
+    from repro_torch.training import train as TR
+    t0 = time.perf_counter()
+    cfg, tcfg = train_configs(aid, cfg_kw, tcfg_kw)
+    with FakeTensorMode():
+        state = TR.init_train_state(cfg, tcfg, 0, device="cpu")
+        terms = RF.count_step(TR.make_train_step(cfg, tcfg), state,
+                              input_specs(cfg, train_shape(batch_size, seq)))
+    return terms, time.perf_counter() - t0
 
 
 def emit(obj) -> None:
@@ -230,68 +295,6 @@ def device_ms(torch, fn, per_call_ms: float, min_total_ms: float = 30.0) -> floa
     return ms
 
 
-def split_tc_s(rows: int, products) -> float:
-    """Least time of the chunked SSD form's products on the bf16 tensor cores,
-    each (flops per row and head, terms) counted with the split terms that
-    fp32-grade results need: 3 where both operands are fp32 (hi.hi + lo.hi +
-    hi.lo of bf16 hi/lo parts), 2 where one is a bf16 B or C, 1 for C B^T of
-    bf16 B and C; fp32 B and C count as split operands."""
-    return rows * sum(f * t for f, t in products) / PEAK_FLOPS["bfloat16"]
-
-
-def _bc_terms(bc_dtype: str):
-    """Split terms of C B^T, and of a product of B or C by an fp32 operand."""
-    return (1, 2) if bc_dtype == "bfloat16" else (3, 3)
-
-
-def ssd_ops_s(BH: int, S: int, P: int, N: int, Q: int, bc_dtype: str,
-              heads_per_group: int = 1):
-    """Least time for the operations of one SSD scan, and the count that gave
-    it: the smallest of the sequential recurrence's 5*N*P fp32 flops per row
-    and head (state decay and rank-1 update, then C . state); the chunked
-    form's, whose C B^T term (Q*N per row, once per group of heads) may run
-    at B/C's own rate (tensor cores for bf16) and whose rest (Q*P + 4*N*P
-    per row and head) is fp32; and the chunked form's products all on the
-    bf16 tensor cores with their split terms (``split_tc_s``): C B^T, (C B^T
-    o L) x (3 terms) and the four state products B^T (w o x) and C state."""
-    rows = BH * S
-    recurrence = 5 * rows * N * P / PEAK_FLOPS["float32"]
-    chunked = rows * (Q * N / heads_per_group / PEAK_FLOPS[bc_dtype]
-                      + (Q * P + 4 * N * P) / PEAK_FLOPS["float32"])
-    cb, with_bc = _bc_terms(bc_dtype)
-    tensor = split_tc_s(rows, [(Q * N / heads_per_group, cb), (Q * P, 3),
-                               (4 * N * P, with_bc)])
-    return min((recurrence, "recurrence"), (chunked, "chunked"),
-               (tensor, "chunked_tensor_cores"))
-
-
-def ssd_bwd_ops_s(BH: int, S: int, P: int, N: int, Q: int, bc_dtype: str,
-                  heads_per_group: int = 1):
-    """Least time for the operations of one SSD scan backward, and the count
-    that gave it: the smallest of the reverse recurrence's fp32 work, 14*N*P
-    flops per row and head (the forward state again, its decay and rank-1
-    update without y, 3*N*P; the state gradient's decay and rank-1 update,
-    3*N*P; dx, dB and dC, 6*N*P; the decay's gradient, 2*N*P); the chunked
-    form's with fp32 products: per row and head 2*Q*P + 2*Q*N within the
-    chunk (dy x^T and (C B^T o L)^T dy, (dy x^T o L)^T C and (dy x^T o L) B
-    over the causal half) and 8*N*P across chunks (the state-gradient term
-    and the three cross-chunk products), with C B^T's Q*N per row once per
-    group at B/C's own rate; and the same products on the bf16 tensor cores
-    with their split terms (``split_tc_s``): dy x^T and T1^T dy 3 terms, the
-    two products with C and B and D_c and G_c^T B those of B/C, G_c x and
-    h_c dy 3."""
-    rows = BH * S
-    recurrence = 14 * rows * N * P / PEAK_FLOPS["float32"]
-    chunked = rows * (Q * N / heads_per_group / PEAK_FLOPS[bc_dtype]
-                      + (2 * Q * P + 2 * Q * N + 8 * N * P) / PEAK_FLOPS["float32"])
-    cb, with_bc = _bc_terms(bc_dtype)
-    tensor = split_tc_s(rows, [(Q * N / heads_per_group, cb), (2 * Q * P, 3),
-                               (2 * Q * N, with_bc), (4 * N * P, with_bc),
-                               (4 * N * P, 3)])
-    return min((recurrence, "recurrence"), (chunked, "chunked"),
-               (tensor, "chunked_tensor_cores"))
-
-
 # ssd_scan_bwd's five launches, by a mark in each kernel's name
 SSD_BWD_LAUNCHES = ("chunk_dstate", "dstate_pass", "chunk_grads", "reduce_rows", "dA_scan")
 
@@ -340,14 +343,6 @@ def timed_grads(torch, fwd, inputs, grad_out):
             - device_ms(torch, forward, call_ms(torch, forward)))
 
 
-def valid_pairs(Sq: int, Sk: int, causal: bool, prefix: int = 0) -> int:
-    """(row, key) pairs the mask lets through: under ``causal`` row i sees
-    keys j <= i and j < prefix."""
-    if not causal:
-        return Sq * Sk
-    return sum(min(Sk, max(i + 1, prefix)) for i in range(Sq))
-
-
 def sdpa_mask(torch, Sq: int, Sk: int, causal: bool, prefix: int, device):
     """SDPA's arguments for the same mask: is_causal for the plain causal
     mask, a boolean (Sq, Sk) attn_mask for a prefix, neither without the
@@ -358,11 +353,6 @@ def sdpa_mask(torch, Sq: int, Sk: int, causal: bool, prefix: int, device):
         return {"is_causal": True}
     j = torch.arange(Sk, device=device)
     return {"attn_mask": (j[None] <= torch.arange(Sq, device=device)[:, None]) | (j < prefix)}
-
-
-def bound(nbytes: float, ops_s: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_bytes, ops_s), ("bytes" if t_bytes >= ops_s else "operations")
 
 
 # The workflow phase: stablelm-1.6b's production loop as Couler steps over a
@@ -891,11 +881,21 @@ def workflow_phase(torch, cuda, main_paths, every_kernel) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 1
+    # the train runs' roofline counts, in workers beside the build
+    pool = ProcessPoolExecutor(COUNT_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return phases(torch, pool, t_start)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def phases(torch, pool, t_start) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
     from repro_torch import device as dev
@@ -909,6 +909,7 @@ def main() -> int:
     from repro_torch.launch import train as launch_train
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
+    from repro_torch.roofline import analysis as RF
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.training import train as TR
 
@@ -924,12 +925,22 @@ def main() -> int:
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    counts = {aid: pool.submit(count_train_step, aid, batch_size, seq, cfg_kw, tcfg_kw)
+              for aid, batch_size, seq, _, cfg_kw, tcfg_kw in TRAIN_RUNS}
+
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
     lib = build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_s": lib.build_s, "library": str(lib.path.relative_to(ROOT)),
-          "ptxas": build.ptxas_summary(lib.log)})
+    build_s = time.perf_counter() - t0
+    # the counts end here, and their workers with them: no timed phase
+    # shares the host's cores with them
+    counts = {aid: f.result() for aid, f in counts.items()}
+    pool.shutdown(wait=True)
+    emit({"phase": "build", "seconds": build_s, "nvcc_s": lib.build_s,
+          "library": str(lib.path.relative_to(ROOT)),
+          "ptxas": build.ptxas_summary(lib.log),
+          "roofline_counts_s": {aid: c[1] for aid, c in counts.items()},
+          "roofline_counts_wait_s": time.perf_counter() - t0 - build_s})
 
     # 3. kernels --------------------------------------------------------------
     t_phase = time.perf_counter()
@@ -941,11 +952,12 @@ def main() -> int:
 
     results = {}
 
-    def check_case(kernel, case, dtype, run, plain, library, nbytes, flops=None,
-                   ops_s=None, tol=None, extra_ok=True, route=None, record=None,
-                   tols=None, judge=None, library_timer=None, **info):
-        """``ops_s``: the least time for the operations; by default ``flops``
-        at the peak rate of ``dtype``. ``route``: (read, expected) for a
+    def check_case(kernel, case, dtype, run, plain, library, fields, tol=None,
+                   extra_ok=True, route=None, record=None, tols=None, judge=None,
+                   library_timer=None, **info):
+        """``fields``: the call's shape fields, from which
+        ``roofline.kernel_work`` gives the bytes and the least time for the
+        operations that ``bound_ms`` takes. ``route``: (read, expected) for a
         kernel with more than one route or path; ``record``: more fields of
         the launch; both read just after the checked run. Each output (a
         backward's gradients, a forward's o and lse) is held to atol and
@@ -976,8 +988,10 @@ def main() -> int:
             ok = ok and judged.pop("ok")
             info.update(judged)
         del outs, wants, out, want
-        bound_ms, bound_by = bound(
-            nbytes, flops / PEAK_FLOPS[dtype] if ops_s is None else ops_s)
+        nbytes, ops_s, form = RF.kernel_work(kernel, fields)
+        bound_ms, bound_by = RF.bound(nbytes, ops_s)
+        if form != "products":
+            info["bound_ops"] = form
 
         def timed(fn):
             per_call = call_ms(torch, fn)
@@ -1035,8 +1049,8 @@ def main() -> int:
                    lambda x=x, s=s: ops.rmsnorm(x, s),
                    lambda x=x, s=s: ref.reference_rmsnorm(x, s),
                    lib_fn,
-                   nbytes=2 * x.numel() * x.element_size() + s.numel() * s.element_size(),
-                   flops=4 * R * D, route=(lambda: rn.PLAN.path, path),
+                   dict(R=R, D=D, dtype=dtype, scale_dtype=sdtype),
+                   route=(lambda: rn.PLAN.path, path),
                    record=lambda: {"plan": {"grid": rn.PLAN.grid,
                                             "threads": rn.PLAN.threads,
                                             "vectors": rn.PLAN.vectors}},
@@ -1058,7 +1072,7 @@ def main() -> int:
             q = randn(B, H, Sq, D, dtype=dtype)
             k = randn(B, KH, Sk, D, dtype=dtype)
             v = randn(B, KH, Sk, Dv, dtype=dtype)
-        pairs = valid_pairs(Sq, Sk, causal, prefix)
+        pairs = RF.valid_pairs(Sq, Sk, causal, prefix)
         lib_kw = sdpa_mask(torch, Sq, Sk, causal, prefix, cuda)
         if KH != H:
             lib_kw["enable_gqa"] = True
@@ -1075,10 +1089,10 @@ def main() -> int:
             "flash_attention", case, dtype, run,
             lambda: ops.flash_attention_plain(q, k, v, causal=causal, return_lse=lse,
                                               prefix_len=prefix),
-            library, route=(lambda: fa.ROUTE, fa.ROUTES[dtypes[dtype]]), tols=tols,
-            nbytes=((q.numel() + k.numel() + v.numel() + B * H * Sq * Dv) * q.element_size()
-                    + (4 * B * H * Sq if lse else 0)),
-            flops=2 * B * H * pairs * (D + Dv), valid_pairs=pairs,
+            library, dict(B=B, H=H, KH=KH, Sq=Sq, Sk=Sk, D=D, Dv=Dv, dtype=dtype,
+                          causal=causal, prefix_len=prefix, lse=lse),
+            route=(lambda: fa.ROUTE, fa.ROUTES[dtypes[dtype]]), tols=tols,
+            valid_pairs=pairs,
             shape={"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "D": D,
                    "Dv": Dv}, causal=causal, prefix_len=prefix, v_stride=list(v.stride()))
 
@@ -1151,13 +1165,11 @@ def main() -> int:
         tol = 10 * TOL[x_dtype]
         state_err = (state - want_state).abs().max().item()
         state_ok = bool(torch.allclose(state, want_state, atol=tol, rtol=tol))
-        nbytes = (2 * x.numel() * x.element_size() + dA.numel() * 4
-                  + 2 * Bm.numel() * Bm.element_size())
-        ops_s, ops_form = ssd_ops_s(B * H, S, Pd, N, Q, bc_dtype, H // G)
         check_case("ssd_scan", case, x_dtype,
                    lambda: ops.ssd_scan(*args, chunk=chunk), lambda: plain()[0], None,
-                   nbytes=nbytes, ops_s=ops_s, tol=tol, extra_ok=state_ok,
-                   bound_ops=ops_form, cuda_launches_per_call=ssd.CUDA_LAUNCHES,
+                   dict(B=B, S=S, H=H, G=G, P=Pd, N=N, chunk=Q, bc_dtype=bc_dtype,
+                        x_bytes=x.element_size()),
+                   tol=tol, extra_ok=state_ok, cuda_launches_per_call=ssd.CUDA_LAUNCHES,
                    shape={"B": B, "S": S, "H": H, "G": G, "P": Pd, "N": N,
                           "chunk": chunk}, bc_dtype=bc_dtype, decay=decay,
                    state_max_abs_err=state_err)
@@ -1209,11 +1221,11 @@ def main() -> int:
         check_case("rmsnorm_bwd", case, dtype,
                    lambda x=x, s=s, dy=dy: rn.rmsnorm_bwd_cuda(x, s, dy),
                    lambda x=x, s=s, dy=dy: ref.reference_rmsnorm_bwd(x, s, dy),
-                   None, library_timer=library_timer,
+                   None, dict(R=R, D=D, dtype=dtype, scale_dtype=sdtype),
+                   library_timer=library_timer,
                    # dscale sums R rows: its atol scales with sqrt(R)
                    tols=[(TOL[dtype], TOL[dtype]), (TOL[dtype] * R ** 0.5, TOL[dtype])],
-                   nbytes=3 * x.numel() * x.element_size() + 2 * s.numel() * s.element_size(),
-                   ops_s=9 * R * D / PEAK_FLOPS["float32"], shape=[R, D],
+                   shape=[R, D],
                    scale_dtype=sdtype, route=(lambda: rn.PLAN_BWD.path, path),
                    record=lambda: {"plan": {"grid": rn.PLAN_BWD.grid,
                                             "threads": rn.PLAN_BWD.threads,
@@ -1256,7 +1268,7 @@ def main() -> int:
 
         o_p, lse_p = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True,
                                                prefix_len=prefix)
-        pairs = valid_pairs(Sq, Sk, causal, prefix)
+        pairs = RF.valid_pairs(Sq, Sk, causal, prefix)
         lib_kw = sdpa_mask(torch, Sq, Sk, causal, prefix, cuda)
         if KH != H:
             lib_kw["enable_gqa"] = True
@@ -1268,11 +1280,11 @@ def main() -> int:
             lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, prefix),
             lambda: ref.reference_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal,
                                                 prefix_len=prefix),
-            None, library_timer=library_timer, judge=judge,
+            None, dict(B=B, H=H, KH=KH, Sq=Sq, Sk=Sk, D=D, Dv=D, dtype=dtype,
+                       causal=causal, prefix_len=prefix),
+            library_timer=library_timer, judge=judge,
             route=(lambda: json.loads(json.dumps(fa.BWD_ROUTE)), route),   # tuples as lists
-            nbytes=(2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel()
-                    + do.numel()) * q.element_size() + 4 * lse.numel(),
-            flops=5 * 2 * B * H * pairs * D, valid_pairs=pairs,
+            valid_pairs=pairs,
             shape={"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "D": D, "Dv": D},
             causal=causal, prefix_len=prefix)
 
@@ -1284,8 +1296,13 @@ def main() -> int:
                   ["tensor_cores", [128, 32]])
     attn_bwd_case("fp32_bwd", 1, 32, 32, 1024, 1024, 64, "float32", True, cores)
     attn_bwd_case("non_causal_ragged_bwd", 2, 8, 8, 1000, 1000, 64, "bfloat16", False, wg64)
-    # the vlm and encdec train paths (paligemma's head dim 256 trains at reduced
-    # width only: the backward takes D up to 128)
+    # the vlm and encdec train paths: paligemma's MQA at head dim 256 after
+    # its 256 patches (the width-256 tile), and an fp32 case at a small size
+    wide = ["tensor_cores", [256, 32]]
+    attn_bwd_case("paligemma_train_bwd", TRAIN_BATCH, 8, 1, 256 + TRAIN_SEQ, 256 + TRAIN_SEQ,
+                  256, "bfloat16", True, wide, prefix=256)
+    attn_bwd_case("paligemma_bwd_fp32_small", 1, 8, 1, 300, 300, 256, "float32", True,
+                  cores, prefix=40)
     attn_bwd_case("vit_train_bwd", VIT_BATCH, 12, 12, 196 + VIT_TOKENS, 196 + VIT_TOKENS,
                   64, "bfloat16", True, wg64, prefix=196)
     attn_bwd_case("whisper_encoder_bwd", TRAIN_BATCH, 20, 20, 1500, 1500, 64, "bfloat16",
@@ -1385,11 +1402,6 @@ def main() -> int:
                 ok = ok and rec["no_state_grad_control_rel_norm_err"][0] > limits[0]
             return {**rec, "ok": ok}
 
-        isz = Bm.element_size()
-        nbytes = (3 * x.numel() * 4 + 4 * Bm.numel() * isz + 8 * cum.numel()
-                  + 4 * states.numel() + 4 * dA.numel()
-                  + (2 * 4 * ds.numel() if dstate else 0))
-        ops_s, ops_form = ssd_bwd_ops_s(B * H, S, Pd, N, chunk, bc_dtype, H // G)
         launched = {}
 
         def chunk_grads_instance():
@@ -1407,9 +1419,10 @@ def main() -> int:
 
         check_case("ssd_scan_bwd", case, "float32", run,
                    lambda: ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, ds, chunk=chunk),
-                   None, judge=judge, record=record,
+                   None, dict(B=B, S=S, H=H, G=G, P=Pd, N=N, chunk=chunk,
+                              bc_dtype=bc_dtype, dstate=dstate),
+                   judge=judge, record=record,
                    route=(chunk_grads_instance, [instance]), tols=tols,
-                   nbytes=nbytes, ops_s=ops_s, bound_ops=ops_form,
                    cuda_launches_per_call=ssd.CUDA_LAUNCHES_BWD,
                    shape={"B": B, "S": S, "H": H, "G": G, "P": Pd, "N": N,
                           "chunk": chunk}, bc_dtype=bc_dtype, decay=decay,
@@ -1746,8 +1759,25 @@ def main() -> int:
         cut=DEEPSEEK_CUT_TEXT, **DEEPSEEK_CUT)
 
     # 6. train: the training paths -------------------------------------------
-    def train(aid, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ, cut=TRAIN_CUT, cfg_kw=None,
-              twice=False, **tcfg_kw):
+    def roofline_line(aid, cfg, shape, step_s):
+        """The same step at world size 1 counted on fake tensors (a
+        worker's ``count_train_step``, during the build), its report on the
+        card's data sheet figures, and the measured median step: ``mfu``
+        and ``bound_fraction``."""
+        terms, count_s = counts[aid]
+        rep = RF.measured_report(RF.roofline_report(terms, cfg, shape, 1),
+                                 sorted(step_s)[len(step_s) // 2])
+        emit({"phase": "train", "arch": cfg.name, "roofline": {
+                  "model_flops": rep["model_flops_per_chip"],
+                  "counted_flops": rep["hlo_flops_per_chip"],
+                  "useful_flops_ratio": rep["useful_flops_ratio"],
+                  "compute_s": rep["compute_s"], "memory_s": rep["memory_s"],
+                  "roofline_bound_s": rep["roofline_bound_s"], "step_s": rep["measured_s"],
+                  "mfu": rep["mfu"], "bound_fraction": rep["bound_fraction"]},
+              "counted_on": "fake tensors, world size 1", "card": smi,
+              "count_s": count_s})
+
+    def train(aid, batch_size, seq, cut, cfg_kw, tcfg_kw, twice=False):
         """The arch's own config (``cfg_kw`` replaced in it) and TrainConfig
         (``tcfg_kw`` replaced) at full width through ``launch/train.py``'s
         loop, the batch with its seeded frames or patches: a warm-up step,
@@ -1755,9 +1785,7 @@ def main() -> int:
         ``kernel_launches_per_step``. ``twice``: the whole run again from
         the same init must give the same losses and params, bit for bit."""
         t_phase = time.perf_counter()
-        cfg, tcfg = launch_train.configs(aid, full=True)
-        cfg = cfg.replace(**(cfg_kw or {}))
-        tcfg = dataclasses.replace(tcfg, **tcfg_kw)
+        cfg, tcfg = train_configs(aid, cfg_kw, tcfg_kw)
         state = TR.init_train_state(cfg, tcfg, 0, device=cuda)
         n_params = sum(p.numel() for p in state["params"].parameters())
         batch = next(launch_train.with_modality_inputs(
@@ -1825,6 +1853,7 @@ def main() -> int:
         if not ok:
             fail(f"{aid} train phase failed: losses {losses}, launches {per_step}, "
                  f"expected {expect} per step")
+        roofline_line(aid, cfg, train_shape(batch_size, seq), step_s)
         for name, n in expect.items():
             if n and train_total[name] == 0:
                 fail(f"kernel {name} was never launched on the {aid} train path")
@@ -1834,14 +1863,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     train_losses = {}
-    for aid in ("stablelm-1.6b", "mamba2-370m", "zamba2-1.2b", "whisper-large-v3"):
-        train(aid)
-    # its own TrainConfig has remat none; the train phase holds every path to
-    # remat full, where each body's kernels run again in the recompute
-    train("vit-base-16", VIT_BATCH, VIT_TOKENS, "the paper's RQ2 ViT-B/16 batch: "
-          "64 images of 196 patches, 16 text tokens", remat="full")
-    train("olmoe-1b-7b", cut=TRAIN_CUT + "; 16 layers cut to 4 (AdamW's full-model "
-          "step would take about 83 GB)", cfg_kw=OLMOE_TRAIN_CUT, twice=True)
+    for run in TRAIN_RUNS:
+        train(*run, twice=run[0] == "olmoe-1b-7b")
 
     # 7. workflow: the paper's production loop through the port's Couler layer
     workflow_phase(torch, cuda, main_paths, every_kernel)
@@ -1883,6 +1906,7 @@ def main() -> int:
                         "call_ms": rec["kernel_call_ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    emit({"phase": "end", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -115,18 +115,28 @@
 // only once the next tile's S^T (S) is in, so the rings have three stages.
 // On both routes the key (q) block is the slowest grid dimension, so that
 // under the causal mask the heaviest blocks of every head start first and
-// the last wave is short. D and Dv are padded with zero columns to 64 or
-// 128; at 128 the dK/dV block steps 32 q rows (wgmma N 32) to keep its
-// 2 x 64 fp32 accumulators in registers. dq, dk, dv are staged in shared
-// memory and
+// the last wave is short. D and Dv are padded with zero columns to 64, 128
+// or 256; at 128 the dK/dV block steps 32 q rows (wgmma N 32) to keep its
+// 2 x 64 fp32 accumulators in registers. At 256 (paligemma's heads) a
+// warpgroup's dK and dV of 64 keys would take 256 registers a thread, past
+// the 255 a thread may hold, so the two warpgroups of a dK/dV block take
+// the same 64 keys and each owns half of the width of dK and dV (128
+// registers, as at width 128): both compute the whole S^T and dP^T, which
+// contract over all 256 columns, so the block does 1.5x the products of one
+// that owns its keys alone, and fetches each Q/dO tile for 64 keys instead
+// of 128. The dQ block keeps 128 rows (a warpgroup's dQ is 128 registers)
+// over K/V tiles of 32 keys, so that three stages fit beside Q and dO
+// (225 KB). dq, dk, dv are staged in shared memory and
 // written 16 bytes a store. fp32 runs on the CUDA cores in exact fp32
 // (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): 256 threads, every tile in
 // shared memory in fp32 (rows padded by one float), a thread holding a 4 x
 // 4 patch of each 64 x 64 score tile and 4 rows x ceil(D/16) columns of its
 // accumulators, P^T and dS^T passed through shared memory. dO arrives as a
 // transposed view of the (B, S, H*hd) gradient and is not copied; dq, dk,
-// dv are written through their own strides. D and Dv up to 128. A row with
-// no valid key (lse = -inf) gets P = 0, so zero gradients.
+// dv are written through their own strides. D and Dv up to 256; above 128
+// four fp32 tiles do not fit, so Q and dO (dK/dV) or K and V (dQ) take one
+// buffer in turns, the first of the two read again for the last product. A
+// row with no valid key (lse = -inf) gets P = 0, so zero gradients.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -788,7 +798,7 @@ struct BwdParams {
 
 constexpr int kBT = 64;            // rows of every tile: keys and q rows
 constexpr int kBwdThreads = 256;   // a thread holds a 4 x 4 patch of a 64 x 64 tile
-constexpr int kBwdMaxDim = 128;
+constexpr int kBwdMaxDim = 256;
 
 template <typename T>
 __device__ __forceinline__ const T* row_ptr(const void* base, const Strides& st, int b,
@@ -823,11 +833,20 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* dl_s, const 
   }
 }
 
-size_t bwd_smem_bytes(int D, int Dv) {
-  // two tiles of D columns, two of Dv (rows padded by one float), P/dS, lse, delta
-  return sizeof(float) * (static_cast<size_t>(2 * kBT) * (D + 1) +
-                          static_cast<size_t>(2 * kBT) * (Dv + 1) +
-                          static_cast<size_t>(kBT) * (kBT + 1) + 2 * kBT);
+// Whether the fp32 kernels share one tile buffer between Q and dO (dK/dV)
+// or K and V (dQ): above width 128, four fp32 tiles of 64 rows take more
+// than an SM's 227 KB, so the shared one is filled again between products.
+template <int NT>
+__host__ __device__ constexpr bool bwd_f32_shares() {
+  return NT > 8;
+}
+
+size_t bwd_smem_bytes(int D, int Dv, bool share) {
+  // two tiles of D columns and two of Dv (rows padded by one float), or
+  // with `share` one of each and a third of the wider; P/dS, lse, delta
+  const size_t tiles = share ? static_cast<size_t>(kBT) * (D + Dv + 2 + (D > Dv ? D : Dv) + 1)
+                             : static_cast<size_t>(2 * kBT) * (D + Dv + 2);
+  return sizeof(float) * (tiles + static_cast<size_t>(kBT) * (kBT + 1) + 2 * kBT);
 }
 
 // Pre-pass on fp32 rows: delta = rowsum(dO o O), and the lse in log2 units
@@ -895,18 +914,20 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_delta_vec_kernel(const 
 // own rows on), so GQA sums in registers, without atomics. Thread (ty, tx)
 // holds keys ty*4 + i and q rows tx + 16j of each 64 x 64 tile, and columns
 // tx + 16jj of dK and dV. NT: accumulator columns per thread, ceil(max(D,
-// Dv) / 16).
+// Dv) / 16). Where the kernel shares a buffer (``bwd_f32_shares``), Q and
+// dO take it in turns: Q for S^T, dO for dP^T and dV, Q again for dK.
 template <int NT>
 __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(const BwdParams p) {
   extern __shared__ float smem[];
+  constexpr bool kShare = bwd_f32_shares<NT>();
   const int D = p.D, Dv = p.Dv;
   const int ldk = D + 1, ldv = Dv + 1;
   constexpr int ldp = kBT + 1;
   float* Ks = smem;                        // 64 x ldk
   float* Vs = Ks + kBT * ldk;              // 64 x ldv
-  float* Qs = Vs + kBT * ldv;              // 64 x ldk
-  float* dOs = Qs + kBT * ldk;             // 64 x ldv
-  float* Ps = dOs + kBT * ldv;             // 64 x ldp: P^T, then dS^T
+  float* Qs = Vs + kBT * ldv;              // 64 x ldk (shared: 64 x max(ldk, ldv))
+  float* dOs = kShare ? Qs : Qs + kBT * ldk;   // 64 x ldv
+  float* Ps = Qs + kBT * (kShare ? max(ldk, ldv) : ldk + ldv);   // 64 x ldp: P^T, then dS^T
   float* lse_s = Ps + kBT * ldp;
   float* dl_s = lse_s + kBT;
 
@@ -936,7 +957,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(const BwdPa
     for (int q0 = q_first; q0 < p.Sq; q0 += kBT) {
       __syncthreads();                     // the last tile's Qs, dOs, Ps are consumed
       load_tile_bwd(Qs, ldk, qb, p.st[kQ].s, q0, p.Sq, D);
-      load_tile_bwd(dOs, ldv, dob, p.st[kDO].s, q0, p.Sq, Dv);
+      if (!kShare) load_tile_bwd(dOs, ldv, dob, p.st[kDO].s, q0, p.Sq, Dv);
       load_row_stats<kBT, kBwdThreads>(lse_s, dl_s, p.lse + stat, p.delta + stat, q0, p.Sq);
       __syncthreads();
 
@@ -956,6 +977,11 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(const BwdPa
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+      }
+      if (kShare) {                        // Q is consumed: dO in its place
+        __syncthreads();
+        load_tile_bwd(dOs, ldv, dob, p.st[kDO].s, q0, p.Sq, Dv);
+        __syncthreads();
       }
       for (int e = 0; e < Dv; ++e) {
         float a[4], c[4];
@@ -995,11 +1021,12 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(const BwdPa
           for (int i = 0; i < 4; ++i) dv[i][jj] = fmaf(a[i], o, dv[i][jj]);
         }
       }
-      __syncthreads();                     // P^T is consumed
+      __syncthreads();                     // P^T (and, shared, dO) is consumed
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * ldp + tx + 16 * j] = s[i][j];
+      if (kShare) load_tile_bwd(Qs, ldk, qb, p.st[kQ].s, q0, p.Sq, D);
       __syncthreads();
       for (int qc = 0; qc < kBT; ++qc) {   // dK += dS^T Q
         float a[4];
@@ -1033,18 +1060,21 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(const BwdPa
 
 // dQ of one 64-row q tile of one head: loops over the key tiles it sees.
 // Thread (ty, tx) holds q rows ty*4 + i and keys tx + 16j of each tile, and
-// columns tx + 16jj of dQ. The causal q tiles run heaviest first.
+// columns tx + 16jj of dQ. The causal q tiles run heaviest first. Where
+// the kernel shares a buffer, K and V take it in turns: K for S, V for dP,
+// K again for dQ.
 template <int NT>
 __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(const BwdParams p) {
   extern __shared__ float smem[];
+  constexpr bool kShare = bwd_f32_shares<NT>();
   const int D = p.D, Dv = p.Dv;
   const int ldk = D + 1, ldv = Dv + 1;
   constexpr int ldp = kBT + 1;
   float* Qs = smem;                        // 64 x ldk
   float* dOs = Qs + kBT * ldk;             // 64 x ldv
-  float* Ks = dOs + kBT * ldv;             // 64 x ldk
-  float* Vs = Ks + kBT * ldk;              // 64 x ldv
-  float* Ps = Vs + kBT * ldv;              // 64 x ldp: dS
+  float* Ks = dOs + kBT * ldv;             // 64 x ldk (shared: 64 x max(ldk, ldv))
+  float* Vs = kShare ? Ks : Ks + kBT * ldk;    // 64 x ldv
+  float* Ps = Ks + kBT * (kShare ? max(ldk, ldv) : ldk + ldv);   // 64 x ldp: dS
   float* lse_s = Ps + kBT * ldp;
   float* dl_s = lse_s + kBT;
 
@@ -1074,7 +1104,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(const BwdPara
     const int k0 = kt * kBT;
     __syncthreads();                       // the last tile's Ks, Vs, Ps are consumed
     load_tile_bwd(Ks, ldk, kb, p.st[kK].s, k0, p.Sk, D);
-    load_tile_bwd(Vs, ldv, vb, p.st[kV].s, k0, p.Sk, Dv);
+    if (!kShare) load_tile_bwd(Vs, ldv, vb, p.st[kV].s, k0, p.Sk, Dv);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -1092,6 +1122,11 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(const BwdPara
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+    }
+    if (kShare) {                          // K is consumed: V in its place
+      __syncthreads();
+      load_tile_bwd(Vs, ldv, vb, p.st[kV].s, k0, p.Sk, Dv);
+      __syncthreads();
     }
     for (int e = 0; e < Dv; ++e) {
       float a[4], c[4];
@@ -1115,6 +1150,10 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(const BwdPara
         const float pij = valid ? exp2f(s[i][j] * p.scale_log2 - lse_s[qi]) : 0.f;
         Ps[qi * ldp + tx + 16 * j] = pij * (dp[i][j] - dl_s[qi]);
       }
+    }
+    if (kShare) {                          // V is consumed: K again
+      __syncthreads();
+      load_tile_bwd(Ks, ldk, kb, p.st[kK].s, k0, p.Sk, D);
     }
     __syncthreads();
     for (int kc = 0; kc < kBT; ++kc) {     // dQ += dS K
@@ -1146,7 +1185,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(const BwdPara
 
 template <int NT>
 cudaError_t launch_bwd_tiles(const BwdParams& p, int B, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(p.D, p.Dv);
+  const size_t smem = bwd_smem_bytes(p.D, p.Dv, bwd_f32_shares<NT>());
   static size_t smem_set = 48 * 1024;     // per instantiation: the most allowed so far
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<NT>,
@@ -1172,31 +1211,53 @@ cudaError_t launch_bwd_tiles(const BwdParams& p, int B, cudaStream_t stream) {
 // backward, bf16: wgmma fed by cp.async rings
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdKeys = kWgRows * kWarpgroups;   // keys of a dK/dV block: 64 a warpgroup
+// Keys of a dK/dV block: 64 a warpgroup (SPLIT 1); at SPLIT 2 (width 256)
+// both warpgroups take the same 64 keys, each owning half the width of dK
+// and dV, so that each keeps 2 x 2 x 32 fp32 accumulators as at width 128.
+template <int SPLIT>
+__host__ __device__ constexpr int dkdv_keys() {
+  return kWgRows * kWarpgroups / SPLIT;
+}
 // Ring stages of the backward: a tile's last product (dK, or dQ) is waited
 // for only after the next tile's first two are issued, so the stage the next
 // copy overwrites must be two tiles back.
 constexpr int kBwdStages = 3;
 
-// q rows per dK/dV step by tile width: 64 at DT 64; 32 at DT 128, where the
-// dK and dV accumulators take 128 fp32 registers a thread.
+// q rows per dK/dV step by tile width: 64 at DT 64; 32 at DT 128 and 256,
+// where a warpgroup's dK and dV accumulators take 128 fp32 registers a
+// thread.
 template <int DT>
 constexpr int bwd_q_step() {
   return DT == 64 ? 64 : 32;
 }
 
-template <int DT, int BQ>
+// Warpgroups sharing a dK/dV block's keys: 2 at width 256, else 1.
+template <int DT>
+constexpr int bwd_split() {
+  return DT > 128 ? 2 : 1;
+}
+
+// Keys of a dQ block's K/V tiles: 32 at width 256, where 64-key tiles
+// would not fit three stages beside Q and dO in 227 KB, else 64.
+template <int DT>
+constexpr int bwd_key_tile() {
+  return DT > 128 ? 32 : 64;
+}
+
+template <int DT, int BQ, int SPLIT>
 constexpr size_t dkdv_smem_bytes() {
   // alignment slack, K and V of the block's keys, kBwdStages Q/dO tiles,
   // and kBwdStages rows of lse2 and delta
-  return kAtom + 2ull * kBwdKeys * DT * 2 + kBwdStages * (2ull * BQ * DT * 2 + 2ull * BQ * 4);
+  return kAtom + 2ull * dkdv_keys<SPLIT>() * DT * 2 +
+         kBwdStages * (2ull * BQ * DT * 2 + 2ull * BQ * 4);
 }
 
-template <int DT>
+template <int DT, int KT>
 constexpr size_t dq_smem_bytes() {
   // alignment slack, Q and dO of the block's rows, kBwdStages K/V tiles
-  return kAtom + 2ull * kRows * DT * 2 + kBwdStages * 2ull * kKeys * DT * 2;
+  return kAtom + 2ull * kRows * DT * 2 + kBwdStages * 2ull * KT * DT * 2;
 }
+static_assert(dq_smem_bytes<256, 32>() <= 227 * 1024, "the width-256 dQ block fits an SM");
 
 // Copies floats [row0, row0 + N) of `src` to shared memory at `dst`, one
 // 4-byte cp.async each; zero past `nrows`.
@@ -1257,7 +1318,10 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[R], 
 
 // dK and dV of 128 keys of one KV head: warpgroup wg owns keys wg*64.. of
 // the block, whose K and V stay in shared memory (and, at a q step of 64,
-// in the warpgroup's registers as A operands). The block walks the q
+// in the warpgroup's registers as A operands). At SPLIT 2 (width 256) the
+// block holds 64 keys and both warpgroups take all of them, warpgroup wg
+// owning columns wg*128.. of dK and dV: each computes the whole S^T and
+// dP^T (they contract over the full width), and its half of dV and dK. The block walks the q
 // tiles of BQ rows of each query head of the group (under the causal mask
 // from its first key on, or from row 0 for a block that starts inside the
 // prefix), their Q, dO, lse2 and delta through a three-stage
@@ -1269,16 +1333,17 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[R], 
 // once the next tile's S^T is in. A warpgroup skips a tile whose every pair
 // is masked. Rows past Sq read zero Q, dO, lse2 and delta, which add
 // nothing.
-template <int DT, int BQ>
+template <int DT, int BQ, int SPLIT>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const BwdParams p) {
   using bf = __nv_bfloat16;
-  constexpr int kNB = DT / 64;             // 64-wide blocks of dK and dV
+  constexpr int kKB = dkdv_keys<SPLIT>();  // keys of the block
+  constexpr int kNB = DT / 64 / SPLIT;     // 64-wide blocks of dK and dV a warpgroup owns
   constexpr int kNQ = BQ / 2;              // a thread's share of an m64 x BQ fragment
-  constexpr uint32_t kKVBytes = kBwdKeys * DT * 2;
+  constexpr uint32_t kKVBytes = kKB * DT * 2;
   constexpr uint32_t kTileBytes = BQ * DT * 2;
   constexpr uint32_t kStageBytes = 2 * kTileBytes;
   constexpr int ldst = DT + 8;             // staged output row, padded against bank conflicts
-  static_assert(2 * kBwdKeys * ldst * 2 <= 2 * kKVBytes + kBwdStages * kStageBytes,
+  static_assert(2 * kKB * ldst * 2 <= 2 * kKVBytes + kBwdStages * kStageBytes,
                 "dK and dV stage in K, V and the ring");
 
   extern __shared__ uint8_t smem_raw[];
@@ -1290,13 +1355,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
   const uint32_t stats = ring + kBwdStages * kStageBytes;   // stage st: lse2 (BQ floats), then delta
   const float* stats_f = reinterpret_cast<const float*>(smem_raw + (stats - raw));
 
-  const int k0 = blockIdx.z * kBwdKeys;    // the slowest grid dimension: causal, heaviest first
+  const int k0 = blockIdx.z * kKB;         // the slowest grid dimension: causal, heaviest first
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
-  const int kw0 = k0 + wg * kWgRows;       // this warpgroup's first key
+  const int wkey = SPLIT == 1 ? wg * kWgRows : 0;   // this warpgroup's first key in the block
+  const int nb0 = SPLIT == 1 ? 0 : wg * kNB;        // and its first 64-wide column block
+  const int kw0 = k0 + wkey;               // this warpgroup's first key
   const int rk = warp * 16 + lane / 4;     // its keys kw0 + rk and + 8
   const int c0 = 2 * (lane % 4);
 
@@ -1327,10 +1394,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
     load_stats<BQ>(st_s + BQ * 4, p.delta + stat, q0, p.Sq);
   };
 
-  load_tile_sw128<kBwdKeys, DT>(k_s, row_ptr<bf>(p.k, p.st[kK], b, kh, 0), p.st[kK].s, k0,
-                                p.Sk, p.D);
-  load_tile_sw128<kBwdKeys, DT>(v_s, row_ptr<bf>(p.v, p.st[kV], b, kh, 0), p.st[kV].s, k0,
-                                p.Sk, p.Dv);
+  load_tile_sw128<kKB, DT>(k_s, row_ptr<bf>(p.k, p.st[kK], b, kh, 0), p.st[kK].s, k0,
+                           p.Sk, p.D);
+  load_tile_sw128<kKB, DT>(v_s, row_ptr<bf>(p.v, p.st[kV], b, kh, 0), p.st[kV].s, k0,
+                           p.Sk, p.Dv);
   if (n_tiles > 0) load(0);
   cp_async_commit();
 
@@ -1349,8 +1416,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < DT / 16; ++kk) {
-      ldmatrix_a<kBwdKeys>(ka[kk], k_s, wg * kWgRows + warp * 16, kk);
-      ldmatrix_a<kBwdKeys>(va[kk], v_s, wg * kWgRows + warp * 16, kk);
+      ldmatrix_a<kKB>(ka[kk], k_s, wkey + warp * 16, kk);
+      ldmatrix_a<kKB>(va[kk], v_s, wkey + warp * 16, kk);
     }
   }
 
@@ -1382,7 +1449,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DT / 16; ++kk) {
-      const uint32_t a_off = (kk / 4) * (kBwdKeys * 128) + wg * (kWgRows * 128) + (kk % 4) * 32;
+      const uint32_t a_off = (kk / 4) * (kKB * 128) + wkey * 128 + (kk % 4) * 32;
       const uint32_t b_off = (kk / 4) * (BQ * 128) + (kk % 4) * 32;
       if constexpr (kRegKV)
         wgmma_rs_kmajor(s, ka[kk], desc_sw128(q_s + b_off, 16, kAtom));
@@ -1392,7 +1459,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < DT / 16; ++kk) {
-      const uint32_t a_off = (kk / 4) * (kBwdKeys * 128) + wg * (kWgRows * 128) + (kk % 4) * 32;
+      const uint32_t a_off = (kk / 4) * (kKB * 128) + wkey * 128 + (kk % 4) * 32;
       const uint32_t b_off = (kk / 4) * (BQ * 128) + (kk % 4) * 32;
       if constexpr (kRegKV)
         wgmma_rs_kmajor(dp, va[kk], desc_sw128(do_s + b_off, 16, kAtom));
@@ -1425,7 +1492,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
     for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
       for (int nb = 0; nb < kNB; ++nb)
-        wgmma_rs(dv[nb], pa[kk], desc_sw128(do_s + nb * (BQ * 128) + kk * (16 * 128), kAtom, kAtom));
+        wgmma_rs(dv[nb], pa[kk],
+                 desc_sw128(do_s + (nb0 + nb) * (BQ * 128) + kk * (16 * 128), kAtom, kAtom));
     wgmma_commit();
     wgmma_wait<1>();                       // dP^T is in; dV may still run
     fence_regs(dp);
@@ -1445,7 +1513,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
     for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
       for (int nb = 0; nb < kNB; ++nb)
-        wgmma_rs(dk[nb], da[kk], desc_sw128(q_s + nb * (BQ * 128) + kk * (16 * 128), kAtom, kAtom));
+        wgmma_rs(dk[nb], da[kk],
+                 desc_sw128(q_s + (nb0 + nb) * (BQ * 128) + kk * (16 * 128), kAtom, kAtom));
     wgmma_commit();                        // waited for in the next tile
   }
   wgmma_wait<0>();
@@ -1459,14 +1528,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
   cp_async_wait<0>();
   __syncthreads();                         // every warpgroup is done with shared memory
   bf* stage_k = reinterpret_cast<bf*>(smem_raw + (base - raw));
-  bf* stage_v = stage_k + kBwdKeys * ldst;
-  stage_acc(stage_k, ldst, dk, p.scale, wg * kWgRows + rk, c0);
-  stage_acc(stage_v, ldst, dv, 1.f, wg * kWgRows + rk, c0);
+  bf* stage_v = stage_k + kKB * ldst;
+  stage_acc(stage_k, ldst, dk, p.scale, wkey + rk, c0 + nb0 * 64);
+  stage_acc(stage_v, ldst, dv, 1.f, wkey + rk, c0 + nb0 * 64);
   __syncthreads();
-  store_tile<kBwdKeys, DT>(static_cast<bf*>(p.dk) + b * p.st[kDK].b + kh * p.st[kDK].h,
-                           p.st[kDK].s, stage_k, k0, p.Sk, p.D);
-  store_tile<kBwdKeys, DT>(static_cast<bf*>(p.dv) + b * p.st[kDV].b + kh * p.st[kDV].h,
-                           p.st[kDV].s, stage_v, k0, p.Sk, p.Dv);
+  store_tile<kKB, DT>(static_cast<bf*>(p.dk) + b * p.st[kDK].b + kh * p.st[kDK].h,
+                      p.st[kDK].s, stage_k, k0, p.Sk, p.D);
+  store_tile<kKB, DT>(static_cast<bf*>(p.dv) + b * p.st[kDV].b + kh * p.st[kDV].h,
+                      p.st[kDV].s, stage_v, k0, p.Sk, p.Dv);
 }
 
 // dQ of 128 q rows of one head, shaped like the forward: warpgroup wg owns
@@ -1476,13 +1545,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_wgmma_kernel(const Bw
 // P = exp2(S * scale_log2 - lse2) while dP runs, dS = P o (dP - delta), then
 // dQ += dS K (dS register A, K an MN-major B), waited for once the next
 // tile's S is in. The key tiles are summed in order, so dQ is the same run
-// to run. Causal q tiles run heaviest first.
-template <int DT>
+// to run. Causal q tiles run heaviest first. KT: keys of a K/V tile (32 at
+// width 256, so S and dP are m64n32 fragments).
+template <int DT, int KT>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdParams p) {
   using bf = __nv_bfloat16;
   constexpr int kNB = DT / 64;
+  constexpr int kNS = KT / 2;              // a thread's share of an m64 x KT fragment
   constexpr uint32_t kQBytes = kRows * DT * 2;
-  constexpr uint32_t kKBytes = kKeys * DT * 2;
+  constexpr uint32_t kKBytes = KT * DT * 2;
   constexpr uint32_t kStageBytes = 2 * kKBytes;
   constexpr int ldst = DT + 8;
   static_assert(kRows * ldst * 2 <= 2 * kQBytes, "dQ stages over Q and dO");
@@ -1501,13 +1572,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdP
   const bf* kb = row_ptr<bf>(p.k, p.st[kK], b, kh, 0);
   const bf* vb = row_ptr<bf>(p.v, p.st[kV], b, kh, 0);
   const int k_end = keys_seen(p.causal, p.prefix_len, p.Sk, q0, kRows);
-  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+  const int n_tiles = (k_end + KT - 1) / KT;
 
   load_tile_sw128<kRows, DT>(q_s, row_ptr<bf>(p.q, p.st[kQ], b, h, 0), p.st[kQ].s, q0, p.Sq, p.D);
   load_tile_sw128<kRows, DT>(do_s, row_ptr<bf>(p.dout, p.st[kDO], b, h, 0), p.st[kDO].s, q0,
                              p.Sq, p.Dv);
-  load_tile_sw128<kKeys, DT>(ring, kb, p.st[kK].s, 0, p.Sk, p.D);
-  load_tile_sw128<kKeys, DT>(ring + kKBytes, vb, p.st[kV].s, 0, p.Sk, p.Dv);
+  load_tile_sw128<KT, DT>(ring, kb, p.st[kK].s, 0, p.Sk, p.D);
+  load_tile_sw128<KT, DT>(ring + kKBytes, vb, p.st[kV].s, 0, p.Sk, p.Dv);
   cp_async_commit();
 
   const int wg = threadIdx.x / 128;
@@ -1517,7 +1588,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdP
   const int c0 = 2 * (lane % 4);
   const int q0w = q0 + wg * kWgRows;
   const int wg_tiles = q0w >= p.Sq ? 0
-      : (keys_seen(p.causal, p.prefix_len, p.Sk, q0w, kWgRows) + kKeys - 1) / kKeys;
+      : (keys_seen(p.causal, p.prefix_len, p.Sk, q0w, kWgRows) + KT - 1) / KT;
   // as the forward's: the warpgroup's and this thread's rows' mask limits
   const int wg_limit = mask_limit(p.prefix_len, q0w);
   const int row_limit[2] = {mask_limit(p.prefix_len, q0 + r0),
@@ -1559,8 +1630,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdP
     __syncthreads();
     if (j + 1 < n_tiles) {                 // into tile j-2's stage
       const uint32_t nk = ring + ((j + 1) % kBwdStages) * kStageBytes;
-      load_tile_sw128<kKeys, DT>(nk, kb, p.st[kK].s, (j + 1) * kKeys, p.Sk, p.D);
-      load_tile_sw128<kKeys, DT>(nk + kKBytes, vb, p.st[kV].s, (j + 1) * kKeys, p.Sk, p.Dv);
+      load_tile_sw128<KT, DT>(nk, kb, p.st[kK].s, (j + 1) * KT, p.Sk, p.D);
+      load_tile_sw128<KT, DT>(nk + kKBytes, vb, p.st[kV].s, (j + 1) * KT, p.Sk, p.Dv);
       cp_async_commit();
     }
     if (j >= wg_tiles) {                   // wholly masked for this warpgroup
@@ -1568,16 +1639,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdP
       continue;
     }
 
-    float s[32], dp[32];
+    float s[kNS], dp[kNS];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < kNS; ++i) s[i] = dp[i] = 0.f;
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DT / 16; ++kk) {
       const uint32_t a_off = (kk / 4) * (kRows * 128) + wg * (kWgRows * 128) + (kk % 4) * 32;
-      const uint32_t b_off = (kk / 4) * (kKeys * 128) + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * (KT * 128) + (kk % 4) * 32;
       if constexpr (kRegQO)
         wgmma_rs_kmajor(s, qa[kk], desc_sw128(k_s + b_off, 16, kAtom));
       else
@@ -1587,7 +1658,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdP
 #pragma unroll
     for (int kk = 0; kk < DT / 16; ++kk) {
       const uint32_t a_off = (kk / 4) * (kRows * 128) + wg * (kWgRows * 128) + (kk % 4) * 32;
-      const uint32_t b_off = (kk / 4) * (kKeys * 128) + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * (KT * 128) + (kk % 4) * 32;
       if constexpr (kRegQO)
         wgmma_rs_kmajor(dp, oa[kk], desc_sw128(v_s + b_off, 16, kAtom));
       else
@@ -1597,10 +1668,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdP
     wgmma_wait<1>();                       // tile j-1's dQ and S are in; dP may still run
     fence_regs(s);
 
-    const int k0 = j * kKeys;
-    const bool edge = k0 + kKeys > p.Sk || (p.causal && k0 + kKeys - 1 > wg_limit);
+    const int k0 = j * KT;
+    const bool edge = k0 + KT > p.Sk || (p.causal && k0 + KT - 1 > wg_limit);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < kNS; ++i) {
       float x = fast_exp2(fmaf(s[i], p.scale_log2, -lse2[(i / 2) % 2]));
       if (edge) {
         const int col = k0 + 8 * (i / 4) + c0 + (i % 2);
@@ -1610,18 +1681,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdP
     }
     wgmma_wait<0>();
     fence_regs(dp);
-    uint32_t da[kKeys / 16][4];
+    uint32_t da[KT / 16][4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dl[(i / 2) % 2]);
+    for (int i = 0; i < kNS; ++i) dp[i] = s[i] * (dp[i] - dl[(i / 2) % 2]);
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) acc_to_a(da[kk], dp, kk);
+    for (int kk = 0; kk < KT / 16; ++kk) acc_to_a(da[kk], dp, kk);
     // dQ += dS K: K is [key][D] with D contiguous, an MN-major B
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk)
+    for (int kk = 0; kk < KT / 16; ++kk)
 #pragma unroll
       for (int nb = 0; nb < kNB; ++nb)
-        wgmma_rs(dq[nb], da[kk], desc_sw128(k_s + nb * (kKeys * 128) + kk * (16 * 128), kAtom, kAtom));
+        wgmma_rs(dq[nb], da[kk],
+                 desc_sw128(k_s + nb * (KT * 128) + kk * (16 * 128), kAtom, kAtom));
     wgmma_commit();                        // waited for in the next tile
   }
   wgmma_wait<0>();
@@ -1641,15 +1713,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(const BwdP
 template <int DT>
 cudaError_t launch_bwd_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
   constexpr int BQ = bwd_q_step<DT>();
-  constexpr size_t smem_kv = dkdv_smem_bytes<DT, BQ>();
-  constexpr size_t smem_q = dq_smem_bytes<DT>();
+  constexpr int SPLIT = bwd_split<DT>();
+  constexpr int KB = dkdv_keys<SPLIT>();
+  constexpr int KT = bwd_key_tile<DT>();
+  constexpr size_t smem_kv = dkdv_smem_bytes<DT, BQ, SPLIT>();
+  constexpr size_t smem_q = dq_smem_bytes<DT, KT>();
   static bool smem_set = false;            // per instantiation
   if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<DT, BQ>,
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<DT, BQ, SPLIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_kv));
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<DT>,
+      e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<DT, KT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_q));
     if (e != cudaSuccess) return clear_and_return(e);
@@ -1657,12 +1732,12 @@ cudaError_t launch_bwd_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
   }
   // The key (q) blocks vary slowest, so that under the causal mask every
   // head's heaviest blocks start first and the last wave holds light ones.
-  const dim3 grid_kv(p.H / p.group, B, (p.Sk + kBwdKeys - 1) / kBwdKeys);
-  flash_bwd_dkdv_wgmma_kernel<DT, BQ><<<grid_kv, kThreads, smem_kv, stream>>>(p);
+  const dim3 grid_kv(p.H / p.group, B, (p.Sk + KB - 1) / KB);
+  flash_bwd_dkdv_wgmma_kernel<DT, BQ, SPLIT><<<grid_kv, kThreads, smem_kv, stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.Sq == 0) return e;
   const dim3 grid_q(p.H, B, (p.Sq + kRows - 1) / kRows);
-  flash_bwd_dq_wgmma_kernel<DT><<<grid_q, kThreads, smem_q, stream>>>(p);
+  flash_bwd_dq_wgmma_kernel<DT, KT><<<grid_q, kThreads, smem_q, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1707,11 +1782,12 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o, const 
   const int64_t rows = static_cast<int64_t>(B) * H * Sq;
   if (rows > 0) {
     if constexpr (sizeof(T) == 2) {       // 16-byte rows of o and do
-      const int ch = Dv <= 64 ? 8 : 16;
+      const int ch = Dv <= 64 ? 8 : Dv <= 128 ? 16 : 32;
       const int64_t per_block = (kBwdThreads / 32) * (32 / ch);
       const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
       if (ch == 8) flash_bwd_delta_vec_kernel<8><<<blocks, kBwdThreads, 0, s>>>(p, rows);
-      else flash_bwd_delta_vec_kernel<16><<<blocks, kBwdThreads, 0, s>>>(p, rows);
+      else if (ch == 16) flash_bwd_delta_vec_kernel<16><<<blocks, kBwdThreads, 0, s>>>(p, rows);
+      else flash_bwd_delta_vec_kernel<32><<<blocks, kBwdThreads, 0, s>>>(p, rows);
     } else {
       const int64_t blocks = (rows + kBwdThreads / 32 - 1) / (kBwdThreads / 32);
       flash_bwd_delta_kernel<<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(p, rows);
@@ -1721,10 +1797,12 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o, const 
   }
   if constexpr (sizeof(T) == 2) {         // bf16: wgmma
     if (D <= 64 && Dv <= 64) return launch_bwd_wgmma<64>(p, B, s);
-    return launch_bwd_wgmma<128>(p, B, s);
+    if (D <= 128 && Dv <= 128) return launch_bwd_wgmma<128>(p, B, s);
+    return launch_bwd_wgmma<256>(p, B, s);
   } else {                                 // fp32: CUDA cores
     if (D <= 64 && Dv <= 64) return launch_bwd_tiles<4>(p, B, s);
-    return launch_bwd_tiles<8>(p, B, s);
+    if (D <= 128 && Dv <= 128) return launch_bwd_tiles<8>(p, B, s);
+    return launch_bwd_tiles<16>(p, B, s);
   }
 }
 
@@ -1789,7 +1867,7 @@ extern "C" int flash_attention_fwd_bf16(
 // Sq), natural log; delta an fp32 scratch of 2 x B x H x Sq (delta, then
 // the lse in log2 units). `strides` order: q, k, v, o, do, dq, dk, dv,
 // each (batch, head, row). causal and prefix_len as the forward's. D and
-// Dv up to 128. Three launches; returns a
+// Dv up to 256. Three launches; returns a
 // cudaError_t as int.
 #define FA_BWD_ARGS                                                            \
     const void* q, const void* k, const void* v, const void* o, const void* dout, \

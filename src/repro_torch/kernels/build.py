@@ -9,6 +9,11 @@ Nothing is built or loaded when this module is imported.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.
+
+A fake tensor (``FakeTensorMode``: shape, dtype and strides, no storage)
+stands for a card tensor in a dry run (``ops.dry_run``): each launcher
+checks and plans it as it would a card tensor, allocates its outputs, and
+returns before the library is loaded or a kernel launched.
 """
 from __future__ import annotations
 
@@ -206,6 +211,48 @@ def ptxas_summary(log: str):
                 if hit:
                     cur[key] = int(hit.group(1))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _fake_tensor_type():
+    from torch._subclasses.fake_tensor import FakeTensor
+    return FakeTensor
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor: a dry run's stand-in for a card tensor.
+    (An isinstance test: a launcher runs it on every call.)"""
+    return isinstance(t, _fake_tensor_type())
+
+
+# Whether ``ops.dry_run()`` is open: only then does a launcher take fake tensors.
+DRY_RUN = False
+
+
+def dry(t: torch.Tensor) -> bool:
+    """Whether a launcher plans ``t`` and returns without a launch: a fake
+    tensor inside ``ops.dry_run()``. A fake tensor outside it raises, so that
+    no count moves where no kernel ran."""
+    if not is_fake(t):
+        return False
+    if not DRY_RUN:
+        raise RuntimeError("a fake tensor outside ops.dry_run(): no kernel to launch")
+    return True
+
+
+def on_card(*ts: torch.Tensor) -> bool:
+    """Whether every tensor lies on one CUDA device, or every one is fake."""
+    if ts[0].is_cuda:
+        return all(t.device == ts[0].device for t in ts)
+    return all(is_fake(t) for t in ts)
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t`` starts on a 16-byte boundary; a fake tensor by its
+    offset into a fresh allocation (the card's start on 256 bytes)."""
+    if is_fake(t):
+        return t.storage_offset() * t.element_size() % 16 == 0
+    return t.data_ptr() % 16 == 0
 
 
 def check(code: int, name: str) -> None:

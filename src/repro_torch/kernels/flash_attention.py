@@ -23,7 +23,7 @@ Two routes, chosen by dtype alone, with no fallback between them:
 ``flash_attention_cuda(..., return_lse=True)`` also writes each row's fp32
 logsumexp of the scaled scores, (B, H, Sq), in natural-log units, which
 ``flash_attention_bwd_cuda`` reads. The backward takes D and Dv up to
-``MAX_BWD_HEAD_DIM``, by dtype as the forward: bf16 on the tensor cores
+``MAX_BWD_HEAD_DIM`` (D = Dv above 128), by dtype as the forward: bf16 on the tensor cores
 (``flash_attention_bwd_bf16``: wgmma fed by cp.async rings; D and Dv
 multiples of 16, padded to the tile of ``BWD_TILES``; 16-byte rows of q, k,
 v, o and do), fp32 on the CUDA cores (``flash_attention_bwd_f32``).
@@ -44,16 +44,23 @@ import torch
 from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 256
-MAX_BWD_HEAD_DIM = 128       # the dense archs: stablelm 64, mistral-nemo 128
+MAX_BWD_HEAD_DIM = 256       # stablelm 64, mistral-nemo 128, paligemma 256
 ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 # (D, Dv) tile widths the bf16 kernel is built for, smallest first.
 BF16_TILES = ((64, 64), (128, 128), (192, 128), (256, 256))
 # The bf16 backward's tiles: the width D and Dv are padded to, and the q rows
-# its dK/dV block takes a step (wgmma N; 32 at width 128 keeps the dK and dV
-# accumulators in registers). A dK/dV block owns BWD_KEYS keys, 64 a
-# warpgroup; a dQ block BWD_Q_ROWS q rows over key tiles of BWD_KEY_TILE.
-BWD_TILES = ((64, 64), (128, 32))
+# its dK/dV block takes a step (wgmma N; 32 at width 128 and 256 keeps a
+# warpgroup's dK and dV accumulators in registers). Up to width 128 a dK/dV
+# block owns BWD_KEYS keys, 64 a warpgroup; a dQ block BWD_Q_ROWS q rows
+# over key tiles of BWD_KEY_TILE. At width 256 both warpgroups of a dK/dV
+# block take the same BWD_WIDE_KEYS keys, each owning half the width of dK
+# and dV, and the dQ key tiles hold BWD_WIDE_KEY_TILE keys (``bwd_blocks``).
+BWD_TILES = ((64, 64), (128, 32), (256, 32))
 BWD_KEYS, BWD_Q_ROWS, BWD_KEY_TILE = 128, 128, 64
+BWD_WIDE_KEYS, BWD_WIDE_KEY_TILE = 64, 32
+# Above this width the backward takes D = Dv only: the width-256 tile was
+# built for paligemma's 256/256; MLA's 192/128 is queued.
+WIDE_BWD_FROM = 128
 
 ROUTE: Optional[str] = None
 BWD_ROUTE: Optional[Tuple[str, Optional[Tuple[int, int]]]] = None
@@ -108,7 +115,7 @@ def _strides(t: torch.Tensor):
 
 def rows_16b(t: torch.Tensor) -> bool:
     """Whether the bf16 kernels can copy ``t``'s rows 16 bytes at a time."""
-    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in _strides(t))
+    return build.aligned16(t) and all(st % 8 == 0 for st in _strides(t))
 
 
 def _check_rows_16b(*ts: torch.Tensor) -> None:
@@ -119,13 +126,29 @@ def _check_rows_16b(*ts: torch.Tensor) -> None:
                              f"of 8, got strides {t.stride()}")
 
 
+def _check_bwd_dims(D: int, Dv: int) -> None:
+    if D > MAX_BWD_HEAD_DIM or Dv > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"the flash backward takes head dims up to {MAX_BWD_HEAD_DIM}, "
+                         f"got D {D}, Dv {Dv}")
+    if max(D, Dv) > WIDE_BWD_FROM and D != Dv:
+        raise ValueError(
+            f"the flash backward takes D != Dv up to {WIDE_BWD_FROM} only, got D {D}, "
+            f"Dv {Dv}: MLA's 192/128 (deepseek-v3 training) comes with a later slice, "
+            "ROADMAP.md queue 2's backward at D 192")
+
+
 def bwd_tile(D: int, Dv: int) -> Tuple[int, int]:
     """The bf16 backward's (width, q rows per dK/dV step) for D and Dv."""
-    for width, q_step in BWD_TILES:
-        if D <= width and Dv <= width:
-            return width, q_step
-    raise ValueError(f"the flash backward takes head dims up to {MAX_BWD_HEAD_DIM}, "
-                     f"got D {D}, Dv {Dv}")
+    _check_bwd_dims(D, Dv)
+    return next((width, q_step) for width, q_step in BWD_TILES
+                if D <= width and Dv <= width)
+
+
+def bwd_blocks(width: int) -> Tuple[int, int]:
+    """(keys of a dK/dV block, keys of a dQ key tile) at a ``bwd_tile`` width."""
+    if width > WIDE_BWD_FROM:
+        return BWD_WIDE_KEYS, BWD_WIDE_KEY_TILE
+    return BWD_KEYS, BWD_KEY_TILE
 
 
 def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_len: int = 0):
@@ -136,12 +159,7 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_len: int 
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention_bwd_cuda takes 4-D q, k, v")
     D, Dv = q.shape[3], v.shape[3]
-    if D > MAX_BWD_HEAD_DIM or Dv > MAX_BWD_HEAD_DIM:
-        raise ValueError(
-            f"the flash backward takes head dims up to {MAX_BWD_HEAD_DIM}, got D "
-            f"{D}, Dv {Dv}: wider heads (MLA's 192/128, paligemma's 256) come with "
-            "a later slice, ROADMAP.md queue 2's backward at D 192/256 (MLA and "
-            "paligemma training)")
+    _check_bwd_dims(D, Dv)
     if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -160,7 +178,7 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_len: int 
 
 
 def _one_card(*ts: torch.Tensor) -> None:
-    if not (ts[0].is_cuda and all(t.device == ts[0].device for t in ts)):
+    if not build.on_card(*ts):
         raise ValueError("the flash kernels need every tensor on one CUDA device")
 
 
@@ -177,6 +195,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, H, Sq, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if build.dry(q):                           # a dry run: planned, not launched
+        return (o, lse) if return_lse else o
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
             B, H, KH, Sq, Sk, D, Dv,
@@ -218,6 +238,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16:
         _check_rows_16b(q, k, v, o, do, dq, dk, dv)
     delta = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    if build.dry(q):                           # a dry run: planned, not launched
+        return dq, dk, dv
     name = ("flash_attention_bwd_bf16" if q.dtype == torch.bfloat16
             else "flash_attention_bwd_f32")
     strides = [st for t in (q, k, v, o, do, dq, dk, dv) for st in _strides(t)]

@@ -29,13 +29,25 @@ groups) that cannot follow q's (x's) head sharding are gathered and cut to
 this rank's heads locally. An input replicated over an axis on which the
 result is sharded gets a partial gradient there (the rmsnorm scale, such
 K/V or B/C). The counts in ``LAUNCHES`` stay one per call.
+
+Inside ``dry_run()`` (the dry run and ``roofline.count_step`` enter it),
+every wrapper takes fake tensors only (a real one raises) and treats them
+as card tensors: the kernel's own launcher checks and plans them, so its
+refusals are the card's, and returns empty outputs with the kernel's
+shapes, dtypes and strides without a launch; the call is recorded in the
+list the context yields, and ``LAUNCHES`` is left as it was. Outside the
+context a fake tensor on the card's device raises in its launcher
+(``build.dry``) before any count moves; nothing else changes.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Dict, List, Optional, Tuple
+
 import torch
 
+from repro_torch.kernels import build, ref
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ref
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 from repro_torch.sharding import ctx
@@ -49,7 +61,56 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+# The open dry run's records: (kernel name, its call's shape fields).
+_DRY: Optional[List[Tuple[str, Dict[str, object]]]] = None
+
+
+@contextlib.contextmanager
+def dry_run():
+    """Kernels planned on fake tensors, none launched; yields the list of
+    (name, fields) records, one per wrapper call, in call order."""
+    global _DRY
+    if _DRY is not None:
+        raise RuntimeError("ops.dry_run() does not nest")
+    _DRY, build.DRY_RUN = [], True
+    try:
+        yield _DRY
+    finally:
+        _DRY, build.DRY_RUN = None, False
+
+
+def _launched(name: str, fields) -> None:
+    """One call of kernel ``name``: counted, or in a dry run recorded with
+    ``fields()``, its call's shape fields (built only then: the wrappers
+    sit on every decode step's host path)."""
+    if _DRY is None:
+        LAUNCHES[name] += 1
+    else:
+        _DRY.append((name, fields()))
+
+
+def _dtype(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _attn_fields(q, k, v, causal, prefix_len, **more):
+    B, H, Sq, D = q.shape
+    return dict(B=B, H=H, KH=k.shape[1], Sq=Sq, Sk=k.shape[2], D=D, Dv=v.shape[3],
+                dtype=_dtype(q), causal=bool(causal), prefix_len=prefix_len, **more)
+
+
+def _ssd_fields(x, Bm, chunk):
+    Bsz, S, H, P = x.shape
+    return dict(B=Bsz, S=S, H=H, G=Bm.shape[2], P=P, N=Bm.shape[3], chunk=chunk,
+                bc_dtype=_dtype(Bm))
+
+
 def _on_card(*ts: torch.Tensor) -> bool:
+    if _DRY is not None:
+        if not all(build.is_fake(t) for t in ts):
+            raise RuntimeError("inside ops.dry_run() the kernels take fake tensors "
+                               "only: a real tensor would run its plain version")
+        return True
     kinds = {t.device.type for t in ts}
     if kinds == {"cpu"}:
         return False
@@ -70,7 +131,8 @@ class _RMSNormFn(torch.autograd.Function):
         ctx.eps = eps
         if _on_card(x, scale):
             out = rmsnorm_cuda(x, scale, eps)
-            LAUNCHES["rmsnorm"] += 1
+            _launched("rmsnorm", lambda: dict(R=x.shape[0], D=x.shape[1], dtype=_dtype(x),
+                                              scale_dtype=_dtype(scale)))
             return out
         return ref.reference_rmsnorm(x, scale, eps)
 
@@ -80,7 +142,8 @@ class _RMSNormFn(torch.autograd.Function):
         dy = dy.contiguous()
         if _on_card(x, scale, dy):
             dx, dscale = rmsnorm_bwd_cuda(x, scale, dy, ctx.eps)
-            LAUNCHES["rmsnorm_bwd"] += 1
+            _launched("rmsnorm_bwd", lambda: dict(R=x.shape[0], D=x.shape[1],
+                                                  dtype=_dtype(x), scale_dtype=_dtype(scale)))
         else:
             dx, dscale = ref.reference_rmsnorm_bwd(x, scale, dy, ctx.eps)
         return dx, dscale, None
@@ -122,7 +185,8 @@ class _FlashAttentionFn(torch.autograd.Function):
             fa.plan_bwd(q, k, v, prefix_len)      # refuse before the forward runs
             o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True,
                                              prefix_len=prefix_len)
-            LAUNCHES["flash_attention"] += 1
+            _launched("flash_attention",
+                      lambda: _attn_fields(q, k, v, causal, prefix_len, lse=True))
         else:
             o, lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True,
                                            prefix_len=prefix_len)
@@ -138,7 +202,8 @@ class _FlashAttentionFn(torch.autograd.Function):
                 do = do.contiguous()              # a layout the kernel reads by rows
             grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, ctx.causal,
                                                 ctx.prefix_len)
-            LAUNCHES["flash_attention_bwd"] += 1
+            _launched("flash_attention_bwd",
+                      lambda: _attn_fields(q, k, v, ctx.causal, ctx.prefix_len))
         else:
             grads = ref.reference_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
                                                 prefix_len=ctx.prefix_len)
@@ -171,7 +236,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = _FlashAttentionFn.apply(q, k, v, causal, prefix_len)
     elif _on_card(q, k, v):
         o = fa.flash_attention_cuda(q, k, v, causal, prefix_len=prefix_len)
-        LAUNCHES["flash_attention"] += 1
+        _launched("flash_attention",
+                  lambda: _attn_fields(q, k, v, causal, prefix_len, lse=False))
     else:
         o = flash_attention_plain(q, k, v, causal=causal, prefix_len=prefix_len)
     return o[:, 0] if three_d else o
@@ -222,7 +288,7 @@ class _SSDScanFn(torch.autograd.Function):
         ctx.chunk = chunk
         if _on_card(x, dA, Bm, Cm):
             y, state, cum, states = ssd_scan_cuda(x, dA, Bm, Cm, chunk, True)
-            LAUNCHES["ssd_scan"] += 1
+            _launched("ssd_scan", lambda: _ssd_fields(x, Bm, chunk))
             ctx.save_for_backward(x, dA, Bm, Cm, cum, states, state)
         else:
             y, state = ssd_scan_plain(x, dA, Bm, Cm, chunk=chunk)
@@ -238,7 +304,8 @@ class _SSDScanFn(torch.autograd.Function):
             cum, states, state = scratch
             dx, ddA, dB, dC = ssd_scan_bwd_cuda(x, dA, Bm, Cm, ctx.chunk, cum, states,
                                                 state, dy, dstate)
-            LAUNCHES["ssd_scan_bwd"] += 1
+            _launched("ssd_scan_bwd",
+                      lambda: dict(_ssd_fields(x, Bm, ctx.chunk), dstate=dstate is not None))
         else:
             dx, ddA, dB, dC = ref.ssd_scan_bwd(x, dA, Bm, Cm, dy, dstate, chunk=ctx.chunk)
         return dx, ddA, dB, dC, None
@@ -274,7 +341,7 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     elif _on_card(x, dA, Bm, Cm):
         y, state, _, _ = ssd_scan_cuda(x.float(), dA, Bm, Cm, Q, return_state)
         y = y.to(x.dtype)
-        LAUNCHES["ssd_scan"] += 1
+        _launched("ssd_scan", lambda: _ssd_fields(x, Bm, Q))
     else:
         y, state = ssd_scan_plain(x, dA, Bm, Cm, chunk=Q)
     if three_d:

@@ -112,13 +112,16 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     if x.dim() != 2 or scale.shape != (x.shape[1],):
         raise ValueError(f"rmsnorm takes x (R, D) and scale (D,), got "
                          f"{tuple(x.shape)} and {tuple(scale.shape)}")
-    if not x.is_cuda or scale.device != x.device:
+    if not build.on_card(x, scale):
         raise ValueError("rmsnorm_cuda needs x and scale on one CUDA device")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rmsnorm_cuda needs contiguous x and scale")
     R, D = x.shape
     out = torch.empty_like(x)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, out))
+    aligned = all(build.aligned16(t) for t in (x, scale, out))
+    if build.dry(x):                           # a dry run: planned, not launched
+        plan(R, D, x.dtype, scale.dtype, aligned=aligned)
+        return out
     p = plan(R, D, x.dtype, scale.dtype, aligned=aligned,
              sms=_sms(x.device.index))
     with torch.cuda.device(x.device):
@@ -168,7 +171,7 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         raise TypeError(f"rmsnorm_bwd takes float32/bfloat16, got {x.dtype}, {scale.dtype}")
     if dy.dtype != x.dtype:
         raise TypeError(f"dy must be {x.dtype}, got {dy.dtype}")
-    if not (x.is_cuda and scale.device == x.device and dy.device == x.device):
+    if not build.on_card(x, scale, dy):
         raise ValueError("rmsnorm_bwd_cuda needs x, scale and dy on one CUDA device")
     if not (x.is_contiguous() and scale.is_contiguous() and dy.is_contiguous()):
         raise ValueError("rmsnorm_bwd_cuda needs contiguous x, scale and dy")
@@ -176,7 +179,11 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     R, D = x.shape
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy, dx))
+    aligned = all(build.aligned16(t) for t in (x, scale, dy, dx))
+    if build.dry(x):                           # a dry run: planned, not launched
+        p = plan_bwd(R, D, x.dtype, scale.dtype, aligned=aligned)
+        torch.empty((p.grid, D), dtype=torch.float32, device=x.device)
+        return dx, dscale
     p = plan_bwd(R, D, x.dtype, scale.dtype, aligned=aligned, sms=_sms(x.device.index))
     partials = torch.empty((p.grid, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):

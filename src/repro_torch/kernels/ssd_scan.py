@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.rmsnorm import H100_SMS
 
 MAX_N = 128
 MAX_P = 128
@@ -176,7 +177,7 @@ def check_inputs(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
                          f"got P {P}, N {N}")
     if not (1 <= chunk <= MAX_CHUNK) or S < 1 or S % chunk:
         raise ValueError(f"chunk {chunk} must divide S {S} and be <= {MAX_CHUNK}")
-    if not (x.is_cuda and all(t.device == x.device for t in (dA, Bm, Cm))):
+    if not build.on_card(x, dA, Bm, Cm):
         raise ValueError(f"{name} needs x, dA, B, C on one CUDA device")
     if (x.dtype != torch.float32 or dA.dtype != torch.float32
             or Bm.dtype not in build.DTYPE_CODE or Cm.dtype != Bm.dtype):
@@ -203,6 +204,8 @@ def ssd_scan_cuda(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     cum = torch.empty((Bsz, H, S), dtype=torch.float64, device=x.device)
     states = torch.empty((Bsz, H, S // chunk, N, P), dtype=torch.float32,
                          device=x.device)
+    if build.dry(x):                           # a dry run: planned, not launched
+        return y, state, cum, states
     with torch.cuda.device(x.device):
         code = build.library().lib.ssd_scan_fwd(
             x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
@@ -237,11 +240,11 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
             or not (cum.is_contiguous() and states.is_contiguous())):
         raise ValueError("ssd_scan_bwd_cuda takes the forward's cum (Bsz,H,S) "
                          "fp64 and states (Bsz,H,S/chunk,N,P) fp32")
-    if dy.shape != x.shape or dy.device != x.device:
+    if dy.shape != x.shape or not build.on_card(x, dy):
         raise ValueError(f"dy must be {tuple(x.shape)} on {x.device}, got "
                          f"{tuple(dy.shape)} on {dy.device}")
     if dstate is not None:
-        if dstate.shape != (Bsz, H, N, P) or dstate.device != x.device:
+        if dstate.shape != (Bsz, H, N, P) or not build.on_card(x, dstate):
             raise ValueError(f"dstate must be {(Bsz, H, N, P)} on {x.device}, got "
                              f"{tuple(dstate.shape)} on {dstate.device}")
         if state is None or state.shape != (Bsz, H, N, P) or not state.is_contiguous():
@@ -249,9 +252,10 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
                              f"a contiguous {(Bsz, H, N, P)} fp32")
         dstate = dstate.float().contiguous()
     global BWD_PLAN
+    sms = (H100_SMS if build.is_fake(x)
+           else torch.cuda.get_device_properties(x.device).multi_processor_count)
     plan = plan_bwd(N, P, chunk, H // G, Bm.dtype,
-                    tiles=Bsz * G * (S // chunk) * -(-chunk // TILE),
-                    sms=torch.cuda.get_device_properties(x.device).multi_processor_count)
+                    tiles=Bsz * G * (S // chunk) * -(-chunk // TILE), sms=sms)
     dy = dy.float().contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((Bsz, S, H, P), **f32)
@@ -263,6 +267,8 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     dbp = torch.empty((Bsz, S, blocks, N), **f32)
     dcp = torch.empty((Bsz, S, blocks, N), **f32)
     dcum = torch.empty((Bsz, H, S), **f32)
+    if build.dry(x):                           # a dry run: planned, not launched
+        return dx, ddA, dB, dC
     with torch.cuda.device(x.device):
         err = build.library().lib.ssd_scan_bwd(
             x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), cum.data_ptr(),

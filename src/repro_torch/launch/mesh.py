@@ -23,6 +23,11 @@ HARDWARE = "NVIDIA H100 80GB HBM3, 700 W, data sheet"
 PEAK_FLOPS = 989e12          # bf16 dense FLOP/s per card
 HBM_BW = 3.35e12             # bytes/s per card
 NVLINK_BW = 450e9            # bytes/s per direction per card
+# Between nodes: an HGX H100 node holds 8 cards on NVLink; the nodes of a
+# 256- or 512-card mesh meet over one 400 Gb/s InfiniBand NDR port per card
+# (NVIDIA DGX H100 data sheet: 8 x ConnectX-7), 50 GB/s per direction.
+NODE_CARDS = 8
+INTER_NODE_BW = 50e9         # bytes/s per direction per card
 
 
 def _mesh(shape: Sequence[int], axes: Sequence[str], device_type: str):

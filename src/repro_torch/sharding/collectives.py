@@ -26,7 +26,9 @@ device to device, on the CPU gloo. int16 travels as its bytes
 
 ``BYTES`` counts, per collective, the bytes handed to it (each call's input,
 forward and backward), so a test can hold one reduction's wire volume
-against another's.
+against another's. While ``TRACE`` holds a ``roofline.StepCounter``, each
+call also hands it the kind, result bytes and group of the collective, for
+its wire bytes by the ring model.
 """
 from __future__ import annotations
 
@@ -37,6 +39,14 @@ import torch.distributed as dist
 
 BYTES: Dict[str, int] = {"all_to_all": 0, "all_gather": 0, "reduce_scatter": 0,
                          "psum": 0, "pmax": 0, "ppermute": 0}
+# The open step count (``roofline.analysis.count_step``), or None.
+TRACE = None
+# Each collective as JAX's HLO names it, and its result's size over its input's
+# for a group of n.
+_KIND = {"all_to_all": ("all-to-all", lambda n: 1), "all_gather": ("all-gather", lambda n: n),
+         "reduce_scatter": ("reduce-scatter", lambda n: 1 / n),
+         "psum": ("all-reduce", lambda n: 1), "pmax": ("all-reduce", lambda n: 1),
+         "ppermute": ("collective-permute", lambda n: 1)}
 
 
 def reset_bytes() -> None:
@@ -44,8 +54,14 @@ def reset_bytes() -> None:
         BYTES[k] = 0
 
 
-def _count(name: str, x: torch.Tensor) -> None:
-    BYTES[name] += x.numel() * x.element_size()
+def _count(name: str, x: torch.Tensor, g) -> None:
+    nbytes = x.numel() * x.element_size()
+    BYTES[name] += nbytes
+    if TRACE is not None:
+        kind, result = _KIND[name]
+        ranks = dist.get_process_group_ranks(g)
+        TRACE.add_collective(kind, nbytes * result(len(ranks)), ranks,
+                             x.dtype == torch.float32)
 
 
 def group(mesh, axis: str):
@@ -61,7 +77,7 @@ def _wire(x: torch.Tensor) -> torch.Tensor:
 
 
 def _a2a(x: torch.Tensor, g) -> torch.Tensor:
-    _count("all_to_all", x)
+    _count("all_to_all", x, g)
     w = _wire(x)
     out = torch.empty_like(w)
     dist.all_to_all_single(out, w, group=g)
@@ -69,7 +85,7 @@ def _a2a(x: torch.Tensor, g) -> torch.Tensor:
 
 
 def _gather(x: torch.Tensor, g, dim: int) -> torch.Tensor:
-    _count("all_gather", x)
+    _count("all_gather", x, g)
     n = _size(g)
     w = _wire(x.movedim(dim, 0))
     out = torch.empty((n * w.shape[0],) + tuple(w.shape[1:]), dtype=w.dtype,
@@ -79,7 +95,7 @@ def _gather(x: torch.Tensor, g, dim: int) -> torch.Tensor:
 
 
 def _scatter(x: torch.Tensor, g, dim: int) -> torch.Tensor:
-    _count("reduce_scatter", x)
+    _count("reduce_scatter", x, g)
     n = _size(g)
     w = x.movedim(dim, 0).contiguous()
     out = torch.empty((w.shape[0] // n,) + tuple(w.shape[1:]), dtype=w.dtype,
@@ -89,7 +105,7 @@ def _scatter(x: torch.Tensor, g, dim: int) -> torch.Tensor:
 
 
 def _shift(x: torch.Tensor, g, shift: int) -> torch.Tensor:
-    _count("ppermute", x)
+    _count("ppermute", x, g)
     n = _size(g)
     x = x.contiguous()
     if n == 1:
@@ -140,7 +156,7 @@ class _ReduceScatter(torch.autograd.Function):
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g):
-        _count("psum", x)
+        _count("psum", x, g)
         out = x.contiguous().clone()
         dist.all_reduce(out, group=g)
         return out
@@ -184,9 +200,10 @@ def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
 @torch.no_grad()
 def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    _count("pmax", x)
+    g = group(mesh, axis)
+    _count("pmax", x, g)
     out = x.detach().contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group(mesh, axis))
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
     return out
 
 

@@ -166,7 +166,8 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         ops.flash_attention(qb, qb, qb)
     # the ssd_scan backward takes what the forward takes (P and N up to 128)
     # and a final-state gradient of the state's shape; the flash backward
-    # takes head dims up to 128, the rmsnorm backward dy in x's dtype
+    # takes D != Dv up to 128 only (MLA's 192/128 waits), the rmsnorm
+    # backward dy in x's dtype
     x = torch.zeros(1, 64, 2, 16, device=cuda)
     dA = torch.zeros(1, 64, 2, device=cuda)
     bc = torch.zeros(1, 64, 1, 16, device=cuda)
@@ -185,7 +186,7 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         ops.ssd_scan(x.requires_grad_(True), dA, wide, wide)
     qw = torch.zeros(1, 2, 8, 192, device=cuda, requires_grad=True)
     with pytest.raises(ValueError, match="slice"):
-        ops.flash_attention(qw, qw, qw)
+        ops.flash_attention(qw, qw, qw[..., :128])
     with pytest.raises(TypeError):
         rn.rmsnorm_bwd_cuda(torch.zeros(4, 16, device=cuda), torch.ones(16, device=cuda),
                             torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16))
@@ -276,10 +277,6 @@ def test_flash_attention_prefix_kernel(cuda, B, H, KH, Sq, Sk, D, prefix, dtype)
                                                    prefix_len=p)
     torch.testing.assert_close(o.float(), o_plain.float(), atol=TOL[dtype], rtol=TOL[dtype])
     torch.testing.assert_close(lse, lse_plain, atol=1e-3, rtol=1e-4)
-    if D > fa.MAX_BWD_HEAD_DIM:
-        with pytest.raises(ValueError, match="192/256"):
-            fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, p)
-        return
     grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, p)
     want = ref.reference_attention_bwd(q, k, v, o, lse, do, causal=causal, prefix_len=p)
     for got, w in zip(grads, want):
@@ -307,19 +304,26 @@ def test_prefix_zero_and_past_sk_give_the_plain_masks_bits(cuda, dtype):
 
 
 def test_prefix_autograd_launches_and_refuses_wide_heads(cuda):
-    """Under autograd a prefix call launches both kernels once; at head dim
-    256 it raises before any launch: no fallback to the plain backward."""
+    """Under autograd a prefix call launches both kernels once, at head dim
+    64 and at paligemma's 256; at MLA's 192/128 it raises before any
+    launch: no fallback to the plain backward."""
     gen = torch.Generator(device=cuda).manual_seed(12)
     q = _randn(gen, (1, 4, 120, 64), torch.bfloat16, cuda).requires_grad_(True)
     before = dict(ops.LAUNCHES)
     ops.flash_attention(q, q, q, prefix_len=50).sum().backward()
     assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     assert ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
-    wide = torch.zeros(1, 8, 64, 256, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    kv = torch.zeros(1, 1, 64, 256, device=cuda, dtype=torch.bfloat16)
+    wide = _randn(gen, (1, 8, 64, 256), torch.bfloat16, cuda).requires_grad_(True)
+    kv = _randn(gen, (1, 1, 64, 256), torch.bfloat16, cuda)
     before = dict(ops.LAUNCHES)
-    with pytest.raises(ValueError, match="paligemma"):
-        ops.flash_attention(wide, kv, kv, prefix_len=8)
+    ops.flash_attention(wide, kv, kv, prefix_len=8).sum().backward()
+    assert ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert fa.BWD_ROUTE == ("tensor_cores", (256, 32))
+    mla_q = torch.zeros(1, 8, 64, 192, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    mla_v = torch.zeros(1, 8, 64, 128, device=cuda, dtype=torch.bfloat16)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="queue 2"):
+        ops.flash_attention(mla_q, mla_q.detach(), mla_v, prefix_len=8)
     assert ops.LAUNCHES == before
 
 
@@ -390,7 +394,12 @@ FLASH_BWD_CASES = [
     (1, 4, 4, 127, 385, 128, 128, False),     # Sk > Sq at width 128
     (1, 2, 2, 129, 129, 128, 128, True),      # ragged q steps of 32
     (1, 2, 2, 100, 100, 64, 128, True),       # D 64 padded to width 128
-    (1, 1, 1, 300, 300, 64, 64, True)]        # batch 1, one head
+    (1, 1, 1, 300, 300, 64, 64, True),        # batch 1, one head
+    # width 256: 64-key dK/dV blocks shared by both warpgroups, 32-key dQ tiles
+    (1, 8, 1, 300, 300, 256, 256, True),      # paligemma's MQA, ragged
+    (1, 2, 2, 129, 200, 256, 256, False),     # Sk > Sq, non-causal
+    (2, 2, 1, 65, 65, 256, 256, True),        # one key past a 64-key block
+    (1, 2, 2, 100, 100, 160, 160, True)]      # 160 padded to width 256
 
 
 @pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv,causal", FLASH_BWD_CASES)

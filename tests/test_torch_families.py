@@ -271,13 +271,16 @@ def test_masked_bwd_tiling_prefix_zero_is_the_causal_tiling():
 
 
 def test_plan_bwd_names_the_wide_head_queue_item():
-    """paligemma's head dim 256 trains only once the backward takes it: the
-    refusal names the queue item, on any device, before any launch."""
+    """paligemma's head dim 256 trains: the backward plans it at the
+    width-256 tile, on any device. MLA's 192/128 stays queued: its refusal
+    names the queue item, before any launch."""
     q = torch.zeros(1, 8, 16, 256, dtype=torch.bfloat16)
     k = torch.zeros(1, 1, 16, 256, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="192/256.*paligemma"):
-        fa.plan_bwd(q, k, k, 8)
+    assert fa.plan_bwd(q, k, k, 8) == ("tensor_cores", (256, 32))
     assert fa.plan(q, k, k, 8) == ("tensor_cores", (256, 256))
+    mla_q = torch.zeros(1, 8, 16, 192, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="192/128.*queue 2"):
+        fa.plan_bwd(mla_q, mla_q, torch.zeros(1, 8, 16, 128, dtype=torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------
@@ -331,11 +334,26 @@ def _batches(cfg, n, batch=2, seq=16, seed=0):
         cfg, pipeline.synthetic_batches(batch, seq, cfg.vocab_size, seed=seed, n=n), seed))
 
 
+# paligemma reduced but with its own head dim, 256: MQA, 2 heads on 1, so
+# the flash backward's width-256 path is held against jax.grad
+WIDE_HEADS = dict(head_dim=256, num_heads=2)
+
+
 @pytest.mark.parametrize("aid", FAMILY_ARCHS + DENSE_ARCHS)
 def test_one_step_grads_match_jax_leaf_by_leaf(aid):
     """Gradients of the loss (vlm: the text positions only) from one bridged
     state, each leaf within 1e-4 of that leaf's largest JAX gradient."""
-    cfg, jc = _cfgs(aid)
+    _grads_match_jax(aid)
+
+
+def test_head_dim_256_grads_match_jax_leaf_by_leaf():
+    """paligemma at head dim 256 (2 layers, 2 heads on 1 KV head, 8
+    patches as the prefix): its gradients leaf by leaf against jax.grad."""
+    _grads_match_jax("paligemma-3b", **WIDE_HEADS)
+
+
+def _grads_match_jax(aid, **kw):
+    cfg, jc = _cfgs(aid, **kw)
     tcfg, jtcfg = _tcfgs()
     jstate, state = _bridged(cfg, jc, jtcfg)
     batch = _batches(cfg, 1)[0]
@@ -359,7 +377,17 @@ def test_one_step_grads_match_jax_leaf_by_leaf(aid):
 def test_three_steps_match_jax(aid, remat):
     """Loss and grad norm of three whole steps (AdamW, clipping) from one
     bridged state, each batch with its seeded frames or patches."""
-    cfg, jc = _cfgs(aid)
+    _three_steps_match_jax(aid, remat)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_head_dim_256_three_steps_match_jax(remat):
+    """paligemma at head dim 256: three steps against JAX's."""
+    _three_steps_match_jax("paligemma-3b", remat, **WIDE_HEADS)
+
+
+def _three_steps_match_jax(aid, remat, **kw):
+    cfg, jc = _cfgs(aid, **kw)
     tcfg, jtcfg = _tcfgs(remat=remat)
     jstate, state = _bridged(cfg, jc, jtcfg)
     jstep = jax.jit(JTR.make_train_step(jc, jtcfg))

@@ -13,7 +13,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serve.py",
-    ROOT / "scripts" / "profile_torch_train.py", ROOT / "scripts" / "flash_variants.py"]
+    ROOT / "scripts" / "profile_torch_train.py", ROOT / "scripts" / "flash_variants.py",
+    ROOT / "scripts" / "bench_autotune_torch.py", ROOT / "scripts" / "roofline_report_torch.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -391,7 +391,8 @@ def test_flash_bwd_tiling_no_valid_key_is_zero():
 
 @pytest.mark.parametrize("D,Dv,want", [(64, 64, (64, 64)), (16, 16, (64, 64)),
                                        (64, 128, (128, 32)), (128, 128, (128, 32)),
-                                       (80, 48, (128, 32))])
+                                       (80, 48, (128, 32)), (256, 256, (256, 32)),
+                                       (160, 160, (256, 32))])
 def test_flash_bwd_tile_choice(D, Dv, want):
     assert fa.bwd_tile(D, Dv) == want
     q = torch.zeros(1, 2, 8, D, dtype=torch.bfloat16)
@@ -560,3 +561,64 @@ def test_ssd_plan_bwd_terms_and_refusals():
                          (64, 64, 256, 0)):
         with pytest.raises(ValueError):
             ssd.plan_bwd(N, P, Q, rep, BF)
+
+
+@pytest.mark.parametrize("D,Dv,match", [(272, 272, "up to 256"), (256, 272, "up to 256"),
+                                        (192, 128, "queue 2"), (256, 128, "queue 2")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_refuses_past_its_widths(D, Dv, match, dtype):
+    """Past 256, and D != Dv above 128 (MLA's 192/128), the backward's plan
+    refuses on any device, before any launch, and so does the tile choice."""
+    q = torch.zeros(1, 2, 8, D, dtype=dtype)
+    v = torch.zeros(1, 2, 8, Dv, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        fa.plan_bwd(q, q, v)
+    with pytest.raises(ValueError, match=match):
+        fa.bwd_tile(D, Dv)
+
+
+def _wide_tiles_with_a_valid_pair(H, Sq, Sk, prefix, q_step, keys, key_tile):
+    """The width-256 tiling's products, by brute force: a dK/dV block of
+    ``keys`` keys that both warpgroups take whole, per q tile of ``q_step``
+    rows; a dQ warpgroup's 64 rows per ``key_tile``-key tile."""
+    def valid(q0, q1, k0, k1):
+        q1, k1 = min(q1, Sq), min(k1, Sk)
+        return q0 < q1 and k0 < k1 and (k0 <= q1 - 1 or k0 < prefix)
+    half = fa.BWD_KEYS // 2
+    dkdv = sum(valid(q0, q0 + q_step, k0, k0 + keys)
+               for k0 in range(0, Sk, keys) for q0 in range(0, Sq, q_step)) * H
+    dq = sum(valid(q0w, q0w + half, k0, k0 + key_tile)
+             for q0w in range(0, -(-Sq // fa.BWD_Q_ROWS) * fa.BWD_Q_ROWS, half)
+             for k0 in range(0, Sk, key_tile)) * H
+    return {"dkdv": dkdv, "dq": dq}
+
+
+@pytest.mark.parametrize("B,H,KH,S,prefix", [
+    (1, 4, 1, 384, 256),           # paligemma's MQA and 256-patch prefix, cut to 384
+    (1, 2, 1, 300, 100),           # ragged: a prefix inside a 64-key block
+    (1, 2, 2, 130, 0)])            # the plain causal mask, one row past a dQ block
+def test_flash_bwd_tiling_at_width_256_matches_jax(B, H, KH, S, prefix):
+    """The width-256 backward's decomposition (``bwd_tile`` and ``bwd_blocks``
+    at 256/256: 64-key dK/dV blocks shared by both warpgroups, q steps of
+    32, dQ over 32-key tiles) under the prefix-LM mask at head dim 256,
+    against jax.vjp of the model's blockwise attention; it visits exactly
+    the tiles that hold a valid pair."""
+    D = 256
+    width, q_step = fa.bwd_tile(D, D)
+    keys, key_tile = fa.bwd_blocks(width)
+    assert (width, q_step, keys, key_tile) == (256, 32, 64, 32)
+    arrs, (q, k, v, do) = _attn_inputs(S + prefix + D, B, H, KH, S, S, D, D)
+    o, lse = ops.flash_attention_plain(q, k, v, return_lse=True, prefix_len=prefix)
+    dq, dk, dv, visits = ref.attention_bwd_tiles(
+        q, k, v, o, lse, do, q_step=q_step, keys=keys, q_rows=fa.BWD_Q_ROWS,
+        key_tile=key_tile, half=keys, prefix_len=prefix)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in arrs)
+    pos = jnp.arange(S, dtype=jnp.int32)
+
+    def f(q, k, v):
+        return jax_blockwise(q, jnp.repeat(k, H // KH, axis=1), jnp.repeat(v, H // KH, axis=1),
+                             pos, pos, prefix_len=jnp.int32(prefix), block=64)
+    _, vjp = jax.vjp(f, jq, jk, jv)
+    for want, got in zip(vjp(jdo), (dq, dk, dv)):
+        _close(want, got, TOL["float32"])
+    assert visits == _wide_tiles_with_a_valid_pair(H, S, S, prefix, q_step, keys, key_tile)
