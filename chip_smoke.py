@@ -44,12 +44,16 @@ its seconds:
                 of 128), rmsnorm at rows of 7168, 1536 and 512; the flash
                 backward at paligemma's train shape (8 heads of 256 on one KV
                 head, 4352 positions, prefix 256; the width-256 tile) and an
-                fp32 case of the same heads at a small size;
+                fp32 case of the same heads at a small size; the flash
+                backward at MLA's train shape (128 heads, D 192, Dv 128,
+                (2, 4096), causal; the width-256 tile with zero columns),
+                ``mla_train_bwd``, and an fp32 case of those widths small;
 4. consistency  stablelm-1.6b, mamba2-370m, zamba2-1.2b and whisper-large-v3
                 at full width in float32: decode logits at every prompt
                 position equal the full forward's (the ssm/hybrid archs over
-                two 256-row chunks; whisper over 1500 seeded frames, its
-                cross caches filled from the encoder), and reduced stablelm,
+                two 256-row chunks, at a third of their depth; whisper over
+                1500 seeded frames, its cross caches filled from the
+                encoder), and reduced stablelm,
                 mamba2 and zamba2 models on the card equal the same models
                 on the CPU; reduced stablelm, mamba2, zamba2, paligemma
                 (MQA, prefix 8), whisper and vit (fp32, each arch's remat)
@@ -75,8 +79,11 @@ its seconds:
                 cut to what one card holds), whisper-large-v3 the same over
                 1500 frames, paligemma-3b the same after 256 patches (4352
                 positions, head dim 256), and vit-base-16 at batch 64 (196
-                patches, 16 tokens; remat full), and olmoe-1b-7b cut to 4
-                layers at full width (AdamW, remat full, (2, 4096)), through
+                patches, 16 tokens; remat full), olmoe-1b-7b cut to 4
+                layers at full width (AdamW, remat full, (2, 4096)), and
+                deepseek-v3-671b cut to its first 2 (dense MLA) layers and
+                its MTP head at full width (Adafactor at lr 1e-4, remat
+                full, (2, 4096); 3.95 B params, no routed expert), through
                 ``launch/train.py``'s loop: one warm-up step, then 4 steps on
                 one fixed batch, each with exactly its launches; olmoe's run
                 twice from one init, with equal bits; after each run a
@@ -85,7 +92,8 @@ its seconds:
                 that run beside the build and end with it, so that no timed
                 phase shares the host with them), its model flops and
                 counted flops, the median step, ``mfu`` and
-                ``bound_fraction``;
+                ``bound_fraction``, and the params ``mfu`` counts beside
+                the params the state holds;
 7. workflow     the paper's production loop through the port's Couler layer
                 (``repro_torch.core``): full-width bf16 stablelm-1.6b as the
                 steps prepare-corpus (a ``ShardedCorpus``), train (a warm-up
@@ -117,7 +125,12 @@ its seconds:
                 loss within 1e-3 relative of the train phase's, the last
                 below the first, exactly the train phase's launches per
                 step, and step_s, tokens_per_s and peak memory beside the
-                card line. The multi-rank checks (EP, all-to-all, moe_rs,
+                card line; then stablelm-1.6b's serve run again under the
+                mesh (params by ``param_specs``, fp32 caches by
+                ``cache_specs`` as DTensors, decode attention on the
+                caches' local blocks): its greedy tokens equal the serve
+                phase's and each step launches exactly the serve phase's
+                decode kernels. The multi-rank checks (EP, all-to-all, moe_rs,
                 the compressed mean, the pipeline) would need gloo on this
                 one card; it takes CUDA tensors for its all-to-all,
                 all-gather, reduce-scatter and MAX all-reduce but not for
@@ -133,6 +146,7 @@ import dataclasses
 import json
 import math
 import multiprocessing
+import os
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
@@ -175,6 +189,10 @@ SSD_GRAD_NORM_TOL = {"float32": (1e-4, 1e-4, 1e-4, 1e-4),
 # kernel is under the limit and the control over it.
 GRAD_NORM_TOL = 1e-2
 SSM_CONSISTENCY_PROMPT = 512        # two chunks of 256
+# The fp32 ssm/hybrid decode-vs-forward loops at a third of their depth
+# (mamba2 48 -> 16 layers; zamba2 38 -> 14: 2 shared blocks and 2 leftover
+# layers), so that the mesh decode of phase 8 fits the smoke's time
+SSM_CONSISTENCY_CUT = {"mamba2-370m": 16, "zamba2-1.2b": 14}
 SSM_FORWARD_LEN = 1024              # apply_lm after an ssm/hybrid serve run
 # vit-base-16's train batch: 64 images of 196 patches and 16 text tokens
 VIT_BATCH, VIT_TOKENS = 64, 16
@@ -182,6 +200,17 @@ VIT_BATCH, VIT_TOKENS = 64, 16
 # and one moe layer): 14.87 B params with the MTP head, 29.74 GB in bf16
 DEEPSEEK_CUT = dict(num_layers=2, first_k_dense=1)
 DEEPSEEK_CUT_TEXT = "61 layers cut to 2: first_k_dense 3 -> 1, one moe layer"
+# deepseek-v3-671b trains at full width as its first two layers, both dense
+# (MLA and a d_ff 18,432 SwiGLU), with its MTP head: 3,945,204,736 params,
+# no routed expert. Its own Adafactor at lr 3e-4 overshoots on one batch at
+# width 7168 (losses 9.28, 14.46, 12.08, 13.06 after the warm-up step, then
+# no lower over 8 steps: scripts/train_probe.py, PERF.md section 6); the run
+# takes lr 1e-4, 3e-4 x 2048 / 7168 rounded, the step per logit of the
+# width-2048 archs' runs
+DEEPSEEK_TRAIN_CUT = dict(num_layers=2, first_k_dense=2)
+DEEPSEEK_TRAIN_LR = dict(learning_rate=1e-4)
+DEEPSEEK_TRAIN_CUT_TEXT = ("61 layers cut to the first 2 dense layers and the MTP head; "
+                           "no experts; Adafactor at lr 1e-4, not 3e-4")
 # olmoe-1b-7b trains at full width per layer, 16 layers cut to 4: 1.88 B
 # params, 22.6 GB with AdamW (the full model's step would take about 83 GB)
 OLMOE_TRAIN_CUT = dict(num_layers=4)
@@ -195,7 +224,9 @@ TRAIN_RUNS = tuple((aid, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CUT, {}, {}) for aid in (
     ("vit-base-16", VIT_BATCH, VIT_TOKENS, "the paper's RQ2 ViT-B/16 batch: 64 images "
      "of 196 patches, 16 text tokens", {}, {"remat": "full"}),
     ("olmoe-1b-7b", TRAIN_BATCH, TRAIN_SEQ, TRAIN_CUT + "; 16 layers cut to 4 (AdamW's "
-     "full-model step would take about 83 GB)", OLMOE_TRAIN_CUT, {}))
+     "full-model step would take about 83 GB)", OLMOE_TRAIN_CUT, {}),
+    ("deepseek-v3-671b", TRAIN_BATCH, TRAIN_SEQ, TRAIN_CUT + "; " + DEEPSEEK_TRAIN_CUT_TEXT,
+     DEEPSEEK_TRAIN_CUT, DEEPSEEK_TRAIN_LR))
 
 
 # Processes counting the train runs' steps on fake tensors during the build:
@@ -220,7 +251,6 @@ def count_train_step(aid: str, batch_size: int, seq: int, cfg_kw: dict, tcfg_kw:
     (``roofline.count_step``: nothing allocated, no launch) and the seconds
     the count took. Runs in a worker process beside the build, which sees
     no card."""
-    import os
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     if str(ROOT / "src") not in sys.path:
         sys.path.insert(0, str(ROOT / "src"))
@@ -381,6 +411,8 @@ DIST_RUNS = (("stablelm-1.6b", "baseline", TRAIN_STEPS),
              ("stablelm-1.6b", "pure_fsdp", TRAIN_STEPS),
              ("mamba2-370m", "baseline", 2))
 DIST_LOSS_RTOL = 1e-3
+# decodes under the mesh after the train runs, against the serve phase's tokens
+DIST_DECODE_ARCH = "stablelm-1.6b"
 # scripts/probe_gloo_cuda.py on the H100 (torch 2.11.0+cu128): gloo takes
 # CUDA tensors (int8 and fp32) for all_to_all_single, all_gather_into_tensor,
 # reduce_scatter_tensor and a MAX all_reduce, but send/recv fails on them
@@ -389,11 +421,13 @@ DIST_LOSS_RTOL = 1e-3
 GLOO_TAKES_CUDA = False
 
 
-def distributed_phase(torch, cuda, main_paths, train_losses) -> None:
+def distributed_phase(torch, cuda, main_paths, train_losses, served) -> None:
     """Phase 8. ``DIST_RUNS`` through ``launch/train.py``'s mesh loop on
     NCCL at world size 1, each from the train phase's init (seed 0) on its
-    batch, held to its losses (``train_losses[aid]``) and launches. Adds
-    each run's launches to ``main_paths``; raises on any failed check."""
+    batch, held to its losses (``train_losses[aid]``) and launches, then
+    ``mesh_decode`` against the serve phase's ``served`` (prompts, tokens).
+    Adds each run's launches to ``main_paths``; raises on any failed
+    check."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.data.pipeline import synthetic_batches
@@ -473,8 +507,81 @@ def distributed_phase(torch, cuda, main_paths, train_losses) -> None:
             main_paths[f"{aid}/mesh {strategy}"] = total
             del state
             torch.cuda.empty_cache()
+        mesh_decode(torch, cuda, mesh, main_paths, served)
     finally:
         dist.destroy_process_group()
+
+
+def mesh_decode(torch, cuda, mesh, main_paths, served) -> None:
+    """The serve phase's stablelm-1.6b run again under the mesh: the same
+    seeded bf16 params placed by ``param_specs``, fp32 caches (the engine's)
+    laid out by ``cache_specs`` as DTensors, and the engine's loop (the
+    prompt through the decode path, then greedy tokens) through
+    ``apply_lm_decode``, each step's attention on the cache's local blocks.
+    Its tokens must equal the serve phase's, and each step launch exactly
+    the serve phase's decode step's kernels."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import place_caches
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ctx import use_mesh
+    from repro_torch.sharding.rules import rules_for
+    from repro_torch.training import train as TR
+    t_phase = time.perf_counter()
+    aid, strategy = DIST_DECODE_ARCH, "baseline"
+    prompts, want = served
+    cfg = get_arch(aid).model
+    rules = rules_for(aid, strategy)
+    B, P = prompts.shape
+    params = T.init_lm(cfg, 0, device=cuda)
+    with use_mesh(mesh, rules, strategy):
+        params = TR.place_params(params, cfg, mesh, rules, strategy).requires_grad_(False)
+        caches = place_caches(T.init_caches(cfg, B, SERVE_PROMPT + SERVE_GEN, torch.float32,
+                                            device=cuda), mesh, rules)
+    cache_placements = sorted({str(tuple(t.placements)) for t in caches["layers"][0].values()})
+    prompts = prompts.to(cuda)
+    expect = {name: 0 for name in ops.LAUNCHES}
+    expect["rmsnorm"] = 2 * cfg.num_layers + 1
+    per_step, step_s, tokens, finite = [], [], [], True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), use_mesh(mesh, rules, strategy), implicit_replication():
+        tok = None
+        for i in range(P + SERVE_GEN - 1):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = T.apply_lm_decode(params, cfg, prompts[:, i:i + 1] if i < P else tok,
+                                          caches, i)
+            last = logits.full_tensor()[:, -1]
+            tok = last.argmax(dim=-1, keepdim=True)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append(dict(ops.LAUNCHES))
+            finite = finite and bool(torch.isfinite(last).all())
+            if i >= P - 1:
+                tokens.append(tok)
+    got = torch.cat(tokens, dim=1).tolist()
+    decode_ms = sorted(1e3 * t for t in step_s[P:])
+    ok = got == want and finite and all(ls == expect for ls in per_step)
+    emit({"phase": "distributed", "what": "decode over caches laid out by cache_specs",
+          "arch": cfg.name, "strategy": strategy, "mesh": {"data": 1, "model": 1},
+          "backend": "nccl", "world": 1, "layers": cfg.num_layers,
+          "dtype": cfg.compute_dtype, "cache_dtype": "float32",
+          "cache_placements": cache_placements, "batch": B, "prompt": P, "gen": SERVE_GEN,
+          "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "tokens_equal_serve_phase": got == want, "logits_finite": finite,
+          "launches_per_step": per_step[-1], "expected_launches_per_step": expect,
+          "steps_with_expected_launches": sum(ls == expect for ls in per_step),
+          "steps": len(per_step), "card": dev_card_line(),
+          "ok": ok, "seconds": time.perf_counter() - t_phase})
+    if not ok:
+        fail(f"{aid} mesh decode failed: tokens equal {got == want}, finite {finite}, "
+             f"launches {per_step[-1]}, expected {expect} per step")
+    main_paths[f"{aid}/mesh decode"] = {k: sum(ls[k] for ls in per_step) for k in expect}
+    del params, caches
+    torch.cuda.empty_cache()
 
 
 def dev_card_line() -> str:
@@ -1231,9 +1338,10 @@ def phases(torch, pool, t_start) -> int:
                                             "threads": rn.PLAN_BWD.threads,
                                             "vectors": rn.PLAN_BWD.vectors}})
 
-    def attn_bwd_case(case, B, H, KH, Sq, Sk, D, dtype, causal, route, prefix=0):
+    def attn_bwd_case(case, B, H, KH, Sq, Sk, D, dtype, causal, route, prefix=0, Dv=None):
         """The model's layout: q, k, v transposed views of (B,S,heads,hd), do
-        a transposed view of the (B,S,H*hd) gradient. The kernel takes o and
+        a transposed view of the (B,S,H*Dv) gradient (``Dv`` D unless
+        given). The kernel takes o and
         lse from the kernel's forward, as in training; the plain backward
         takes the plain forward's, so a wrong o or lse shows. Each gradient
         is also held to ``GRAD_NORM_TOL`` by norm, against a control: the
@@ -1242,10 +1350,11 @@ def phases(torch, pool, t_start) -> int:
         the inputs' type, or the bytes of q, k, v, o, do, lse read and dq,
         dk, dv written. ``route``: the (route, tile) that must run.
         ``prefix``: the prefix-LM mask's prefix_len (under ``causal``)."""
+        Dv = Dv or D
         q = randn(B, Sq, H, D, dtype=dtype).transpose(1, 2)
         k = randn(B, Sk, KH, D, dtype=dtype).transpose(1, 2)
-        v = randn(B, Sk, KH, D, dtype=dtype).transpose(1, 2)
-        do = randn(B, Sq, H * D, dtype=dtype).view(B, Sq, H, D).transpose(1, 2)
+        v = randn(B, Sk, KH, Dv, dtype=dtype).transpose(1, 2)
+        do = randn(B, Sq, H * Dv, dtype=dtype).view(B, Sq, H, Dv).transpose(1, 2)
         o, lse = fa.flash_attention_cuda(q, k, v, causal, return_lse=True, prefix_len=prefix)
 
         def plain_grads(q, k, v, do):
@@ -1280,12 +1389,12 @@ def phases(torch, pool, t_start) -> int:
             lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, prefix),
             lambda: ref.reference_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal,
                                                 prefix_len=prefix),
-            None, dict(B=B, H=H, KH=KH, Sq=Sq, Sk=Sk, D=D, Dv=D, dtype=dtype,
+            None, dict(B=B, H=H, KH=KH, Sq=Sq, Sk=Sk, D=D, Dv=Dv, dtype=dtype,
                        causal=causal, prefix_len=prefix),
             library_timer=library_timer, judge=judge,
             route=(lambda: json.loads(json.dumps(fa.BWD_ROUTE)), route),   # tuples as lists
             valid_pairs=pairs,
-            shape={"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "D": D, "Dv": D},
+            shape={"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "D": D, "Dv": Dv},
             causal=causal, prefix_len=prefix)
 
     # route: tensor cores (wgmma) with the (width, q step) tile, or CUDA cores
@@ -1313,6 +1422,12 @@ def phases(torch, pool, t_start) -> int:
                   prefix=37)
     attn_bwd_case("olmoe_train_bwd", TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 128,
                   "bfloat16", True, ["tensor_cores", [128, 32]])
+    # deepseek's MLA train path: D 192 (nope 128 + rope 64), Dv 128 on the
+    # width-256 tile (Q/K and V/dO zero-padded), and an fp32 case small
+    attn_bwd_case("mla_train_bwd", TRAIN_BATCH, 128, 128, TRAIN_SEQ, TRAIN_SEQ, 192,
+                  "bfloat16", True, wide, Dv=128)
+    attn_bwd_case("mla_bwd_fp32_small", 1, 8, 8, 300, 300, 192, "float32", True, cores,
+                  prefix=40, Dv=128)
 
     # prefix 0 and a prefix past Sk: the causal and non-causal launches' bits
     def same_bits(case, B, H, KH, S, D, dtype):
@@ -1542,21 +1657,22 @@ def phases(torch, pool, t_start) -> int:
 
         small_errs = {"mamba2-370m": reduced_card_vs_cpu("mamba2-370m", 48),
                       "zamba2-1.2b": reduced_card_vs_cpu("zamba2-1.2b", 48, num_layers=5)}
-        n = get_arch("mamba2-370m").model.num_layers
+        n = SSM_CONSISTENCY_CUT["mamba2-370m"]
         rec, ok, t_phase = decode_vs_forward(
             "mamba2-370m", SSM_CONSISTENCY_PROMPT,
-            {"flash_attention": 0, "rmsnorm": 2 * n + 1, "ssd_scan": n})
+            {"flash_attention": 0, "rmsnorm": 2 * n + 1, "ssd_scan": n}, num_layers=n)
         ok = ok and max(small_errs.values()) <= TOL["float32"]
         emit({**rec, "reduced_card_vs_cpu_max_abs_err": small_errs, "ok": ok,
               "seconds": time.perf_counter() - t_phase})
         if not ok:
             fail("mamba2-370m consistency phase failed")
 
-        zcfg = get_arch("zamba2-1.2b").model
-        n, groups = zcfg.num_layers, T.hybrid_split(zcfg)[0]
+        n = SSM_CONSISTENCY_CUT["zamba2-1.2b"]
+        groups = T.hybrid_split(get_arch("zamba2-1.2b").model.replace(num_layers=n))[0]
         rec, ok, t_phase = decode_vs_forward(
             "zamba2-1.2b", SSM_CONSISTENCY_PROMPT,
-            {"flash_attention": groups, "rmsnorm": 2 * n + 2 * groups + 1, "ssd_scan": n})
+            {"flash_attention": groups, "rmsnorm": 2 * n + 2 * groups + 1, "ssd_scan": n},
+            num_layers=n)
         emit({**rec, "ok": ok, "seconds": time.perf_counter() - t_phase})
         if not ok:
             fail("zamba2-1.2b consistency phase failed")
@@ -1721,11 +1837,12 @@ def phases(torch, pool, t_start) -> int:
         for name, n in per_pass.items():
             if n and launches[name] == 0:
                 fail(f"kernel {name} was never launched on the {aid} path")
+        served[label or aid] = (prompts, res.tokens)
         del engine, params, logits, extra, aux, mtp
         torch.cuda.empty_cache()
         return launches
 
-    main_paths = {}
+    main_paths, served = {}, {}
     n = get_arch("stablelm-1.6b").model.num_layers
     main_paths["stablelm-1.6b"] = serve(
         "stablelm-1.6b", SERVE_PROMPT,
@@ -1759,21 +1876,30 @@ def phases(torch, pool, t_start) -> int:
         cut=DEEPSEEK_CUT_TEXT, **DEEPSEEK_CUT)
 
     # 6. train: the training paths -------------------------------------------
-    def roofline_line(aid, cfg, shape, step_s):
+    def roofline_line(aid, cfg, shape, step_s, n_params):
         """The same step at world size 1 counted on fake tensors (a
         worker's ``count_train_step``, during the build), its report on the
         card's data sheet figures, and the measured median step: ``mfu``
-        and ``bound_fraction``."""
+        and ``bound_fraction``. ``mfu_basis``: the active params that the
+        model flops (6 N T) count, ``ModelConfig.param_counts()``'s as in
+        JAX, beside the params the state holds (``n_params``; they differ
+        for the deepseek cut, whose MTP block the count takes as a moe
+        layer), and the ``mfu`` at the latter."""
         terms, count_s = counts[aid]
         rep = RF.measured_report(RF.roofline_report(terms, cfg, shape, 1),
                                  sorted(step_s)[len(step_s) // 2])
+        active = cfg.param_counts()["active"]
         emit({"phase": "train", "arch": cfg.name, "roofline": {
                   "model_flops": rep["model_flops_per_chip"],
                   "counted_flops": rep["hlo_flops_per_chip"],
                   "useful_flops_ratio": rep["useful_flops_ratio"],
                   "compute_s": rep["compute_s"], "memory_s": rep["memory_s"],
                   "roofline_bound_s": rep["roofline_bound_s"], "step_s": rep["measured_s"],
-                  "mfu": rep["mfu"], "bound_fraction": rep["bound_fraction"]},
+                  "mfu": rep["mfu"], "bound_fraction": rep["bound_fraction"],
+                  "mfu_basis": {"active_params": active,
+                                "counted_by": "ModelConfig.param_counts()['active']",
+                                "params_in_state": n_params,
+                                "mfu_at_params_in_state": rep["mfu"] * n_params / active}},
               "counted_on": "fake tensors, world size 1", "card": smi,
               "count_s": count_s})
 
@@ -1853,7 +1979,7 @@ def phases(torch, pool, t_start) -> int:
         if not ok:
             fail(f"{aid} train phase failed: losses {losses}, launches {per_step}, "
                  f"expected {expect} per step")
-        roofline_line(aid, cfg, train_shape(batch_size, seq), step_s)
+        roofline_line(aid, cfg, train_shape(batch_size, seq), step_s, n_params)
         for name, n in expect.items():
             if n and train_total[name] == 0:
                 fail(f"kernel {name} was never launched on the {aid} train path")
@@ -1863,14 +1989,22 @@ def phases(torch, pool, t_start) -> int:
         torch.cuda.empty_cache()
 
     train_losses = {}
+    # paligemma's step comes within 10 GB of the card's memory: segments that
+    # grow in place keep it from failing on memory the runs before it left
+    # cached in pieces (it did once: 56.9 GB in use, 17.9 GB free in pieces,
+    # 7.9 GB asked). Only here: they slow the allocations of other phases.
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     for run in TRAIN_RUNS:
         train(*run, twice=run[0] == "olmoe-1b-7b")
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
 
     # 7. workflow: the paper's production loop through the port's Couler layer
     workflow_phase(torch, cuda, main_paths, every_kernel)
 
     # 8. distributed: the mesh loop at world size 1 ---------------------------
-    distributed_phase(torch, cuda, main_paths, train_losses)
+    distributed_phase(torch, cuda, main_paths, train_losses, served["stablelm-1.6b"])
 
     # summary -----------------------------------------------------------------
     main_case = {"rmsnorm": "serve_decode", "flash_attention": "serve_forward",
@@ -1892,6 +2026,8 @@ def phases(torch, pool, t_start) -> int:
         "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan.cu",
                          "src/repro/models/ssm.py:67 (jax.grad of ssd_chunked)"),
     }
+    # the wider train paths' cases beside the main one
+    wider = {"flash_attention_bwd": ("paligemma_train_bwd", "mla_train_bwd")}
     summary = []
     for name, (source, replaces) in meta.items():
         rec = results[(name, main_case[name])]
@@ -1905,7 +2041,10 @@ def phases(torch, pool, t_start) -> int:
                         "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
                         "call_ms": rec["kernel_call_ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                        **({"wider_cases": {case: {k: results[(name, case)][k] for k in (
+                            "shape", "kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                            "max_abs_err")} for case in wider[name]}} if name in wider else {})})
     emit({"phase": "end", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -126,7 +126,9 @@
 // that owns its keys alone, and fetches each Q/dO tile for 64 keys instead
 // of 128. The dQ block keeps 128 rows (a warpgroup's dQ is 128 registers)
 // over K/V tiles of 32 keys, so that three stages fit beside Q and dO
-// (225 KB). dq, dk, dv are staged in shared memory and
+// (225 KB). MLA's 192/128 (deepseek-v3) runs on the same tile: the
+// loads zero-fill Q and K past D and V and dO past Dv, whose products add
+// exact zeros, and the stores stop at D and Dv. dq, dk, dv are staged in shared memory and
 // written 16 bytes a store. fp32 runs on the CUDA cores in exact fp32
 // (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): 256 threads, every tile in
 // shared memory in fp32 (rows padded by one float), a thread holding a 4 x

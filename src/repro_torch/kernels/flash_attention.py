@@ -23,10 +23,12 @@ Two routes, chosen by dtype alone, with no fallback between them:
 ``flash_attention_cuda(..., return_lse=True)`` also writes each row's fp32
 logsumexp of the scaled scores, (B, H, Sq), in natural-log units, which
 ``flash_attention_bwd_cuda`` reads. The backward takes D and Dv up to
-``MAX_BWD_HEAD_DIM`` (D = Dv above 128), by dtype as the forward: bf16 on the tensor cores
+``MAX_BWD_HEAD_DIM``, by dtype as the forward: bf16 on the tensor cores
 (``flash_attention_bwd_bf16``: wgmma fed by cp.async rings; D and Dv
 multiples of 16, padded to the tile of ``BWD_TILES``; 16-byte rows of q, k,
-v, o and do), fp32 on the CUDA cores (``flash_attention_bwd_f32``).
+v, o and do), fp32 on the CUDA cores (``flash_attention_bwd_f32``). The
+padding is exact: the tile loads zero-fill the columns past D and Dv and
+the stores stop at them, so MLA's 192/128 runs on the width-256 tile.
 ``plan_bwd`` checks what it takes on any device and names its route and
 tile. It returns dq, dk, dv with the strides of q, k, v where those are
 dense, so the model's transposed views get their gradients in their own
@@ -44,7 +46,7 @@ import torch
 from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 256
-MAX_BWD_HEAD_DIM = 256       # stablelm 64, mistral-nemo 128, paligemma 256
+MAX_BWD_HEAD_DIM = 256       # stablelm 64, mistral-nemo 128, MLA 192/128, paligemma 256
 ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 # (D, Dv) tile widths the bf16 kernel is built for, smallest first.
 BF16_TILES = ((64, 64), (128, 128), (192, 128), (256, 256))
@@ -58,8 +60,7 @@ BF16_TILES = ((64, 64), (128, 128), (192, 128), (256, 256))
 BWD_TILES = ((64, 64), (128, 32), (256, 32))
 BWD_KEYS, BWD_Q_ROWS, BWD_KEY_TILE = 128, 128, 64
 BWD_WIDE_KEYS, BWD_WIDE_KEY_TILE = 64, 32
-# Above this width the backward takes D = Dv only: the width-256 tile was
-# built for paligemma's 256/256; MLA's 192/128 is queued.
+# Above this width the backward runs the width-256 tile.
 WIDE_BWD_FROM = 128
 
 ROUTE: Optional[str] = None
@@ -130,11 +131,6 @@ def _check_bwd_dims(D: int, Dv: int) -> None:
     if D > MAX_BWD_HEAD_DIM or Dv > MAX_BWD_HEAD_DIM:
         raise ValueError(f"the flash backward takes head dims up to {MAX_BWD_HEAD_DIM}, "
                          f"got D {D}, Dv {Dv}")
-    if max(D, Dv) > WIDE_BWD_FROM and D != Dv:
-        raise ValueError(
-            f"the flash backward takes D != Dv up to {WIDE_BWD_FROM} only, got D {D}, "
-            f"Dv {Dv}: MLA's 192/128 (deepseek-v3 training) comes with a later slice, "
-            "ROADMAP.md queue 2's backward at D 192")
 
 
 def bwd_tile(D: int, Dv: int) -> Tuple[int, int]:

@@ -26,8 +26,7 @@ keys where a counterpart exists:
 - ``hlo_instruction_count``: the aten ops traced; ``lower_s``: the
   seconds the layout took, ``compile_s`` those of layout and trace;
 - ``status``: "ok", or "error" with the exception, as on the card: a
-  kernel's refusal (the flash backward's of MLA's 192/128 heads) is the
-  card's own.
+  kernel's refusal (a head dim past 256) is the card's own.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k
@@ -69,8 +68,9 @@ def _placed_params(cfg, tcfg, mesh, rules, strategy):
     return state
 
 
-def _placed_caches(caches, mesh, rules):
-    """The caches laid out by ``cache_specs``, in the port's per-layer tree."""
+def place_caches(caches, mesh, rules):
+    """The caches laid out by ``cache_specs`` as DTensors, in the port's
+    per-layer tree (the decode cells' and any decode under a mesh)."""
     from repro_torch import bridge
     from repro_torch.sharding import ctx
     from repro_torch.sharding import rules as R
@@ -154,7 +154,7 @@ def place_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
             args = (params, batch)
         else:
             params = state["params"].requires_grad_(False)
-            caches = _placed_caches(cache_specs_shapes(cfg, shape), mesh, rules)
+            caches = place_caches(cache_specs_shapes(cfg, shape), mesh, rules)
 
             @torch.no_grad()
             def step(params, caches, token, index):

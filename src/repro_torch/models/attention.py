@@ -12,6 +12,11 @@ stays as the plain model-level version (key padding, separate
 Pallas kernel and stays plain PyTorch (MLA's absorbed form with fp32 scores
 and softmax). The full GQA path takes the prefix-LM mask of the vlm family
 and of the encoder (``prefix_len``).
+
+Under a mesh each (B, S, heads x hd) projection is split into heads by
+``ctx.split_heads``, which first gives up the model axis where the heads do
+not divide it, and GQA decode over a cache laid out by ``cache_specs`` runs
+on each rank's block of it (``_decode_on_shards``).
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ from torch import nn
 from repro_torch import device as dev
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.sharding.ctx import shard
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import shard, split_heads
 
 KV_BLOCK = 1024
 NEG = -1e30
@@ -88,13 +95,15 @@ def blockwise_attention(q, k, v, qpos, kpos, prefix_len=None, block: int = KV_BL
     return out.to(q.dtype)
 
 
-def _qkv(p, cfg, x, S):
-    B = x.shape[0]
-    hd, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+def _qkv(p, cfg, x, seq_q="seq_q"):
+    """(B, S, heads, hd) views of the projections, laid out for the
+    (B, heads, S, hd) shards that follow: q by ("batch", "heads", ``seq_q``),
+    k and v by ("batch", "heads"), as ``apply_attention_full`` takes them."""
+    H, KH = cfg.num_heads, cfg.num_kv_heads
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, KH, hd)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, KH, hd)
+    q = split_heads(x @ p["wq"].to(dt), H, "batch", "heads", seq_q, None)
+    k = split_heads(x @ p["wk"].to(dt), KH, "batch", "heads", None, None)
+    v = split_heads(x @ p["wv"].to(dt), KH, "batch", "heads", None, None)
     return q, k, v
 
 
@@ -103,7 +112,7 @@ def apply_attention_full(p, cfg, x, positions, prefix_len=None):
     ``prefix_len`` seen by every row) full attention through the kernel;
     ``positions`` are 0..S-1, so the kernel's row indices are the positions."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, S)
+    q, k, v = _qkv(p, cfg, x)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     # (B,S,heads,hd) -> (B,heads,S,hd) views; the kernel reads them by stride.
@@ -114,7 +123,7 @@ def apply_attention_full(p, cfg, x, positions, prefix_len=None):
     v = shard(v.transpose(1, 2), "batch", "heads", None, None)
     out = ops.flash_attention(q, k, v, causal=True, prefix_len=prefix_len or 0)
     out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return out @ p["wo"].to(x.dtype)
+    return shard(out, "batch", None, "heads") @ p["wo"].to(x.dtype)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -129,20 +138,23 @@ def apply_attention_decode(p, cfg, x, cache, index: int):
     """x: (B,1,D_in); cache k/v: (B,KH,S,hd); index: current position.
 
     Writes the new key and value into ``cache`` in place (the JAX version
-    returns an updated copy) and returns (out (B,1,D), cache).
+    returns an updated copy) and returns (out (B,1,D), cache). A cache of
+    DTensors (laid out by ``cache_specs``) is read and written on each
+    rank's block (``_decode_on_shards``).
     """
     B = x.shape[0]
     hd, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     dt = x.dtype
-    q, k, v = _qkv(p, cfg, x, 1)
+    q, k, v = _qkv(p, cfg, x, None)
     pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta)
+    if ctx.is_dtensor(cache["k"]):
+        o = _decode_on_shards(q, k, v, cache, index)
+        return o.to(dt) @ p["wo"].to(dt), cache
     k_c, v_c = cache["k"], cache["v"]
     k_c[:, :, index] = k[:, 0].to(k_c.dtype)
     v_c[:, :, index] = v[:, 0].to(v_c.dtype)
-    k_c = shard(k_c, "batch", "kv_heads", "kv_seq", None)
-    v_c = shard(v_c, "batch", "kv_heads", "kv_seq", None)
 
     G = H // KH
     qg = q.reshape(B, KH, G, hd)
@@ -154,6 +166,51 @@ def apply_attention_decode(p, cfg, x, cache, index: int):
     o = torch.einsum("bkgs,bksd->bkgd", w.to(v_c.dtype), v_c)
     o = o.reshape(B, 1, H * hd).to(dt)
     return o @ p["wo"].to(dt), cache
+
+
+def _decode_on_shards(q, k, v, cache, index: int):
+    """GQA decode on each rank's block of a cache of DTensors, whose batch,
+    KV heads and positions may each be sharded (``cache_specs``): the new key
+    and value go into the block that holds position ``index``, each rank
+    scores the positions of its block (global positions for the mask), and
+    the softmax over all of them is combined by a pmax of the maxima and
+    psums of the exponential sums and weighted values over the mesh axes
+    that shard the positions (the split-KV combine GSPMD derives for JAX's
+    einsums); with the positions whole on every rank it is the unsharded
+    path's softmax. The weights are normalised before they are rounded to
+    the cache's dtype, as the unsharded path rounds them. q (B,1,H,hd),
+    k and v (B,1,KH,hd) -> o (B,1,H*hd), sharded as the cache's batch and
+    KV heads."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    kc, vc = cache["k"], cache["v"]
+    mesh, pl = kc.device_mesh, tuple(kc.placements)
+    if tuple(vc.placements) != pl or any(not isinstance(a, (Shard, Replicate)) for a in pl):
+        raise ValueError(f"a decode cache of Shard/Replicate placements, got {pl}, "
+                         f"{vc.placements}")
+    # the token's rows by the cache's batch and heads, whole over its positions
+    tok = [Shard(0) if a == Shard(0) else Shard(2) if a == Shard(1) else Replicate()
+           for a in pl]
+    seq_axes = [n for n, a in zip(mesh.mesh_dim_names, pl) if a == Shard(2)]
+    (ql, kl, vl), _ = ops.enter_local([(t, tok, None) for t in (q, k, v)], tok)
+    kcl, vcl = kc.to_local(), vc.to_local()
+    rows = ctx.local_slices(kc.shape, mesh, pl)[2]
+    if rows.start <= index < rows.stop:
+        kcl[:, :, index - rows.start] = kl[:, 0].to(kcl.dtype)
+        vcl[:, :, index - rows.start] = vl[:, 0].to(vcl.dtype)
+    b, kh, _, hd = kcl.shape
+    s = torch.einsum("bkgd,bksd->bkgs", ql.reshape(b, kh, -1, hd).float(),
+                     kcl.float()) * hd ** -0.5
+    valid = torch.arange(rows.start, rows.stop, device=s.device) <= index
+    s = torch.where(valid, s, torch.full_like(s, NEG))
+    if not seq_axes:
+        w = torch.softmax(s, dim=-1)
+    else:
+        e = torch.exp(s - C.pmax_over(s.amax(dim=-1, keepdim=True), mesh, seq_axes))
+        w = e / C.psum_over(e.sum(dim=-1, keepdim=True), mesh, seq_axes)
+    o = torch.einsum("bkgs,bksd->bkgd", w.to(vcl.dtype), vcl)
+    if seq_axes:
+        o = C.psum_over(o.float(), mesh, seq_axes).to(vcl.dtype)
+    return DTensor.from_local(o.reshape(b, 1, -1), mesh, tok, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -178,12 +235,11 @@ def init_mla(gen: torch.Generator, cfg, dtype=torch.float32) -> nn.ParameterDict
 def _mla_qkv(p, cfg, x, positions):
     """(q_nope (B,S,H,nope), q_rope (B,S,H,rope), c_kv (B,S,kvr) normed,
     k_rope (B,S,1,rope)), RoPE applied."""
-    B, S, _ = x.shape
     H, kvr = cfg.num_heads, cfg.kv_lora_rank
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
     dt = x.dtype
     q = L.apply_rmsnorm(p["q_norm"], x @ p["wq_a"].to(dt), cfg.norm_eps)
-    q = (q @ p["wq_b"].to(dt)).reshape(B, S, H, nope + rope)
+    q = split_heads(q @ p["wq_b"].to(dt), H, "batch", "heads", "seq_q", None)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
     kv = x @ p["wkv_a"].to(dt)                           # (B,S,kvr+rope)
@@ -202,7 +258,7 @@ def apply_mla_full(p, cfg, x, positions):
     nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     dt = x.dtype
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
-    kv = (c_kv @ p["wkv_b"].to(dt)).reshape(B, S, H, nope + vd)
+    kv = split_heads(c_kv @ p["wkv_b"].to(dt), H, "batch", "heads", None, None)
     k = torch.cat([kv[..., :nope], k_rope.expand(B, S, H, rope)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     v = kv[..., nope:]                                   # a strided view, by head
@@ -211,7 +267,7 @@ def apply_mla_full(p, cfg, x, positions):
     v = shard(v.transpose(1, 2), "batch", "heads", None, None)
     out = ops.flash_attention(q, k, v, causal=True)
     out = out.transpose(1, 2).reshape(B, S, H * vd)
-    return out @ p["wo"].to(dt)
+    return shard(out, "batch", None, "heads") @ p["wo"].to(dt)
 
 
 def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

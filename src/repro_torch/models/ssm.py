@@ -151,6 +151,31 @@ def _conv_step(u1, conv_state, w):
     return out, window[:, 1:, :]
 
 
+def _state_step(state, xh, Bv, Cv, dt, decay, D_skip):
+    """The recurrence of one token: state (B,H,P,N) decayed and fed by
+    x B dt; y (B,H,P) = state C + D x."""
+    state = state * decay[:, :, None, None]
+    state = state + torch.einsum("bhp,bhn,bh->bhpn", xh, Bv, dt)
+    y = torch.einsum("bhpn,bhn->bhp", state, Cv)
+    return state, y + xh * D_skip[None, :, None]
+
+
+def _state_step_on_shards(state, xh, Bv, Cv, dt, decay, D_skip):
+    """``_state_step`` on each rank's heads and batch rows of a state laid
+    out by ``cache_specs`` (("batch", "ssm_heads", None, None)): every other
+    operand enters with the state's placements on its own batch and head
+    dims, the new state and y leave with them."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = list(state.placements)
+    if any(not (a == Shard(0) or a == Shard(1) or isinstance(a, Replicate)) for a in pl):
+        raise ValueError(f"an ssm state sharded by batch and heads, got {pl}")
+    heads = [Shard(0) if a == Shard(1) else Replicate() for a in pl]
+    local, out = ops.enter_local([(t, pl, None) for t in (state, xh, Bv, Cv, dt, decay)]
+                                 + [(D_skip, heads, None)], pl)
+    st, y = _state_step(*local)
+    return out(st), out(y)
+
+
 def apply_ssm_decode(p, cfg, x: torch.Tensor, cache):
     """x: (B,1,D); O(1)-state recurrent decode step. Returns (out, new cache)."""
     B = x.shape[0]
@@ -174,10 +199,11 @@ def apply_ssm_decode(p, cfg, x: torch.Tensor, cache):
 
     A = -torch.exp(p["A_log"].float())
     decay = torch.exp(dt * A[None, :])                               # (B,H)
-    state = cache["state"] * decay[:, :, None, None]
-    state = state + torch.einsum("bhp,bhn,bh->bhpn", xh, Bv, dt)
-    y = torch.einsum("bhpn,bhn->bhp", state, Cv)
-    y = y + xh * p["D_skip"][None, :, None]
+    args = (cache["state"], xh, Bv, Cv, dt, decay, p["D_skip"])
+    if ctx.is_dtensor(cache["state"]):
+        state, y = _state_step_on_shards(*args)
+    else:
+        state, y = _state_step(*args)
     y = y.reshape(B, 1, d_in).to(dt_)
     y = L.apply_rmsnorm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
     out = y @ p["out"].to(dt_)

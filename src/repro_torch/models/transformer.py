@@ -56,7 +56,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.sharding.ctx import shard
+from repro_torch.sharding.ctx import shard, split_heads
 
 
 def _check_family(cfg) -> None:
@@ -292,12 +292,13 @@ def _cross_attention(p, cfg, x, enc_out):
     Se = enc_out.shape[1]
     hd, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, Sq, H, hd)
-    k = (enc_out @ p["wk"].to(dt)).reshape(B, Se, KH, hd)
-    v = (enc_out @ p["wv"].to(dt)).reshape(B, Se, KH, hd)
+    q = split_heads(x @ p["wq"].to(dt), H, "batch", "heads", None, None)
+    k = split_heads(enc_out @ p["wk"].to(dt), KH, "batch", "heads", None, None)
+    v = split_heads(enc_out @ p["wv"].to(dt), KH, "batch", "heads", None, None)
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               causal=False)
-    return out.transpose(1, 2).reshape(B, Sq, H * hd) @ p["wo"].to(dt)
+    out = out.transpose(1, 2).reshape(B, Sq, H * hd)
+    return shard(out, "batch", None, "heads") @ p["wo"].to(dt)
 
 
 def _decoder_body(cfg, lp, h, positions, enc_out):

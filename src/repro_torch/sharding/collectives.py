@@ -207,6 +207,21 @@ def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return out
 
 
+def psum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``psum`` over each mesh axis of ``axes`` in turn: the sum over their
+    product group."""
+    for a in axes:
+        x = psum(x, mesh, a)
+    return x
+
+
+def pmax_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``pmax`` over each mesh axis of ``axes`` in turn."""
+    for a in axes:
+        x = pmax(x, mesh, a)
+    return x
+
+
 def ppermute(x: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor:
     """Ring shift: rank i sends to rank (i + shift) mod n of ``axis``."""
     return _Ppermute.apply(x, group(mesh, axis), shift)

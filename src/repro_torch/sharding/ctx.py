@@ -172,3 +172,22 @@ def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
         return x
     spec = logical_to_spec(logical_axes, x.shape, mesh, rules)
     return x.redistribute(mesh, to_placements(spec, mesh))
+
+
+def split_heads(x: torch.Tensor, heads: int, *logical_axes: Optional[str]) -> torch.Tensor:
+    """``x`` (B, S, heads * hd) viewed as (B, S, heads, hd), laid out for
+    ``shard(view.transpose(1, 2), *logical_axes)`` (the names of the (B,
+    heads, S, hd) layout). DTensor cannot split a dim that is sharded over
+    more shards than ``heads`` divides, so under a mesh ``x`` first takes
+    that layout on its own dims: where ``heads`` falls back to no axis, its
+    last dim gives the model axis up (to the sequence, or to no dim). Where
+    the heads keep the axes ``x``'s last dim has, nothing moves."""
+    B, S, F = x.shape
+    mesh, rules = axis_ctx()
+    if mesh is not None and is_dtensor(x):
+        spec = logical_to_spec(logical_axes, (B, heads, S, F // heads), mesh, rules)
+        spec = tuple(spec) + (None,) * (4 - len(spec))
+        if spec[3] is not None:
+            raise ValueError(f"split_heads shards whole heads only, got {logical_axes}")
+        x = x.redistribute(mesh, to_placements((spec[0], spec[2], spec[1]), mesh))
+    return x.reshape(B, S, heads, F // heads)

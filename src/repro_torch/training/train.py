@@ -42,15 +42,45 @@ from repro_torch.training import optimizer as O
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """logits: (B,S,V) fp32 over the padded vocab; targets: (B,S) int.
-    The mean of logsumexp minus the target's logit."""
-    if ctx.is_dtensor(logits):                    # the vocab whole, rows sharded
-        from torch.distributed.tensor import Replicate
-        logits = logits.redistribute(logits.device_mesh, [
-            p if p.is_shard(0) else Replicate() for p in logits.placements])
+    The mean of logsumexp minus the target's logit. A DTensor of logits is
+    read on each rank's own block (``_cross_entropy_on_shards``)."""
+    if ctx.is_dtensor(logits):
+        return _cross_entropy_on_shards(logits, targets)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, targets[..., None].long())[..., 0]
     return (lse - picked).mean()
+
+
+def _cross_entropy_on_shards(logits, targets):
+    """``cross_entropy`` on each rank's block of the logits, rows (batch,
+    sequence) and a vocab shard, as GSPMD partitions JAX's where-over-iota
+    loss: the lse is the pmax of the local maxima over the axes that shard
+    the vocab plus the log of the psum of the local exponential sums; the
+    picked logit is the local masked gather of the targets that fall in this
+    rank's vocab range, psummed over those axes; the sum over rows is
+    psummed over the axes that shard them. Nothing of the global logits'
+    shape is made: the local block enters as the kernels' inputs do
+    (``ops.enter_local``), so its gradient leaves as a DTensor with the
+    logits' own placements. Returns the mean as a replicated DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.sharding import collectives as C
+    mesh = logits.device_mesh
+    # a Partial is summed first
+    pl = [a if isinstance(a, Shard) else Replicate() for a in logits.placements]
+    vocab = [n for n, a in zip(mesh.mesh_dim_names, pl) if a == Shard(2)]
+    rows = [n for n, a in zip(mesh.mesh_dim_names, pl) if a in (Shard(0), Shard(1))]
+    tpl = [a if a in (Shard(0), Shard(1)) else Replicate() for a in pl]
+    (x, t), _ = ops.enter_local([(logits, pl, None), (targets, tpl, None)], pl)
+    x = x.float()
+    m = C.pmax_over(x.detach().amax(dim=-1), mesh, vocab)
+    lse = m + torch.log(C.psum_over(torch.exp(x - m[..., None]).sum(dim=-1), mesh, vocab))
+    t = t.long() - ctx.local_slices(logits.shape, mesh, pl)[2].start
+    inside = (t >= 0) & (t < x.shape[-1])
+    picked = x.gather(-1, t.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+    picked = C.psum_over(torch.where(inside, picked, torch.zeros_like(picked)), mesh, vocab)
+    loss = C.psum_over((lse - picked).sum(), mesh, rows) / (logits.shape[0] * logits.shape[1])
+    return DTensor.from_local(loss, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 # The batch entries the modality stubs feed, by family.
@@ -103,6 +133,17 @@ def _replace_param(params, name: str, value: torch.Tensor) -> None:
     mod[key] = torch.nn.Parameter(value, requires_grad=True)
 
 
+def place_params(params, cfg, mesh, rules, strategy: str = "baseline"):
+    """``params`` (full on every rank) as DTensors placed by
+    ``param_specs``, each rank keeping its block, in place; returns them."""
+    named = list(params.named_parameters())
+    pl = R.port_placements(named, R.param_specs(R.stacked_shapes(named), mesh, rules, cfg,
+                                                strategy), mesh)
+    for name, p in named:
+        _replace_param(params, name, ctx.place(p.detach(), mesh, pl[name]))
+    return params
+
+
 def place_train_state(state: Dict[str, Any], cfg, tcfg, mesh, rules,
                       strategy: str = "baseline") -> Dict[str, Any]:
     """The params and moments of ``state`` (full on every rank) as DTensors
@@ -110,9 +151,7 @@ def place_train_state(state: Dict[str, Any], cfg, tcfg, mesh, rules,
     block; ``count`` and ``step`` stay replicated plain tensors."""
     named = list(state["params"].named_parameters())
     shapes = R.stacked_shapes(named)
-    pl = R.port_placements(named, R.param_specs(shapes, mesh, rules, cfg, strategy), mesh)
-    for name, p in named:
-        _replace_param(state["params"], name, ctx.place(p.detach(), mesh, pl[name]))
+    place_params(state["params"], cfg, mesh, rules, strategy)
     opt = state["opt"]
     if tcfg.optimizer == "adamw":
         specs = R.opt_state_specs({f"{m}/{path}": shape for m in ("mu", "nu")

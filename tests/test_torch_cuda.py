@@ -166,8 +166,7 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         ops.flash_attention(qb, qb, qb)
     # the ssd_scan backward takes what the forward takes (P and N up to 128)
     # and a final-state gradient of the state's shape; the flash backward
-    # takes D != Dv up to 128 only (MLA's 192/128 waits), the rmsnorm
-    # backward dy in x's dtype
+    # head dims up to 256, the rmsnorm backward dy in x's dtype
     x = torch.zeros(1, 64, 2, 16, device=cuda)
     dA = torch.zeros(1, 64, 2, device=cuda)
     bc = torch.zeros(1, 64, 1, 16, device=cuda)
@@ -184,9 +183,9 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         ssd.ssd_scan_bwd_cuda(xw, dA, bc, bc, 64, cum, states, st, torch.zeros_like(xw), None)
     with pytest.raises(ValueError, match="N <= 128"):   # under autograd, before any launch
         ops.ssd_scan(x.requires_grad_(True), dA, wide, wide)
-    qw = torch.zeros(1, 2, 8, 192, device=cuda, requires_grad=True)
-    with pytest.raises(ValueError, match="slice"):
-        ops.flash_attention(qw, qw, qw[..., :128])
+    qw = torch.zeros(1, 2, 8, 272, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="up to 256"):
+        ops.flash_attention(qw[..., :192], qw[..., :192], qw)
     with pytest.raises(TypeError):
         rn.rmsnorm_bwd_cuda(torch.zeros(4, 16, device=cuda), torch.ones(16, device=cuda),
                             torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16))
@@ -286,6 +285,30 @@ def test_flash_attention_prefix_kernel(cuda, B, H, KH, Sq, Sk, D, prefix, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_widths_bwd_under_a_prefix(cuda, dtype):
+    """MLA's D 192, Dv 128 under the prefix-LM mask, forward and backward
+    against the plain versions on the card, the backward's bits equal run
+    to run."""
+    gen = torch.Generator(device=cuda).manual_seed(192)
+    B, H, S, D, Dv, p = 1, 4, 300, 192, 128, 100
+    q = _randn(gen, (B, S, H, D), dtype, cuda).transpose(1, 2)
+    k = _randn(gen, (B, S, H, D), dtype, cuda).transpose(1, 2)
+    v = _randn(gen, (B, S, H, Dv), dtype, cuda).transpose(1, 2)
+    do = _randn(gen, (B, S, H * Dv), dtype, cuda).view(B, S, H, Dv).transpose(1, 2)
+    o, lse = fa.flash_attention_cuda(q, k, v, True, return_lse=True, prefix_len=p)
+    o_plain, lse_plain = ops.flash_attention_plain(q, k, v, return_lse=True, prefix_len=p)
+    torch.testing.assert_close(o.float(), o_plain.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, lse_plain, atol=1e-3, rtol=1e-4)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, p)
+    want = ref.reference_attention_bwd(q, k, v, o, lse, do, prefix_len=p)
+    for got, w in zip(grads, want):
+        torch.testing.assert_close(got.float(), w.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert fa.BWD_ROUTE == fa.plan_bwd(q, k, v, p)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, True, p)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_prefix_zero_and_past_sk_give_the_plain_masks_bits(cuda, dtype):
     """prefix 0 launches give the causal kernel's bits, a prefix of Sk or
     more the non-causal kernel's, forward (o and lse) and backward."""
@@ -305,8 +328,8 @@ def test_prefix_zero_and_past_sk_give_the_plain_masks_bits(cuda, dtype):
 
 def test_prefix_autograd_launches_and_refuses_wide_heads(cuda):
     """Under autograd a prefix call launches both kernels once, at head dim
-    64 and at paligemma's 256; at MLA's 192/128 it raises before any
-    launch: no fallback to the plain backward."""
+    64, at paligemma's 256 and at MLA's 192/128 (the width-256 tile); past
+    256 it raises before any launch: no fallback to the plain backward."""
     gen = torch.Generator(device=cuda).manual_seed(12)
     q = _randn(gen, (1, 4, 120, 64), torch.bfloat16, cuda).requires_grad_(True)
     before = dict(ops.LAUNCHES)
@@ -319,11 +342,17 @@ def test_prefix_autograd_launches_and_refuses_wide_heads(cuda):
     ops.flash_attention(wide, kv, kv, prefix_len=8).sum().backward()
     assert ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
     assert fa.BWD_ROUTE == ("tensor_cores", (256, 32))
-    mla_q = torch.zeros(1, 8, 64, 192, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    mla_v = torch.zeros(1, 8, 64, 128, device=cuda, dtype=torch.bfloat16)
+    mla_q = _randn(gen, (1, 8, 64, 192), torch.bfloat16, cuda).requires_grad_(True)
+    mla_v = _randn(gen, (1, 8, 64, 128), torch.bfloat16, cuda)
     before = dict(ops.LAUNCHES)
-    with pytest.raises(ValueError, match="queue 2"):
-        ops.flash_attention(mla_q, mla_q.detach(), mla_v, prefix_len=8)
+    ops.flash_attention(mla_q, mla_q.detach(), mla_v, prefix_len=8).sum().backward()
+    assert ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert fa.BWD_ROUTE == ("tensor_cores", (256, 32))
+    past = torch.zeros(1, 8, 64, 272, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="up to 256") as refused:
+        ops.flash_attention(past, past.detach(), mla_v, prefix_len=8)
+    assert "queue" not in str(refused.value)
     assert ops.LAUNCHES == before
 
 
@@ -399,7 +428,11 @@ FLASH_BWD_CASES = [
     (1, 8, 1, 300, 300, 256, 256, True),      # paligemma's MQA, ragged
     (1, 2, 2, 129, 200, 256, 256, False),     # Sk > Sq, non-causal
     (2, 2, 1, 65, 65, 256, 256, True),        # one key past a 64-key block
-    (1, 2, 2, 100, 100, 160, 160, True)]      # 160 padded to width 256
+    (1, 2, 2, 100, 100, 160, 160, True),      # 160 padded to width 256
+    # MLA's 192/128 on the width-256 tile, Q/K and V/dO zero-padded
+    (1, 8, 8, 300, 300, 192, 128, True),      # ragged, causal
+    (1, 2, 2, 129, 200, 192, 128, False),     # Sk > Sq, non-causal
+    (2, 4, 4, 65, 65, 192, 128, True)]        # one key past a 64-key block
 
 
 @pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv,causal", FLASH_BWD_CASES)

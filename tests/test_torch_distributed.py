@@ -10,9 +10,15 @@ one launch of 4 gloo ranks then runs every port check on those inputs:
   of ``sum(sin(y)) + aux`` against ``jax.grad`` of JAX's sharded path;
 - 3 train steps at (2,2): reduced stablelm under baseline, dp_zero1 and
   pure_fsdp, reduced olmoe (capacity factor E/k) under baseline, moe_a2a and
-  moe_rs, reduced mamba2 under baseline (AdamW), and stablelm under
-  pure_fsdp with Adafactor, losses and grad norms against JAX's sharded
-  run and the port's unsharded one;
+  moe_rs, reduced mamba2 under baseline (AdamW), stablelm under pure_fsdp
+  with Adafactor, and stablelm cut to 3 heads on 1 KV head (heads the model
+  axis does not divide), losses and grad norms against JAX's sharded run
+  and the port's unsharded one; the loss's gradient of the logits leaves
+  each rank in its own block's shape;
+- greedy decode at (2,2) with the caches laid out by ``cache_specs``
+  (reduced stablelm under baseline and, its positions sharded, dp_zero1;
+  olmoe under dp_zero1; mamba2 under baseline), fp32 logits and tokens
+  against JAX's sharded decode and the port's unsharded one;
 - the int8 compressed mean at 4 ranks and its wire bytes against a plain
   fp32 reduce, and ``make_compressed_grad_fn`` against the exact mean of
   the ranks' gradients;
@@ -43,12 +49,29 @@ TRAIN_CASES = [("stablelm-1.6b", "baseline", "adamw"), ("stablelm-1.6b", "dp_zer
                ("stablelm-1.6b", "pure_fsdp", "adamw"), ("olmoe-1b-7b", "baseline", "adamw"),
                ("olmoe-1b-7b", "moe_a2a", "adamw"), ("olmoe-1b-7b", "moe_rs", "adamw"),
                ("mamba2-370m", "baseline", "adamw"),
-               ("stablelm-1.6b", "pure_fsdp", "adafactor")]
+               ("stablelm-1.6b", "pure_fsdp", "adafactor"),
+               ("stablelm-3-heads", "baseline", "adamw")]
+# a test arch -> (registry arch, overrides of its reduced config)
+VARIANTS = {"stablelm-3-heads": ("stablelm-1.6b", {"num_heads": 3, "num_kv_heads": 1})}
+# (arch, strategy, batch): dp_zero1 shards the cache's positions over
+# "model" (over both axes at batch 1), baseline its KV or ssm heads
+DECODE_CASES = [("stablelm-1.6b", "baseline", 2), ("stablelm-1.6b", "dp_zero1", 1),
+                ("olmoe-1b-7b", "dp_zero1", 2), ("mamba2-370m", "baseline", 2)]
+DEC_LEN, DEC_PROMPT = 16, 4
 MOE_CASES = {"ep": ("baseline", None, (2, 16)), "rs": ("moe_rs", None, (2, 16)),
              "a2a": ("moe_a2a", 4.0, (4, 16))}
 EP_RULES = {"batch": ("data",), "expert": "model"}
 STEPS, BATCH, SEQ = 3, 4, 16
 PIPE = dict(S=4, M=8, mb=2, D=16)
+
+
+def _variant(arch):
+    return VARIANTS.get(arch, (arch, {}))
+
+
+def _prompt(arch, strategy, batch, vocab):
+    rng = np.random.default_rng(len(arch) + len(strategy) + batch)
+    return rng.integers(0, vocab, (batch, DEC_PROMPT)).astype(np.int32)
 
 
 def _batches(vocab):
@@ -77,8 +100,8 @@ def jax_main(inputs_path, out_path):
     from repro.sharding.compat import shard_map
     from repro.sharding.ctx import use_mesh
     from repro.sharding.pipeline_parallel import pipeline_apply
-    from repro.sharding.rules import (batch_specs, opt_state_specs, param_specs,
-                                      rules_for, to_named)
+    from repro.sharding.rules import (batch_specs, cache_specs, opt_state_specs,
+                                      param_specs, rules_for, to_named)
     from repro.training import train as TR
     from repro.training.compression import compressed_psum_mean
 
@@ -95,8 +118,10 @@ def jax_main(inputs_path, out_path):
                                                           compute_dtype="float32")
 
     def train_cfgs(arch, optimizer):
-        spec = get_arch(arch)
-        cfg = reduced(spec.model).replace(param_dtype="float32", compute_dtype="float32")
+        base_arch, overrides = _variant(arch)
+        spec = get_arch(base_arch)
+        cfg = reduced(spec.model).replace(param_dtype="float32", compute_dtype="float32",
+                                          **overrides)
         if cfg.num_experts:
             cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.experts_per_token)
         return cfg, spec.train.__class__(optimizer=optimizer, learning_rate=1e-3,
@@ -138,7 +163,7 @@ def jax_main(inputs_path, out_path):
 
     for arch, strategy, opt in TRAIN_CASES:
         cfg, tcfg = train_cfgs(arch, opt)
-        rules = rules_for(arch, strategy)
+        rules = rules_for(_variant(arch)[0], strategy)
         with use_mesh(mesh22, rules, strategy):
             state = TR.init_train_state(cfg, tcfg, key)
             sh = {"params": to_named(param_specs(state["params"], mesh22, rules, cfg,
@@ -155,6 +180,32 @@ def jax_main(inputs_path, out_path):
                 state, m = step(state, b)
                 curve.append((float(m["loss"]), float(m["grad_norm"])))
         out[f"train/{arch}/{strategy}/{opt}"] = np.asarray(curve)
+
+    from repro.models import transformer as T
+    for arch, strategy, batch in DECODE_CASES:
+        cfg, tcfg = train_cfgs(arch, "adamw")
+        rules = rules_for(arch, strategy)
+        prompt = _prompt(arch, strategy, batch, cfg.vocab_size)
+        with use_mesh(mesh22, rules, strategy):
+            params = TR.init_train_state(cfg, tcfg, key)["params"]
+            caches = T.init_caches(cfg, batch, DEC_LEN, jnp.float32)
+            p_sh = to_named(param_specs(params, mesh22, rules, cfg, strategy), mesh22)
+            c_sh = to_named(cache_specs(caches, mesh22, rules), mesh22)
+            t_sh = to_named(batch_specs({"token": prompt[:, :1]}, mesh22, rules),
+                            mesh22)["token"]
+            step = jax.jit(lambda p, c, t, i: T.apply_lm_decode(p, cfg, t, c, i),
+                           in_shardings=(p_sh, c_sh, t_sh, NamedSharding(mesh22, P())),
+                           out_shardings=(None, c_sh))
+            params, caches = jax.device_put(params, p_sh), jax.device_put(caches, c_sh)
+            logits, tokens, tok = [], [], prompt[:, :1]
+            for i in range(DEC_LEN):
+                lg, caches = step(params, caches, jnp.asarray(tok), jnp.int32(i))
+                logits.append(np.asarray(lg[:, -1]))
+                nxt = np.asarray(jnp.argmax(lg[:, -1], axis=-1)).astype(np.int32)[:, None]
+                tok = prompt[:, i + 1:i + 2] if i + 1 < DEC_PROMPT else nxt
+                tokens.append(tok[:, 0])
+        out[f"dec/{arch}/{strategy}/logits"] = np.stack(logits, 1)
+        out[f"dec/{arch}/{strategy}/tokens"] = np.stack(tokens, 1)
 
     mesh4 = make_mesh((WORLD,), ("data",))
     red = shard_map(lambda gl: compressed_psum_mean(gl[0], "data")[None], mesh=mesh4,
@@ -201,6 +252,8 @@ def _rank(rank, rdzv, out_dir, ref_path):
     mesh22 = make_mesh((2, 2), ("data", "model"), device_type="cpu")
     _moe_checks(ref, mesh22, res)
     _train_checks(ref, mesh22, res)
+    _logits_grad_checks(ref, mesh22, res)
+    _decode_checks(ref, mesh22, res)
     _compression_checks(ref, res)
     _pipeline_checks(ref, res)
     _elastic_checks(ref, mesh22, res, out_dir)
@@ -260,7 +313,9 @@ def _moe_checks(ref, mesh, res):
 def _train_cfgs(arch, optimizer="adamw"):
     import dataclasses
     from repro_torch.launch.train import configs
-    cfg, tcfg = configs(arch, full=False)
+    base_arch, overrides = _variant(arch)
+    cfg, tcfg = configs(base_arch, full=False)
+    cfg = cfg.replace(**overrides)
     if cfg.num_experts:
         cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.experts_per_token)
     return cfg, dataclasses.replace(tcfg, optimizer=optimizer)
@@ -290,10 +345,79 @@ def _train_checks(ref, mesh, res):
     from repro_torch.sharding import ctx
     from repro_torch.sharding.rules import rules_for
     for arch, strategy, opt in TRAIN_CASES:
-        rules = rules_for(arch, strategy)
+        rules = rules_for(_variant(arch)[0], strategy)
         with ctx.use_mesh(mesh, rules, strategy):
             res[f"train/{arch}/{strategy}/{opt}"] = _curve(arch, opt, ref, mesh, rules,
                                                            strategy)[0]
+
+
+def _logits_grad_checks(ref, mesh, res):
+    """The loss's gradient of the logits on each rank: a DTensor of the
+    logits' placements whose local block has the local logits' shape."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import bridge
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.rules import rules_for
+    from repro_torch.training import train as TR
+    arch = "stablelm-1.6b"
+    cfg, tcfg = _train_cfgs(arch)
+    rules = rules_for(arch)
+    state = bridge.state_from_jax(_subtree(ref, f"init/{arch}/adamw"), cfg, device="cpu")
+    state = TR.place_train_state(state, cfg, tcfg, mesh, rules)
+    b = {k: torch.from_numpy(v).long() for k, v in _batches(cfg.vocab_size)[0].items()}
+    b = TR.place_batch(b, mesh, rules)
+    with ctx.use_mesh(mesh, rules), implicit_replication():
+        logits, _ = T.apply_lm(state["params"], cfg, b["tokens"])
+        (g,) = torch.autograd.grad(TR.cross_entropy(logits, b["targets"]), [logits])
+    res["ce/placements"] = tuple(tuple(map(repr, t.placements)) for t in (logits, g))
+    res["ce/shapes"] = (tuple(g.to_local().shape), tuple(logits.to_local().shape),
+                        tuple(logits.shape))
+
+
+def _decode_checks(ref, mesh, res):
+    """Greedy decode from JAX's initial params, unsharded and at (2,2) with
+    the caches laid out by ``cache_specs``: each step's fp32 logits, and the
+    tokens fed on (the prompt's, then the greedy ones)."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import bridge
+    from repro_torch.launch.dryrun import place_caches
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.rules import rules_for
+    from repro_torch.training import train as TR
+    for arch, strategy, batch in DECODE_CASES:
+        cfg, tcfg = _train_cfgs(arch)
+        rules = rules_for(arch, strategy)
+        prompt = torch.from_numpy(_prompt(arch, strategy, batch, cfg.vocab_size)).long()
+        for name in ("plain", "mesh"):
+            state = bridge.state_from_jax(_subtree(ref, f"init/{arch}/adamw"), cfg,
+                                          device="cpu")
+            caches = T.init_caches(cfg, batch, DEC_LEN, torch.float32, device="cpu")
+            def use():
+                return ctx.use_mesh(mesh, rules, strategy)
+            if name == "mesh":
+                state = TR.place_train_state(state, cfg, tcfg, mesh, rules, strategy)
+                with use():
+                    caches = place_caches(caches, mesh, rules)
+            params = state["params"].requires_grad_(False)
+            logits, tokens, tok = [], [], prompt[:, :1]
+            with torch.no_grad():
+                for i in range(DEC_LEN):
+                    if name == "mesh":
+                        with use(), implicit_replication():
+                            lg, _ = T.apply_lm_decode(params, cfg, tok, caches, i)
+                        lg = lg.full_tensor()
+                    else:
+                        lg, _ = T.apply_lm_decode(params, cfg, tok, caches, i)
+                    logits.append(lg[:, -1])
+                    tok = (prompt[:, i + 1:i + 2] if i + 1 < DEC_PROMPT
+                           else lg[:, -1].argmax(-1, keepdim=True))
+                    tokens.append(tok[:, 0])
+            res[f"dec/{arch}/{strategy}/{name}"] = (torch.stack(logits, 1),
+                                                     torch.stack(tokens, 1))
 
 
 def _compression_checks(ref, res):
@@ -479,6 +603,37 @@ def test_sharded_train_steps_match_jax_and_unsharded(results, arch, strategy, op
     # moe_rs rounds the expert outputs' partial sums to bf16
     tol = 2e-3 if strategy == "moe_rs" else 1e-5
     assert np.all(np.abs(got - plain) <= tol * np.abs(plain)), (got, plain)
+
+
+def test_loss_gradient_stays_in_each_ranks_logits_block(results):
+    """The loss reads each rank's block of the logits (rows over data,
+    vocab over model) and its gradient leaves in the same placements, the
+    local block's shape, never the global logits'."""
+    port = results[1]
+    placed, grad = port["ce/placements"]
+    assert placed == grad and any("Shard(dim=2)" in p for p in placed), port["ce/placements"]
+    local_grad, local, whole = port["ce/shapes"]
+    assert local_grad == local and local != whole
+    assert local[0] * 2 == whole[0] and local[2] * 2 == whole[2]
+
+
+@pytest.mark.parametrize("arch,strategy,batch", DECODE_CASES)
+def test_sharded_decode_matches_jax_and_unsharded(results, arch, strategy, batch):
+    """Decode over caches laid out by ``cache_specs`` at (2,2), past the
+    shard boundaries of the positions where they are sharded: fp32 logits
+    within 1e-4 of JAX's sharded decode and of the port's unsharded one,
+    greedy tokens equal."""
+    ref, port = results[:2]
+    want_logits = ref[f"dec/{arch}/{strategy}/logits"]
+    want_tokens = ref[f"dec/{arch}/{strategy}/tokens"]
+    (logits, tokens), (plain, plain_tokens) = (port[f"dec/{arch}/{strategy}/{n}"]
+                                               for n in ("mesh", "plain"))
+    assert logits.shape == want_logits.shape == (batch, DEC_LEN, want_logits.shape[-1])
+    assert np.isfinite(logits.numpy()).all()
+    assert float(np.max(np.abs(logits.numpy() - want_logits))) < 1e-4
+    assert float((logits - plain).abs().max()) < 1e-4
+    assert np.array_equal(tokens.numpy(), want_tokens)
+    assert np.array_equal(tokens.numpy(), plain_tokens.numpy())
 
 
 def test_compressed_mean_matches_jax_and_moves_fewer_bytes(results):

@@ -3,8 +3,11 @@ and the two benchmark twins (``scripts/roofline_report_torch.py``,
 ``scripts/bench_autotune_torch.py``) against the JAX package's: the input
 and cache shapes of every cell, the argument bytes per device that JAX's
 specs imply on ``jax.eval_shape`` trees (no compile), a full-width cell
-traced end to end on a fake 256-rank group, the card's refusal recorded for
-deepseek's MLA heads, and the twins' output on the same inputs."""
+traced end to end on a fake 256-rank group (its memory without the global
+logits), the cells that stopped before the port's loss, heads and decode
+repairs and its backward at MLA's 192/128 (uneven heads, decode over
+sharded caches, deepseek's training), and the twins' output on the same
+inputs."""
 import functools
 import importlib.util
 import json
@@ -26,7 +29,9 @@ from repro_torch import bridge, configs
 from repro_torch.configs.base import SHAPES_BY_NAME
 from repro_torch.launch import dryrun, specs
 from repro_torch.roofline.analysis import StepCounter
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.sharding import rules as R
+from repro_torch.training import train as TR
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = list(configs.ARCHS)
@@ -134,7 +139,10 @@ def test_argument_bytes_equal_jax_specs(arch):
 
 def test_a_full_width_cell_end_to_end(tmp_path):
     """stablelm-1.6b x train_4k from the command line: an "ok" record with
-    JAX's keys, the argument bytes JAX's specs give, every kernel planned."""
+    JAX's keys, the argument bytes JAX's specs give, every kernel planned,
+    and a device's memory below 57 GiB: the loss reads each rank's block of
+    the (256, 4096, 100352) fp32 logits, whose gradient replicated alone
+    took 392 GiB a device (449.06 GiB in all)."""
     dryrun.main(["--arch", "stablelm-1.6b", "--shape", "train_4k", "--out", str(tmp_path)])
     rec = json.loads((tmp_path / "pod16x16" / "stablelm-1.6b" / "train_4k.json").read_text())
     assert rec["status"] == "ok" and rec["chips"] == 256
@@ -142,6 +150,7 @@ def test_a_full_width_cell_end_to_end(tmp_path):
     assert mem["argument_bytes"] == _jax_argument_bytes("stablelm-1.6b")
     assert mem["total_per_device_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
                                              + mem["temp_bytes"] - mem["alias_bytes"])
+    assert mem["total_per_device_bytes"] < 57 * 2**30
     r = rec["roofline"]
     assert r["model_flops_total"] == 6.0 * configs.get_arch(
         "stablelm-1.6b").model.param_counts()["active"] * 4096 * 256
@@ -153,14 +162,39 @@ def test_a_full_width_cell_end_to_end(tmp_path):
 
 
 def test_deepseek_train_records_the_mla_refusal(tmp_path):
-    """MLA's 192/128 heads: the flash backward's plan refuses them as on the
-    card, before any launch, and the record says so."""
+    """MLA's 192/128 heads train: the flash backward plans them at the
+    width-256 tile, as on the card, and the full-width cell, which recorded
+    that plan's refusal before the backward took 192/128, now traces to an
+    "ok" record with every kernel call of a train step."""
+    mla_q = torch.zeros(1, 128, 16, 192, dtype=torch.bfloat16)
+    mla_v = torch.zeros(1, 128, 16, 128, dtype=torch.bfloat16)
+    assert fa.plan_bwd(mla_q, mla_q, mla_v) == ("tensor_cores", (256, 32))
     rec = dryrun.run_cell("deepseek-v3-671b", "train_4k", out_dir=tmp_path,
                           cell=_train_cell("deepseek-v3-671b"), verbose=False)
-    assert rec["status"] == "error"
-    assert "D 192, Dv 128" in rec["error"] and "queue 2" in rec["error"]
+    assert rec["status"] == "ok", rec.get("error")
+    spec = configs.get_arch("deepseek-v3-671b")
+    assert rec["kernel_calls"] == sum(
+        TR.kernel_launches_per_step(spec.model, spec.train.remat).values())
     path = tmp_path / "pod16x16" / "deepseek-v3-671b" / "train_4k.json"
-    assert json.loads(path.read_text())["status"] == "error"
+    assert json.loads(path.read_text())["status"] == "ok"
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("paligemma-3b", "train_4k"),      # 8 heads on a model axis of 16
+    ("stablelm-1.6b", "decode_32k")])  # decode over caches laid out by cache_specs
+def test_cells_past_the_uneven_heads_and_the_sharded_cache(tmp_path, arch, shape):
+    """Two cells that stopped in DTensor's propagation (the (B, S, 8 x 256)
+    projection viewed as heads over 16 shards; the decode's products over
+    the sharded cache) record "ok", every kernel of the step planned."""
+    rec = dryrun.run_cell(arch, shape, out_dir=tmp_path, verbose=False)
+    assert rec["status"] == "ok", rec.get("error")
+    cfg = configs.get_arch(arch).model
+    if shape == "train_4k":
+        want = TR.kernel_launches_per_step(cfg, configs.get_arch(arch).train.remat)
+        assert rec["kernel_calls"] == sum(want.values())
+    else:                                     # one rmsnorm a norm, no flash in decode
+        assert rec["kernel_calls"] == 2 * cfg.num_layers + 1
+    assert rec["memory_analysis"]["total_per_device_bytes"] > 0
 
 
 def _records(out: Path):

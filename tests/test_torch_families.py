@@ -271,16 +271,22 @@ def test_masked_bwd_tiling_prefix_zero_is_the_causal_tiling():
 
 
 def test_plan_bwd_names_the_wide_head_queue_item():
-    """paligemma's head dim 256 trains: the backward plans it at the
-    width-256 tile, on any device. MLA's 192/128 stays queued: its refusal
-    names the queue item, before any launch."""
+    """paligemma's head dim 256 and MLA's 192/128 train: the backward plans
+    both at the width-256 tile, on any device, and the forward MLA's at its
+    own (192, 128) tile. Past 256 the refusal comes before any launch and
+    names no queue item."""
     q = torch.zeros(1, 8, 16, 256, dtype=torch.bfloat16)
     k = torch.zeros(1, 1, 16, 256, dtype=torch.bfloat16)
     assert fa.plan_bwd(q, k, k, 8) == ("tensor_cores", (256, 32))
     assert fa.plan(q, k, k, 8) == ("tensor_cores", (256, 256))
     mla_q = torch.zeros(1, 8, 16, 192, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="192/128.*queue 2"):
-        fa.plan_bwd(mla_q, mla_q, torch.zeros(1, 8, 16, 128, dtype=torch.bfloat16))
+    mla_v = torch.zeros(1, 8, 16, 128, dtype=torch.bfloat16)
+    assert fa.plan_bwd(mla_q, mla_q, mla_v) == ("tensor_cores", (256, 32))
+    assert fa.plan(mla_q, mla_q, mla_v) == ("tensor_cores", (192, 128))
+    past = torch.zeros(1, 8, 16, 288, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 256") as refused:
+        fa.plan_bwd(past, past, mla_v)
+    assert "queue" not in str(refused.value)
 
 
 # ---------------------------------------------------------------------------

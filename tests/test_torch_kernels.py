@@ -319,10 +319,16 @@ def test_ops_rmsnorm_autograd_matches_jax():
 
 
 def test_flash_plan_bwd_refuses_wide_heads():
+    """MLA's 192/128 is taken on both routes (bf16 on the width-256 tile);
+    past 256 the plan refuses before any launch, naming the limit alone."""
     q = torch.zeros(1, 2, 8, 192)
     v = torch.zeros(1, 2, 8, 128)
-    with pytest.raises(ValueError, match="later|slice"):
-        fa.plan_bwd(q, q, v)
+    assert fa.plan_bwd(q, q, v) == ("cuda_cores", None)
+    assert fa.plan_bwd(q.bfloat16(), q.bfloat16(), v.bfloat16()) == ("tensor_cores", (256, 32))
+    wide = torch.zeros(1, 2, 8, 272)
+    with pytest.raises(ValueError, match="up to 256") as refused:
+        fa.plan_bwd(q, q, wide)
+    assert "queue" not in str(refused.value) and "slice" not in str(refused.value)
     fa.plan_bwd(q[..., :128], q[..., :128], v)     # D 128 is taken
     with pytest.raises(TypeError):
         fa.plan_bwd(q.half()[..., :64], q.half()[..., :64], v.half()[..., :64])
@@ -392,7 +398,8 @@ def test_flash_bwd_tiling_no_valid_key_is_zero():
 @pytest.mark.parametrize("D,Dv,want", [(64, 64, (64, 64)), (16, 16, (64, 64)),
                                        (64, 128, (128, 32)), (128, 128, (128, 32)),
                                        (80, 48, (128, 32)), (256, 256, (256, 32)),
-                                       (160, 160, (256, 32))])
+                                       (160, 160, (256, 32)), (192, 128, (256, 32)),
+                                       (256, 128, (256, 32))])
 def test_flash_bwd_tile_choice(D, Dv, want):
     assert fa.bwd_tile(D, Dv) == want
     q = torch.zeros(1, 2, 8, D, dtype=torch.bfloat16)
@@ -564,11 +571,11 @@ def test_ssd_plan_bwd_terms_and_refusals():
 
 
 @pytest.mark.parametrize("D,Dv,match", [(272, 272, "up to 256"), (256, 272, "up to 256"),
-                                        (192, 128, "queue 2"), (256, 128, "queue 2")])
+                                        (272, 128, "up to 256"), (192, 384, "up to 256")])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_bwd_refuses_past_its_widths(D, Dv, match, dtype):
-    """Past 256, and D != Dv above 128 (MLA's 192/128), the backward's plan
-    refuses on any device, before any launch, and so does the tile choice."""
+    """Past 256 the backward's plan refuses on any device, before any
+    launch, and so does the tile choice; D != Dv is taken up to 256."""
     q = torch.zeros(1, 2, 8, D, dtype=dtype)
     v = torch.zeros(1, 2, 8, Dv, dtype=dtype)
     with pytest.raises(ValueError, match=match):
@@ -622,3 +629,42 @@ def test_flash_bwd_tiling_at_width_256_matches_jax(B, H, KH, S, prefix):
     for want, got in zip(vjp(jdo), (dq, dk, dv)):
         _close(want, got, TOL["float32"])
     assert visits == _wide_tiles_with_a_valid_pair(H, S, S, prefix, q_step, keys, key_tile)
+
+
+@pytest.mark.parametrize("H,KH,S,prefix,causal", [
+    (4, 4, 200, 0, True),          # MLA's causal training path, ragged
+    (2, 2, 130, 50, True),         # a prefix inside a 64-key block
+    (2, 1, 97, 0, False)])         # non-causal, GQA
+def test_flash_bwd_at_mla_widths_matches_jax(H, KH, S, prefix, causal):
+    """deepseek-v3's D 192 (nope 128 + rope 64), Dv 128: the plan takes it on
+    both routes (bf16 on the width-256 tile, whose zero columns add nothing),
+    and the plain backward and the width-256 tiling (``bwd_tile``,
+    ``bwd_blocks``) at those widths match jax.vjp of the model's blockwise
+    attention (fp32 2e-5)."""
+    D, Dv = 192, 128
+    arrs, (q, k, v, do) = _attn_inputs(S + D + prefix, 1, H, KH, S, S, D, Dv)
+    assert fa.plan_bwd(q, k, v, prefix) == ("cuda_cores", None)
+    bf = [t.bfloat16() for t in (q, k, v)]
+    width, q_step = fa.bwd_tile(D, Dv)
+    assert fa.plan_bwd(*bf, prefix) == ("tensor_cores", (width, q_step)) == (
+        "tensor_cores", (256, 32))
+    keys, key_tile = fa.bwd_blocks(width)
+    o, lse = ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True,
+                                       prefix_len=prefix)
+    plain = ref.reference_attention_bwd(q, k, v, o, lse, do, causal=causal, prefix_len=prefix)
+    tiled = ref.attention_bwd_tiles(q, k, v, o, lse, do, causal=causal, q_step=q_step,
+                                    keys=keys, q_rows=fa.BWD_Q_ROWS, key_tile=key_tile,
+                                    half=keys, prefix_len=prefix)[:3]
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in arrs)
+    pos = jnp.arange(S, dtype=jnp.int32)
+
+    def f(q, k, v):
+        kw = {"prefix_len": jnp.int32(prefix)} if prefix else {}
+        qpos = pos if causal else jnp.full((S,), S, jnp.int32)
+        return jax_blockwise(q, jnp.repeat(k, H // KH, axis=1), jnp.repeat(v, H // KH, axis=1),
+                             qpos, pos, block=64, **kw)
+    _, vjp = jax.vjp(f, jq, jk, jv)
+    for want, a, b in zip(vjp(jdo), plain, tiled):
+        assert a.shape == b.shape and a.shape[-1] in (D, Dv)
+        _close(want, a, TOL["float32"])
+        _close(want, b, TOL["float32"])
