@@ -165,6 +165,9 @@ CONSISTENCY_TOL = 2e-2
 # serve: 4 prompts of 128 tokens, then 32 greedy tokens (host-bound decode
 # steps, each path's launches exact per step)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 128, 32
+# stablelm's serve phase also samples one batch at temperature 1.0, twice
+# from one seed: SAMPLE_GEN tokens after a prompt of SAMPLE_PROMPT
+SAMPLE_TEMPERATURE, SAMPLE_SEED, SAMPLE_PROMPT, SAMPLE_GEN = 1.0, 7, 4, 16
 CONSISTENCY_PROMPT = 64
 # The train phase: train_4k's sequence (configs/base.py), its global batch of
 # 256 cut to 2 sequences, what one 80 GB card holds with fp32 AdamW moments.
@@ -203,10 +206,15 @@ DEEPSEEK_CUT_TEXT = "61 layers cut to 2: first_k_dense 3 -> 1, one moe layer"
 # deepseek-v3-671b trains at full width as its first two layers, both dense
 # (MLA and a d_ff 18,432 SwiGLU), with its MTP head: 3,945,204,736 params,
 # no routed expert. Its own Adafactor at lr 3e-4 overshoots on one batch at
-# width 7168 (losses 9.28, 14.46, 12.08, 13.06 after the warm-up step, then
-# no lower over 8 steps: scripts/train_probe.py, PERF.md section 6); the run
+# width 7168 (on the H100, NVIDIA H100 80GB HBM3 at 700.00 W, bf16 at
+# (2, 4096): losses 9.28, 14.46, 12.08, 13.06 after the warm-up step, then
+# no lower over 8 steps: scripts/train_probe.py, PERF.md section 6). The
+# overshoot is the reference's: on the CPU in fp32 at (1, 64) the JAX
+# package's steps go 16.13, 0.0123, 10.93, 8.47 and the port's equal them
+# within 1.4e-5 (scripts/fullwidth_parity.py, PERF.md section 6). The run
 # takes lr 1e-4, 3e-4 x 2048 / 7168 rounded, the step per logit of the
-# width-2048 archs' runs
+# width-2048 archs' runs: a departure from the configuration for a run
+# on one batch
 DEEPSEEK_TRAIN_CUT = dict(num_layers=2, first_k_dense=2)
 DEEPSEEK_TRAIN_LR = dict(learning_rate=1e-4)
 DEEPSEEK_TRAIN_CUT_TEXT = ("61 layers cut to the first 2 dense layers and the MTP head; "
@@ -1763,7 +1771,7 @@ def phases(torch, pool, t_start) -> int:
 
     # 5. serve: the main paths ------------------------------------------------
     def serve(aid, forward_len, per_pass, decode_rmsnorm=None, label=None, cut=None,
-              **cfg_kw):
+              sampled=False, **cfg_kw):
         """bf16 at full width (``cfg_kw`` may cut the depth, ``cut`` says
         how): ``generate`` then ``apply_lm`` on (batch, forward_len) tokens
         that start with the prompts (vlm: after seeded patches; encdec: over
@@ -1771,7 +1779,10 @@ def phases(torch, pool, t_start) -> int:
         alone; moe with the MTP head: its logits too). Launch counts are
         reset just before and read just after; they must equal ``per_pass``
         once for the forward and, for rmsnorm, ``decode_rmsnorm`` (by
-        default the forward's) for every decode step."""
+        default the forward's) for every decode step. With ``sampled``, the
+        batch is then generated twice more at ``SAMPLE_TEMPERATURE`` from
+        ``SAMPLE_SEED``: equal tokens both times, inside the vocab, and each
+        decode step the greedy run's launches."""
         t_phase = time.perf_counter()
         cfg = get_arch(aid).model.replace(**cfg_kw)   # bf16 params and compute
         params = T.init_lm(cfg, 0, device=cuda)
@@ -1817,6 +1828,26 @@ def phases(torch, pool, t_start) -> int:
               and (mtp is not None) == bool(cfg.family == "moe" and cfg.mtp_depth)
               and (mtp is None or (mtp.shape == logits.shape
                                    and bool(torch.isfinite(mtp).all()))))
+        sample = None
+        if sampled:
+            runs = []
+            for _ in range(2):
+                ops.reset_launches()
+                r = engine.generate(prompts[:, :SAMPLE_PROMPT], gen_len=SAMPLE_GEN,
+                                    temperature=SAMPLE_TEMPERATURE, seed=SAMPLE_SEED)
+                runs.append((torch.tensor(r.tokens), dict(ops.LAUNCHES), r.decode_s))
+            sample_steps = SAMPLE_PROMPT + SAMPLE_GEN - 1
+            want = every_kernel({"rmsnorm": sample_steps * decode_rms})
+            (ta, la, da), (tb, lb, _) = runs
+            sample = {"temperature": SAMPLE_TEMPERATURE, "seed": SAMPLE_SEED,
+                      "prompt": SAMPLE_PROMPT, "gen": SAMPLE_GEN,
+                      "tokens_equal": bool(torch.equal(ta, tb)),
+                      "in_vocab": bool(int(ta.min()) >= 0
+                                       and int(ta.max()) < cfg.padded_vocab),
+                      "launches": la, "expected_launches": want,
+                      "decode_step_ms": 1e3 * da / (SAMPLE_GEN - 1)}
+            ok = ok and (sample["tokens_equal"] and sample["in_vocab"]
+                         and la == lb == want)
         emit({"phase": "serve", "arch": label or cfg.name, "layers": cfg.num_layers,
               "d_model": cfg.d_model, "params": n_params, "dtype": cfg.compute_dtype,
               "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
@@ -1829,6 +1860,7 @@ def phases(torch, pool, t_start) -> int:
               "launches": launches, "expected_launches": expect,
               "first_token_matches_forward_argmax": first_match,
               **({"reduced": cut} if cut else {}),
+              **({"sampled": sample} if sample else {}),
               **({"moe_aux": float(aux["moe_aux"]), "mtp_logits": list(mtp.shape)
                   if mtp is not None else None} if cfg.family == "moe" else {}),
               "ok": ok, "seconds": time.perf_counter() - t_phase})
@@ -1846,7 +1878,7 @@ def phases(torch, pool, t_start) -> int:
     n = get_arch("stablelm-1.6b").model.num_layers
     main_paths["stablelm-1.6b"] = serve(
         "stablelm-1.6b", SERVE_PROMPT,
-        {"flash_attention": n, "rmsnorm": 2 * n + 1, "ssd_scan": 0})
+        {"flash_attention": n, "rmsnorm": 2 * n + 1, "ssd_scan": 0}, sampled=True)
     n = get_arch("mamba2-370m").model.num_layers
     main_paths["mamba2-370m"] = serve(
         "mamba2-370m", SSM_FORWARD_LEN,

@@ -137,7 +137,10 @@ def params_from_jax(np_tree, cfg, device: dev.DeviceLike = "cuda",
                 _insert(tree, parts[1:], t[idx].clone())
         else:
             _insert(top, parts, t)
-    missing = [name for name, trees in layers.items() if not trees[(0,) * len(stacks[name])]]
+    # a stack of no layers (a moe cut of first_k_dense layers only) is empty
+    # in the JAX tree too: its leaves have a leading axis of 0
+    missing = [name for name, trees in layers.items()
+               if trees and not trees[(0,) * len(stacks[name])]]
     if missing:
         raise ValueError(f"the config stacks {missing}, the JAX tree has none")
     table = top["embed"]["table"]

@@ -13,10 +13,14 @@ defaults. Here:
 - every torch tensor, wherever it sits in a value, is keyed by its dtype,
   its shape and the sha256 of its bytes on the host;
 - a value that does not pickle is walked through its dicts, lists and
-  tuples: its tensors by content, each other part by its own pickle or,
-  where that fails, its ``repr``. A value that holds no tensor keeps the
-  reference's ``repr`` key byte for byte; one with a part that does not
-  pickle and was seen to hold a tensor gets no key (``None``);
+  tuples: its tensors by content, each other part by its own pickle, a
+  function that does not pickle by its parts (below), an object that does
+  not pickle through what pickle would save of it (``__reduce_ex__``: for
+  an object by default its ``__dict__`` and slots), whatever its ``repr``
+  says, and a part with none of these by its ``repr``. A value that holds
+  no tensor keeps the reference's ``repr`` key byte for byte; one with a
+  part that cannot be walked and was seen to hold a tensor, or from which
+  the garbage collector's references reach one, gets no key (``None``);
 - a function is keyed by its code (``co_code``, ``co_names`` and
   ``co_consts``, nested code objects by the same rule), its closure cells'
   contents, ``__defaults__``, ``__kwdefaults__`` and the values of the
@@ -39,7 +43,7 @@ import hashlib
 import pickle
 import sys
 import types
-from typing import Any, Optional, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
 import torch
 
@@ -150,25 +154,77 @@ def _pickled(v: Any, functions: bool = False) -> Tuple[Optional[str], bool]:
     return out.key(), p.saw_tensor
 
 
-def _walk(v: Any, found: dict) -> str:
+def _reduction(v: Any) -> Optional[tuple]:
+    """What pickle would save of ``v``: ``__reduce_ex__``'s callable,
+    arguments and state (for an object, by default its ``__dict__`` and
+    slots), its items listed; None where ``v`` has none."""
+    try:
+        red = v.__reduce_ex__(pickle.DEFAULT_PROTOCOL)
+    except Exception:
+        return None
+    if not isinstance(red, tuple):
+        return None
+    return tuple(list(x) if isinstance(x, Iterator) else x for x in red)
+
+
+# the most objects ``_may_hide_tensor`` looks through before it gives up
+REFERENT_LIMIT = 10_000
+
+
+def _may_hide_tensor(v: Any) -> bool:
+    """Whether a tensor can be reached from ``v`` through the references
+    the garbage collector sees (types and modules aside), or the search
+    stopped at ``REFERENT_LIMIT`` objects without an answer."""
+    import gc
+    seen, todo = {id(v)}, [v]
+    while todo:
+        for r in gc.get_referents(todo.pop()):
+            if isinstance(r, torch.Tensor):
+                return True
+            if isinstance(r, (type, types.ModuleType)) or id(r) in seen:
+                continue
+            if len(seen) >= REFERENT_LIMIT:
+                return True
+            seen.add(id(r))
+            todo.append(r)
+    return False
+
+
+def _walk(v: Any, found: dict, active: frozenset = frozenset()) -> str:
     """A text of ``v`` with its tensors and picklable parts by content,
-    through dicts, lists and tuples; notes tensors and unkeyable parts."""
+    through dicts, lists, tuples, and the functions and reductions of the
+    parts that do not pickle; notes tensors and unkeyable parts."""
     if isinstance(v, torch.Tensor):
         found["tensor"] = True
         return tensor_tag(v)
+    if id(v) in active:
+        return "<cycle>"
+    active = active | {id(v)}
     if type(v) is dict:
-        return "{" + ", ".join(f"{k!r}: {_walk(x, found)}" for k, x in v.items()) + "}"
+        return "{" + ", ".join(f"{k!r}: {_walk(x, found, active)}"
+                               for k, x in v.items()) + "}"
     if type(v) in (list, tuple):
-        inner = ", ".join(_walk(x, found) for x in v)
+        inner = ", ".join(_walk(x, found, active) for x in v)
         return f"[{inner}]" if type(v) is list else f"({inner},)"
     key, tensor = _pickled(v)
+    if key is None and isinstance(v, (types.FunctionType, types.MethodType)):
+        key, tensor = _pickled(v, functions=True)
     found["tensor"] = found["tensor"] or tensor
-    if key is None:
-        # a part that does not pickle: by its repr, as the reference keys it,
-        # unless it was seen to hold a tensor
-        found["unkeyable"] = found["unkeyable"] or tensor
-        return repr(v)
-    return f"<pickle {key}>"
+    if key is not None:
+        return f"<pickle {key}>"
+    if isinstance(v, (type, types.ModuleType)):
+        return repr(v)                        # code, not data: by name
+    red = _reduction(v)
+    if red is not None:
+        # an object that does not pickle, by what pickle would save of it:
+        # its tensors by content whatever its repr says
+        cls = type(v)
+        return f"<{cls.__module__}.{cls.__qualname__} {_walk(red, found, active)}>"
+    # a part that neither pickles nor reduces: by its repr, as the
+    # reference keys it, unless a tensor was seen in it or may hide there
+    if tensor or _may_hide_tensor(v):
+        found["unkeyable"] = True
+    return repr(v)
 
 
 def digest(v: Any) -> Tuple[Optional[str], bool]:
@@ -180,10 +236,10 @@ def digest(v: Any) -> Tuple[Optional[str], bool]:
     found = {"tensor": tensor, "unkeyable": False}
     text = _walk(v, found)
     out = _Digest()
+    if found["unkeyable"]:
+        return None, True
     if not found["tensor"]:
         out.write(repr(v).encode())           # the reference's key, byte for byte
-    elif found["unkeyable"]:
-        return None, True
     else:
         out.write(text.encode())
     return out.key(), found["tensor"]

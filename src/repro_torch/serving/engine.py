@@ -3,8 +3,10 @@
 Port of ``repro/serving/engine.py`` with the same semantics: the prompt is
 prefilled through the one-token decode path, greedy decoding takes the
 argmax, and caches are float32 unless asked otherwise. Temperature
-sampling draws from a ``torch.Generator`` seeded per call, so it gives
-other samples than ``jax.random`` from the same seed. Every host time read
+sampling draws from ``softmax(logits / T)`` as JAX's ``categorical`` does,
+with a ``torch.Generator`` seeded per call: other samples than
+``jax.random`` gives from the same seed, from the same distribution (the
+softmax in fp32 whatever the logits' type). Every host time read
 waits for the card first. Every family runs through ``init_caches`` and
 ``apply_lm_decode`` (moe with MLA's latent caches for deepseek, its MoE
 capacity from each step's own B tokens); as in the JAX engine, the vlm
@@ -28,6 +30,16 @@ class GenerationResult:
     prefill_s: float
     decode_s: float
     tokens_per_s: float
+
+
+def sample(last: torch.Tensor, temperature: float,
+           generator: torch.Generator) -> torch.Tensor:
+    """(B, V) logits -> (B, 1) tokens: the argmax at temperature 0, else
+    one draw a row from ``softmax(last / temperature)``."""
+    if temperature <= 0:
+        return last.argmax(dim=-1, keepdim=True)
+    probs = torch.softmax(last.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)
 
 
 class ServingEngine:
@@ -55,14 +67,6 @@ class ServingEngine:
         caches = T.init_caches(self.cfg, B, self.max_len, self.cache_dtype,
                                device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-
-        def sample(lg):
-            last = lg[:, -1]
-            if temperature <= 0:
-                return last.argmax(dim=-1, keepdim=True)
-            probs = torch.softmax(last / temperature, dim=-1)
-            return torch.multinomial(probs, 1, generator=gen)
-
         t0 = self._clock()
         logits = None
         for i in range(P):                      # prefill via the decode path
@@ -71,12 +75,12 @@ class ServingEngine:
         prefill_s = self._clock() - t0
 
         t0 = self._clock()
-        tok = sample(logits)
+        tok = sample(logits[:, -1], temperature, gen)
         out = [tok]
         for i in range(P, P + gen_len - 1):
             logits, caches = T.apply_lm_decode(self.params, self.cfg, tok,
                                                caches, i)
-            tok = sample(logits)
+            tok = sample(logits[:, -1], temperature, gen)
             out.append(tok)
         gen_tokens = torch.cat(out, dim=1)
         decode_s = self._clock() - t0

@@ -26,13 +26,24 @@ one launch of 4 gloo ranks then runs every port check on those inputs:
 - a checkpoint saved from a (2,2) mesh restored onto (4,1).
 
 The launcher runs ``--nproc 4 --mesh 2x2 --device cpu`` for 6 steps, then
-resumes to 9. Every launch runs in its own session under a hard time limit
-and is killed whole when it overruns.
+resumes to 9. The rank launch starts once JAX has written the inputs and
+runs beside the rest of the JAX run; the launcher's two runs follow the
+rank launch, so that at most the JAX run and one group of 4 ranks share the
+cores. Every process takes one thread for its math (``OMP_NUM_THREADS``,
+XLA's single-threaded Eigen), and the checks that the test process itself
+runs take one torch thread. Every launch runs in its own session, its
+output in a file, under a hard limit (``LIMITS``), and is killed whole when
+it overruns. Measured on 8 cores alone (the file 97 s): JAX 89 s, the rank
+launch 18 s, each launcher run 8 s; beside the suite's other five workers
+(``-n 6 --dist loadfile``, the file 114 s): JAX 110-119 s, the ranks 32-36
+s, each launcher run 11-13 s. The limits, 360, 240 and 120 s, are 3x, 6x
+and 9x those.
 
 The file is also the two subprocesses' program: ``python
 tests/test_torch_distributed.py jax OUT.npz`` and ``... torch OUT_DIR
 REF.npz``.
 """
+import contextlib
 import os
 import signal
 import subprocess
@@ -63,6 +74,8 @@ MOE_CASES = {"ep": ("baseline", None, (2, 16)), "rs": ("moe_rs", None, (2, 16)),
 EP_RULES = {"batch": ("data",), "expert": "model"}
 STEPS, BATCH, SEQ = 3, 4, 16
 PIPE = dict(S=4, M=8, mb=2, D=16)
+# Each launch's hard limit in seconds (measured times in the docstring)
+LIMITS = {"jax": 360, "ranks": 240, "launcher": 120}
 
 
 def _variant(arch):
@@ -89,7 +102,9 @@ def _batches(vocab):
 # ---------------------------------------------------------------------------
 
 def jax_main(inputs_path, out_path):
-    os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={WORLD}"
+    os.environ["XLA_FLAGS"] = (f"--xla_force_host_platform_device_count={WORLD} "
+                               "--xla_cpu_multi_thread_eigen=false "
+                               "intra_op_parallelism_threads=1")
     sys.path.insert(0, SRC)
     import jax
     import jax.numpy as jnp
@@ -505,25 +520,34 @@ def _elastic_checks(ref, mesh22, res, out_dir):
 # ---------------------------------------------------------------------------
 
 class _Launch:
-    """A subprocess in its own session, killed whole when it overruns its
-    hard time limit, so no rank outlives the test."""
+    """A subprocess in its own session, its output in a file (a pipe that
+    nobody reads would stall it), one thread for each process's math
+    library, killed whole when it overruns its hard time limit, so no rank
+    outlives the test."""
 
-    def __init__(self, args, timeout):
-        env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    def __init__(self, args, timeout, log):
+        env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+                   MKL_NUM_THREADS="1")
         self.args, self.deadline = args, time.monotonic() + timeout
-        self.proc = subprocess.Popen(args, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True, env=env,
-                                     start_new_session=True)
+        self.log = open(log, "w+")
+        self.proc = subprocess.Popen(args, stdout=self.log, stderr=subprocess.STDOUT,
+                                     text=True, env=env, start_new_session=True)
 
     def done(self) -> bool:
         return self.proc.poll() is not None
 
     def wait(self) -> str:
         try:
-            out, _ = self.proc.communicate(timeout=max(1.0, self.deadline - time.monotonic()))
+            self.proc.wait(timeout=max(1.0, self.deadline - time.monotonic()))
+            overran = False
         except subprocess.TimeoutExpired:
             os.killpg(self.proc.pid, signal.SIGKILL)
-            out, _ = self.proc.communicate()
+            self.proc.wait()
+            overran = True
+        self.log.seek(0)
+        out = self.log.read()
+        self.log.close()
+        if overran:
             raise AssertionError(f"{self.args} overran its time limit:\n{out[-4000:]}")
         assert self.proc.returncode == 0, out[-6000:]
         return out
@@ -533,7 +557,8 @@ def _launcher(ck, steps):
     return _Launch([sys.executable, "-m", "repro_torch.launch.train", "--nproc", "4",
                     "--mesh", "2x2", "--device", "cpu", "--batch", "8", "--seq", "16",
                     "--ckpt-dir", ck, "--ckpt-every", "3", "--log-every", "3",
-                    "--steps", str(steps)], timeout=180)
+                    "--steps", str(steps)], timeout=LIMITS["launcher"],
+                   log=f"{ck}_{steps}.log")
 
 
 import pytest  # noqa: E402  (the subprocesses above need no pytest)
@@ -541,26 +566,40 @@ import pytest  # noqa: E402  (the subprocesses above need no pytest)
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    """The JAX references, the port's ranks and the launcher, run side by
-    side: the ranks start once JAX has written the inputs."""
+    """The JAX references and the port's ranks run side by side, the ranks
+    started once JAX has written the inputs; the launcher's two runs follow
+    the ranks, while JAX finishes."""
     import torch
     d = tmp_path_factory.mktemp("dist")
     inputs, ref = str(d / "inputs.npz"), str(d / "ref.npz")
     ck = str(d / "ckpt")
-    jax_run = _Launch([sys.executable, __file__, "jax", inputs, ref], timeout=300)
-    first = _launcher(ck, 6)
+    jax_run = _Launch([sys.executable, __file__, "jax", inputs, ref], timeout=LIMITS["jax"],
+                      log=str(d / "jax.log"))
     while not os.path.exists(inputs):
         assert not jax_run.done() or os.path.exists(inputs), jax_run.wait()[-4000:]
         assert time.monotonic() < jax_run.deadline, "no inputs from the JAX run"
         time.sleep(0.2)
-    ranks = _Launch([sys.executable, __file__, "torch", str(d), inputs], timeout=240)
-    launched = [first.wait()]
-    second = _launcher(ck, 9)
+    ranks = _Launch([sys.executable, __file__, "torch", str(d), inputs],
+                    timeout=LIMITS["ranks"], log=str(d / "ranks.log"))
     ranks.wait()
+    launched = [_launcher(ck, 6).wait()]
+    launched.append(_launcher(ck, 9).wait())
     jax_run.wait()
-    launched.append(second.wait())
     return (np.load(ref), torch.load(str(d / "port.pt"), weights_only=False),
             launched, sorted(os.listdir(ck)))
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """torch in this process on one thread for a while: beside the launches
+    and other workers, its own pool would only wait for cores."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _rel(a, b):
@@ -575,7 +614,8 @@ def test_expert_parallel_moe_matches_local_and_jax_grads(results, name):
     cfg, _, p, x = _moe_setup(ref, name)
     p.requires_grad_(True)
     x = x.clone().requires_grad_(True)
-    _, y_local = _moe_loss(cfg, p, x)
+    with _one_thread():
+        _, y_local = _moe_loss(cfg, p, x)
     y = port[f"moe/{name}/y"].numpy()
     if name == "rs":                  # a bf16 round trip of the partial sums
         assert _rel(y, ref[f"moe/{name}/y"]) < 2e-2
@@ -599,7 +639,8 @@ def test_sharded_train_steps_match_jax_and_unsharded(results, arch, strategy, op
     got = port[f"train/{arch}/{strategy}/{opt}"]
     want = ref[f"train/{arch}/{strategy}/{opt}"]
     assert np.all(np.abs(got - want) <= 1e-4 * np.abs(want)), (got, want)
-    plain, _ = _curve(arch, opt, ref)
+    with _one_thread():
+        plain, _ = _curve(arch, opt, ref)
     # moe_rs rounds the expert outputs' partial sums to bf16
     tol = 2e-3 if strategy == "moe_rs" else 1e-5
     assert np.all(np.abs(got - plain) <= tol * np.abs(plain)), (got, plain)

@@ -498,6 +498,27 @@ def test_three_steps_match_jax(aid, remat):
     assert int(state["step"]) == int(jstate["step"]) == 3
 
 
+def test_a_cut_of_dense_layers_only_bridges_and_steps_as_jax():
+    """deepseek cut to its first_k_dense layers (the cut the card trains at
+    full width): JAX's tree keeps a moe stack of no layers (leading axis 0),
+    which the bridge took for a missing stack. Bridged, three Adafactor steps
+    at the configuration's lr 3e-4 match JAX's."""
+    aid = "deepseek-v3-671b"
+    cfg, jc = _cfgs(aid, num_layers=2, first_k_dense=2)
+    tcfg, jtcfg = _tcfgs(aid)
+    jstate, state = _bridged(cfg, jc, jtcfg)
+    assert jstate["params"]["layers"]["ln1"]["scale"].shape[0] == 0
+    assert len(state["params"]["layers"]) == 0 and len(state["params"]["dense_layers"]) == 2
+    jstep = jax.jit(JTR.make_train_step(jc, jtcfg))
+    step = TR.make_train_step(cfg, tcfg)
+    for batch in _batches(cfg, 3, batch=4):
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        state, m = step(state, TR.to_device(batch, "cpu"))
+        np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=STEP_RTOL)
+        np.testing.assert_allclose(m["grad_norm"].item(), float(jm["grad_norm"]),
+                                   rtol=STEP_RTOL)
+
+
 @pytest.mark.parametrize("aid", MOE_ARCHS)
 def test_bridged_state_round_trips(aid):
     cfg, jc = _cfgs(aid)

@@ -9,6 +9,7 @@ started from JAX's init, bridged."""
 import dataclasses
 import importlib.util
 import tempfile
+import threading
 from pathlib import Path
 
 import jax
@@ -204,15 +205,75 @@ def test_a_value_that_does_not_pickle_keys_its_tensors_by_content():
 
 
 def test_a_tensor_in_a_part_that_does_not_pickle_gets_no_reusable_key():
-    """A part whose pickle meets a tensor and then fails (here a partial
-    with a lambda among its keywords) cannot be keyed by content."""
-    import functools
-    f = lambda x: x                                   # noqa: E731
-    part = functools.partial(torch.add, torch.zeros(3), alpha=f)
-    v = {"p": part, "t": torch.ones(2)}
+    """A part that neither pickles nor reduces (here a generator whose frame
+    holds a tensor) cannot be walked, and a tensor may hide in it."""
+    def gen(t):
+        yield t
+    v = {"g": gen(torch.zeros(3)), "t": torch.ones(2)}
     assert L._hash_value(v) is None
+    assert L._hash_value({"g": gen(torch.zeros(3))}) is None
     job = _job(lambda t: t, v)
     assert L.cache_key(job, {}) != L.cache_key(job, {})
+
+
+def test_a_part_that_does_not_pickle_is_walked_through_its_reduction():
+    """A partial with a lambda among its keywords does not pickle; its
+    function, arguments and keywords are walked, its tensor keyed by content."""
+    import functools
+    f = lambda x: x                                   # noqa: E731
+    a = {"p": functools.partial(torch.add, torch.zeros(3), alpha=f), "t": torch.ones(2)}
+    b = {"p": functools.partial(torch.add, torch.tensor([0., 1., 0.]), alpha=f),
+         "t": torch.ones(2)}
+    assert L._hash_value(a) is not None
+    assert L._hash_value(a) != L._hash_value(b)
+    assert L._hash_value(a) == L._hash_value(
+        {"p": functools.partial(torch.add, torch.zeros(3), alpha=f), "t": torch.ones(2)})
+
+
+class _Holder:
+    """A lock before a weight, and a repr that names neither: its pickle
+    fails at the lock, before it meets the tensor."""
+
+    def __init__(self, w):
+        self.lock = threading.Lock()
+        self.w = w
+
+    def __repr__(self):
+        return "_Holder()"
+
+
+def test_an_object_holding_a_lock_before_a_tensor_is_keyed_by_the_tensor():
+    """The reference falls back to the constant repr: two holders one
+    element apart got one key, as step arguments and as artifacts."""
+    w = torch.zeros(4096)
+    w2 = w.clone()
+    w2[2048] = 1
+    a, b = _Holder(w), _Holder(w2)
+    assert repr(a) == repr(b) and JL._hash_value(a) == JL._hash_value(b)
+    assert L._hash_value(a) != L._hash_value(b)
+    assert L._hash_value(a) == L._hash_value(a)
+    assert None not in (L._hash_value(a), L._hash_value(b))
+
+    def use(h):
+        return float(h.w.sum())
+    assert L.cache_key(_job(use, a), {}) != L.cache_key(_job(use, b), {})
+    assert L.cache_key(_job(use, a), {}) == L.cache_key(_job(use, a), {})
+    # the same holder with the tensor changed in place gets another key
+    before = L._hash_value(a)
+    w[0] = 5
+    assert L._hash_value(a) != before
+
+
+def test_a_tensor_free_object_that_does_not_pickle_keeps_the_reference_key():
+    class Plain:
+        def __init__(self):
+            self.lock = threading.Lock()
+            self.n = 3
+
+        def __repr__(self):
+            return "Plain()"
+    for v in (Plain(), {"p": Plain(), "k": [1, 2]}, threading.Lock()):
+        assert L._hash_value(v) == JL._hash_value(v)
 
 
 def test_a_literal_tensor_argument_is_keyed_by_content():
