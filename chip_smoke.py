@@ -209,9 +209,11 @@ DEEPSEEK_CUT_TEXT = "61 layers cut to 2: first_k_dense 3 -> 1, one moe layer"
 # width 7168 (on the H100, NVIDIA H100 80GB HBM3 at 700.00 W, bf16 at
 # (2, 4096): losses 9.28, 14.46, 12.08, 13.06 after the warm-up step, then
 # no lower over 8 steps: scripts/train_probe.py, PERF.md section 6). The
-# overshoot is the reference's: on the CPU in fp32 at (1, 64) the JAX
-# package's steps go 16.13, 0.0123, 10.93, 8.47 and the port's equal them
-# within 1.4e-5 (scripts/fullwidth_parity.py, PERF.md section 6). The run
+# port's steps of this cut equal the JAX package's at full width: on the
+# CPU in fp32 at (1, 64), losses within 1.4e-5 (lr 3e-4) and 1.0e-4 (lr
+# 1e-4) relative, over 4 steps (scripts/fullwidth_parity.py, PERF.md
+# section 6); that run does not reproduce the card's case, where 1e-4
+# falls. The run
 # takes lr 1e-4, 3e-4 x 2048 / 7168 rounded, the step per logit of the
 # width-2048 archs' runs: a departure from the configuration for a run
 # on one batch

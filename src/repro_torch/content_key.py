@@ -17,10 +17,14 @@ defaults. Here:
   function that does not pickle by its parts (below), an object that does
   not pickle through what pickle would save of it (``__reduce_ex__``: for
   an object by default its ``__dict__`` and slots), whatever its ``repr``
-  says, and a part with none of these by its ``repr``. A value that holds
-  no tensor keeps the reference's ``repr`` key byte for byte; one with a
-  part that cannot be walked and was seen to hold a tensor, or from which
-  the garbage collector's references reach one, gets no key (``None``);
+  says, a lock (whose state is no input) by its type's name, and any
+  other part with none of these by its ``repr``. A part that cannot be
+  walked and was seen to hold a tensor, or from which the garbage
+  collector's references reach one or do not end within
+  ``REFERENT_LIMIT`` objects, gives the whole value no key (``None``),
+  whether or not a tensor was found elsewhere in it. Any other value in
+  which no tensor was found keeps the reference's ``repr`` key byte for
+  byte;
 - a function is keyed by its code (``co_code``, ``co_names`` and
   ``co_consts``, nested code objects by the same rule), its closure cells'
   contents, ``__defaults__``, ``__kwdefaults__`` and the values of the
@@ -42,6 +46,7 @@ from __future__ import annotations
 import hashlib
 import pickle
 import sys
+import threading
 import types
 from typing import Any, Iterator, Optional, Tuple
 
@@ -167,6 +172,9 @@ def _reduction(v: Any) -> Optional[tuple]:
     return tuple(list(x) if isinstance(x, Iterator) else x for x in red)
 
 
+# parts that neither pickle nor reduce and whose state is no input to a step
+_LOCKS = (type(threading.Lock()), type(threading.RLock()))
+
 # the most objects ``_may_hide_tensor`` looks through before it gives up
 REFERENT_LIMIT = 10_000
 
@@ -220,7 +228,10 @@ def _walk(v: Any, found: dict, active: frozenset = frozenset()) -> str:
         # its tensors by content whatever its repr says
         cls = type(v)
         return f"<{cls.__module__}.{cls.__qualname__} {_walk(red, found, active)}>"
-    # a part that neither pickles nor reduces: by its repr, as the
+    if isinstance(v, _LOCKS):
+        # by its type's name: its repr holds its address and its state
+        return f"<{type(v).__module__}.{type(v).__qualname__}>"
+    # any other part that neither pickles nor reduces: by its repr, as the
     # reference keys it, unless a tensor was seen in it or may hide there
     if tensor or _may_hide_tensor(v):
         found["unkeyable"] = True

@@ -7,10 +7,8 @@ and parameters line up by name. The math is the JAX package's: fp32
 moments whatever the param type (``torch.optim.AdamW`` would keep bf16
 moments for bf16 params), bias correction from an int32 count, weight decay
 added to the step, the result cast back to the param's type. Unlike JAX,
-the updates write the new values into the parameters in place, and the
-train step clips its gradients in place (``clip_by_global_norm``), so a
-full-width model does not hold two copies of its weights, gradients or
-moments.
+the updates write the new values into the parameters in place, so a
+full-width model does not hold two copies of its weights or moments.
 
 Adafactor (Shazeer & Stern 2018, simplified as in JAX: no momentum) is
 defined on the JAX package's leaves, whose layers are stacked on leading
@@ -32,7 +30,6 @@ moments and RMS clip reduce over whole leaves, runs on the DTensors.
 """
 from __future__ import annotations
 
-from collections import Counter
 from typing import Any, Dict, Iterable, List, Tuple
 
 import torch
@@ -63,31 +60,11 @@ def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-@torch.no_grad()
 def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
-    """JAX's clip, each gradient scaled in its own dtype (no fp32 copy of
-    the tree), in place: the train step holds no second copy of its
-    gradients. Gradients that share a storage (autograd may hand one tensor
-    to two leaves) are scaled out of place."""
     norm = global_norm(grads.values())
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    owners = Counter(_storage(g) for g in grads.values())
-    out = {}
-    for k, g in grads.items():
-        if owners[_storage(g)] > 1:
-            out[k] = _scaled(g, scale)
-        else:
-            _local(g).mul_(scale.to(g.dtype))
-            out[k] = g
-    return out, norm
-
-
-def _storage(g: torch.Tensor):
-    local = _local(g)
-    try:
-        return local.untyped_storage().data_ptr()
-    except RuntimeError:                    # a tensor with no data (fake)
-        return id(local)
+    # the scale in each gradient's own dtype, as in JAX (no fp32 copy of the tree)
+    return {k: _scaled(g, scale) for k, g in grads.items()}, norm
 
 
 def _scaled(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -212,48 +189,37 @@ def adafactor_update(grads: Tree, state: Dict[str, Any], params: Tree, *, lr,
     vr_s, vc_s, v_s = (state[m] for m in PATH_KEYED)
     for path, axes, names in stacked_groups(params):
         g = _stack(grads, names, axes).float()
-        # on plain tensors in place where a temporary is the leaf's size, and
-        # the params updated a layer at a time: the same values as JAX's
-        # expressions with fewer full-size buffers (DTensor refuses in-place
-        # ops on partial placements)
-        plain = not is_dtensor(g)
-        g2 = g.square().add_(eps) if plain else g.square() + eps
+        g2 = g.square() + eps
         if _factored(g.shape):
             vr = beta2 * vr_s[path] + (1 - beta2) * g2.mean(dim=-1)
             vc = beta2 * vc_s[path] + (1 - beta2) * g2.mean(dim=-2)
-            del g2
             denom = torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
             vhat = (vr / denom)[..., None] * vc[..., None, :]
-            u = g * (vhat.add_(eps).rsqrt_() if plain else torch.rsqrt(vhat + eps))
-            del vhat
             vr_s[path], vc_s[path] = vr, vc
         else:
-            v = beta2 * v_s[path] + (1 - beta2) * g2
-            del g2
-            u = g * torch.rsqrt(v + eps)
-            v_s[path] = v
-        del g
+            vhat = v_s[path] = beta2 * v_s[path] + (1 - beta2) * g2
+        # each full-size buffer released once it is spent, so that a leaf's
+        # update holds no more than four of them at a time
+        del g2
+        u = g * torch.rsqrt(vhat + eps)
+        del g, vhat
         rms = torch.sqrt(u.square().mean() + eps)
-        scale = torch.clamp(rms / clip_threshold, min=1.0)
-        u = u.div_(scale) if plain else u / scale
-        u = u.reshape((len(names),) + tuple(params[names[0]].shape))
-        if is_dtensor(u):                   # each layer back to its own placement
+        u = u / torch.clamp(rms / clip_threshold, min=1.0)
+        p = _stack(params, names, axes)
+        if weight_decay:
+            u = u + weight_decay * p.float()
+        new = (p.float() - lr * u).to(p.dtype).reshape((len(names),) + tuple(
+            params[names[0]].shape))
+        if is_dtensor(new):                 # each layer back to its own placement
             from torch.distributed.tensor import Replicate
-            p = _stack(params, names, axes).reshape(u.shape)
-            if weight_decay:
-                u = u + weight_decay * p.float()
-            new = (p.float() - lr * u).to(p.dtype)
             new = new.redistribute(new.device_mesh, [
                 Replicate() if q.is_shard(0) else q for q in new.placements])
             for name, t in zip(names, new):
                 dst = params[name]
                 dst.to_local().copy_(t.redistribute(dst.device_mesh, dst.placements).to_local())
             continue
-        for name, ui in zip(names, u):
-            dst = params[name]
-            if weight_decay:
-                ui = ui + weight_decay * dst.float()
-            dst.copy_((dst.float() - ui.mul_(lr)).to(dst.dtype))
+        for name, t in zip(names, new):
+            params[name].copy_(t)
     return params, {**{m: state[m] for m in PATH_KEYED}, "count": count}
 
 

@@ -23,7 +23,10 @@ The port keeps one tensor a layer and stacks them for the update, keying
 ``vr``/``vc``/``v`` by JAX path. New params, ``vr``, ``vc`` and ``v`` must
 agree within 2e-5 of each leaf's largest magnitude. Each leaf runs alone,
 JAX then the port (JAX's new params kept on disk meanwhile), so the test's
-peak holds one leaf's params and gradient and the update's buffers.
+peak holds one leaf's params and gradient and the update's buffers: at the
+MLP leaf (1.06 GB in fp32) the params and gradient, 2.1 GB, and the port's
+out-of-place update, which holds up to four buffers of the leaf's size (the
+stacked gradient and the update's temporaries), 6.7 GB in all.
 """
 import functools
 import zlib

@@ -104,31 +104,6 @@ def test_global_norm_and_clip_match_jax(max_norm):
                                    rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("max_norm", [1.0, 100.0])
-def test_clip_scales_in_place_and_a_shared_storage_once(max_norm):
-    """The clip scales each gradient in place, to JAX's values; one tensor
-    handed to two leaves, and two views of one storage, are scaled once
-    each, out of place."""
-    rng = np.random.default_rng(2)
-    a = rng.standard_normal((5, 3)).astype(np.float32)
-    b = rng.standard_normal((7,)).astype(np.float32)
-    tree = {"a": a, "b": b, "s1": a, "s2": a, "v1": b, "v2": b}
-    jclipped, jnorm = JO.clip_by_global_norm(jax.tree.map(jnp.asarray, tree), max_norm)
-    shared = torch.from_numpy(a.copy())
-    base = torch.from_numpy(np.concatenate([b, b]))
-    grads = {"a": torch.from_numpy(a.copy()), "b": torch.from_numpy(b.copy()),
-             "s1": shared, "s2": shared, "v1": base[:7], "v2": base[7:]}
-    ids = {k: id(g) for k, g in grads.items()}
-    clipped, norm = O.clip_by_global_norm(grads, max_norm)
-    np.testing.assert_allclose(norm.item(), float(jnorm), rtol=1e-6)
-    for k in tree:
-        np.testing.assert_allclose(clipped[k].numpy(), np.asarray(jclipped[k]),
-                                   rtol=1e-6, atol=1e-7, err_msg=k)
-    assert id(clipped["a"]) == ids["a"] and id(clipped["b"]) == ids["b"]
-    assert torch.equal(shared, torch.from_numpy(a))          # shared: left as it was
-    assert torch.equal(base, torch.from_numpy(np.concatenate([b, b])))
-
-
 def test_clip_keeps_each_gradients_dtype():
     grads = {"w": torch.ones(4, dtype=torch.bfloat16) * 10, "b": torch.ones(2)}
     clipped, norm = O.clip_by_global_norm(grads, 1.0)

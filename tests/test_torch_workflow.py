@@ -264,6 +264,21 @@ def test_an_object_holding_a_lock_before_a_tensor_is_keyed_by_the_tensor():
     assert L._hash_value(a) != before
 
 
+def test_two_holders_of_equal_tensors_share_a_key():
+    """The lock in a holder is keyed by its type, not by its repr (which
+    holds its address and whether it is held), so separate holders of equal
+    tensors share a key, as a resubmission in a new process would."""
+    a, b = _Holder(torch.arange(4096.0)), _Holder(torch.arange(4096.0))
+    b.lock.acquire()
+    assert repr(a.lock) != repr(b.lock)
+    assert L._hash_value(a) == L._hash_value(b) is not None
+
+    def use(h):
+        return float(h.w.sum())
+    assert L.cache_key(_job(use, a), {}) == L.cache_key(_job(use, b), {})
+    b.lock.release()
+
+
 def test_a_tensor_free_object_that_does_not_pickle_keeps_the_reference_key():
     class Plain:
         def __init__(self):
