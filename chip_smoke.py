@@ -48,6 +48,12 @@ its seconds:
                 backward at MLA's train shape (128 heads, D 192, Dv 128,
                 (2, 4096), causal; the width-256 tile with zero columns),
                 ``mla_train_bwd``, and an fp32 case of those widths small;
+                the registry's other dense archs' widths: the flash forward
+                and backward at starcoder2's train shape (36 heads of 128 on
+                4, the GQA group of 9, (2, 4096)), the flash forward at
+                mistral-nemo's serve shape (32 heads on 8), and rmsnorm
+                forward and backward at rows of 4608 and 5120 (bf16 rows
+                past 8 KB) and 768;
 4. consistency  stablelm-1.6b, mamba2-370m, zamba2-1.2b and whisper-large-v3
                 at full width in float32: decode logits at every prompt
                 position equal the full forward's (the ssm/hybrid archs over
@@ -64,11 +70,17 @@ its seconds:
                 so that neither path drops a token; reduced olmoe (AdamW)
                 and deepseek (Adafactor, MLA, MTP) train steps card vs CPU;
                 each moe line names the smallest gap between a token's k-th
-                and (k+1)-th router score;
+                and (k+1)-th router score; granite-3-8b, starcoder2-7b,
+                mistral-nemo-12b and nanogpt-124m whole in float32, decode
+                against forward, and their reduced configs that keep each
+                arch's features (``configs.FEATURE_CUTS``: the GQA groups of
+                9 and 4, attention narrower than d_model, a tied head over
+                a padded vocab) train 3 steps card vs CPU;
 5. serve        the serving paths: stablelm-1.6b, mamba2-370m, zamba2-1.2b,
                 paligemma-3b, whisper-large-v3, olmoe-1b-7b and the
-                deepseek-v3-671b 2-layer cut with its MTP head at full width
-                in bf16 each serve a batch through ``ServingEngine.generate``, then
+                deepseek-v3-671b 2-layer cut with its MTP head, granite-3-8b,
+                starcoder2-7b, mistral-nemo-12b and nanogpt-124m at full
+                width in bf16 each serve a batch through ``ServingEngine.generate``, then
                 ``apply_lm`` runs on the same model (paligemma with 256
                 patches before the tokens, whisper over 1500 frames); the
                 launch counts of each path must be exactly the path's, which
@@ -83,7 +95,10 @@ its seconds:
                 layers at full width (AdamW, remat full, (2, 4096)), and
                 deepseek-v3-671b cut to its first 2 (dense MLA) layers and
                 its MTP head at full width (Adafactor at lr 1e-4, remat
-                full, (2, 4096); 3.95 B params, no routed expert), through
+                full, (2, 4096); 3.95 B params, no routed expert),
+                granite-3-8b, starcoder2-7b and mistral-nemo-12b cut to 18,
+                15 and 6 layers at full width and nanogpt-124m whole (each
+                arch's AdamW, (2, 4096)), through
                 ``launch/train.py``'s loop: one warm-up step, then 4 steps on
                 one fixed batch, each with exactly its launches; olmoe's run
                 twice from one init, with equal bits; after each run a
@@ -224,6 +239,16 @@ DEEPSEEK_TRAIN_CUT_TEXT = ("61 layers cut to the first 2 dense layers and the MT
 # olmoe-1b-7b trains at full width per layer, 16 layers cut to 4: 1.88 B
 # params, 22.6 GB with AdamW (the full model's step would take about 83 GB)
 OLMOE_TRAIN_CUT = dict(num_layers=4)
+# The registry's other dense archs train at full width as layer cuts, their
+# embedding and head whole. On the H100 (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md section 6) cuts of 12, 10 and 4 layers peaked at 37.9, 38.9 and
+# 49.1 GB, about 12 bytes a param of the layers (bf16 params and grads,
+# fp32 moments) and 2.4, 2.7 and 3.4 GB a layer; the whole models (8.17 /
+# 7.40 / 12.25 B params) would take 100-150 GB. These cuts, about 53-56 GB,
+# hold 3.79 / 3.71 / 2.98 B params. nanogpt-124m trains whole.
+DENSE_TRAIN_CUTS = {"granite-3-8b": (18, "40 layers cut to 18"),
+                    "starcoder2-7b": (15, "32 layers cut to 15"),
+                    "mistral-nemo-12b": (6, "40 layers cut to 6")}
 # The train phase's runs: (arch, batch, seq, what the cut is, config fields
 # replaced, TrainConfig fields replaced). vit-base-16's own TrainConfig has
 # remat none; the phase holds every path to remat full, where each body's
@@ -236,7 +261,10 @@ TRAIN_RUNS = tuple((aid, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CUT, {}, {}) for aid in (
     ("olmoe-1b-7b", TRAIN_BATCH, TRAIN_SEQ, TRAIN_CUT + "; 16 layers cut to 4 (AdamW's "
      "full-model step would take about 83 GB)", OLMOE_TRAIN_CUT, {}),
     ("deepseek-v3-671b", TRAIN_BATCH, TRAIN_SEQ, TRAIN_CUT + "; " + DEEPSEEK_TRAIN_CUT_TEXT,
-     DEEPSEEK_TRAIN_CUT, DEEPSEEK_TRAIN_LR))
+     DEEPSEEK_TRAIN_CUT, DEEPSEEK_TRAIN_LR)) + tuple(
+    (aid, TRAIN_BATCH, TRAIN_SEQ, f"{TRAIN_CUT}; {text}", {"num_layers": n}, {})
+    for aid, (n, text) in DENSE_TRAIN_CUTS.items()) + (
+    ("nanogpt-124m", TRAIN_BATCH, TRAIN_SEQ, TRAIN_CUT, {}, {}),)
 
 
 # Processes counting the train runs' steps on fake tensors during the build:
@@ -1016,7 +1044,7 @@ def phases(torch, pool, t_start) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
     from repro_torch import device as dev
-    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs import FEATURE_CUTS, get_arch, reduced
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
@@ -1156,7 +1184,15 @@ def phases(torch, pool, t_start) -> int:
             ("mla_q_norm_1536", SERVE_BATCH * SERVE_PROMPT, 1536, "bfloat16", "bfloat16",
              warp),
             ("mla_kv_norm_512", SERVE_BATCH * SERVE_PROMPT, 512, "bfloat16", "bfloat16",
-             warp)]:
+             warp),
+            # the registry's other dense archs over the serve forward's 512
+            # rows: starcoder2's d_model 4608 and mistral-nemo's 5120 (bf16
+            # rows past 8 KB) and nanogpt's 768
+            ("starcoder2_d4608", SERVE_BATCH * SERVE_PROMPT, 4608, "bfloat16", "bfloat16",
+             block),
+            ("mistral_nemo_d5120", SERVE_BATCH * SERVE_PROMPT, 5120, "bfloat16", "bfloat16",
+             block),
+            ("nanogpt_d768", SERVE_BATCH * SERVE_PROMPT, 768, "bfloat16", "bfloat16", warp)]:
         x = randn(R, D, dtype=dtype)
         s = 1.0 + 0.1 * randn(D, dtype=sdtype)
         s_lib = s.to(x.dtype)
@@ -1248,6 +1284,12 @@ def phases(torch, pool, t_start) -> int:
               True, True, v_offset=128)
     attn_case("olmoe_train_forward", TRAIN_BATCH, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 128, 128,
               "bfloat16", True, True, lse=True)
+    # the registry's other dense archs: starcoder2's train forward (36 heads
+    # on 4, the GQA group of 9), mistral-nemo's serve forward (32 on 8)
+    attn_case("starcoder2_train_forward", TRAIN_BATCH, 36, 4, TRAIN_SEQ, TRAIN_SEQ, 128, 128,
+              "bfloat16", True, True, lse=True)
+    attn_case("mistral_nemo_serve_forward", SERVE_BATCH, 32, 8, P, P, 128, 128, "bfloat16",
+              True, True)
 
     # the Pallas kernel's own contract: (BH, S, D)
     q3, k3, v3 = (randn(8, 256, 64, dtype="float32") for _ in range(3))
@@ -1327,7 +1369,14 @@ def phases(torch, pool, t_start) -> int:
     for case, R, D, dtype, sdtype, path in [
             ("train_bwd", TRAIN_BATCH * TRAIN_SEQ, 2048, "bfloat16", "bfloat16", warp),
             ("train_bwd_fp32", TRAIN_BATCH * TRAIN_SEQ, 2048, "float32", "float32", block),
-            ("unaligned_dim_bwd", 77, 2050, "float32", "bfloat16", "scalar")]:
+            ("unaligned_dim_bwd", 77, 2050, "float32", "bfloat16", "scalar"),
+            # starcoder2's and mistral-nemo's train rows (bf16 rows past
+            # 8 KB), nanogpt's
+            ("starcoder2_train_bwd", TRAIN_BATCH * TRAIN_SEQ, 4608, "bfloat16", "bfloat16",
+             block),
+            ("mistral_nemo_train_bwd", TRAIN_BATCH * TRAIN_SEQ, 5120, "bfloat16", "bfloat16",
+             block),
+            ("nanogpt_train_bwd", TRAIN_BATCH * TRAIN_SEQ, 768, "bfloat16", "bfloat16", warp)]:
         x = randn(R, D, dtype=dtype)
         s = 1.0 + 0.1 * randn(D, dtype=sdtype)
         dy = randn(R, D, dtype=dtype)
@@ -1340,8 +1389,14 @@ def phases(torch, pool, t_start) -> int:
                    lambda x=x, s=s, dy=dy: ref.reference_rmsnorm_bwd(x, s, dy),
                    None, dict(R=R, D=D, dtype=dtype, scale_dtype=sdtype),
                    library_timer=library_timer,
-                   # dscale sums R rows: its atol scales with sqrt(R)
-                   tols=[(TOL[dtype], TOL[dtype]), (TOL[dtype] * R ** 0.5, TOL[dtype])],
+                   # dscale sums R rows: its atol scales with sqrt(R); it
+                   # comes back in the scale's dtype, so a bf16 dscale is
+                   # held to bf16's tolerance, as tests/test_torch_cuda.py
+                   # holds it (one rounding of a sum over rows whose fp32
+                   # order differs is a bf16 ulp: 0.0078 at |dscale| in [1, 2))
+                   tols=[(TOL[dtype], TOL[dtype]),
+                         (max(TOL[dtype], TOL[sdtype]) * R ** 0.5,
+                          max(TOL[dtype], TOL[sdtype]))],
                    shape=[R, D],
                    scale_dtype=sdtype, route=(lambda: rn.PLAN_BWD.path, path),
                    record=lambda: {"plan": {"grid": rn.PLAN_BWD.grid,
@@ -1438,6 +1493,10 @@ def phases(torch, pool, t_start) -> int:
                   "bfloat16", True, wide, Dv=128)
     attn_bwd_case("mla_bwd_fp32_small", 1, 8, 8, 300, 300, 192, "float32", True, cores,
                   prefix=40, Dv=128)
+    # starcoder2's train shape: 36 heads on 4, each dK/dV block over the
+    # group's 9 query heads
+    attn_bwd_case("starcoder2_train_bwd", TRAIN_BATCH, 36, 4, TRAIN_SEQ, TRAIN_SEQ, 128,
+                  "bfloat16", True, ["tensor_cores", [128, 32]])
 
     # prefix 0 and a prefix past Sk: the causal and non-causal launches' bits
     def same_bits(case, B, H, KH, S, D, dtype):
@@ -1716,6 +1775,15 @@ def phases(torch, pool, t_start) -> int:
         if not ok:
             fail("deepseek-v3-671b consistency phase failed")
 
+        # the registry's other dense archs and nanogpt, whole
+        for aid in FEATURE_CUTS:
+            n = get_arch(aid).model.num_layers
+            rec, ok, t_phase = decode_vs_forward(
+                aid, CONSISTENCY_PROMPT, {"flash_attention": n, "rmsnorm": 2 * n + 1})
+            emit({**rec, "ok": ok, "seconds": time.perf_counter() - t_phase})
+            if not ok:
+                fail(f"{aid} consistency phase failed")
+
     def train_card_vs_cpu(aid, label, **kw):
         """A reduced model (fp32, the arch's TrainConfig) trains 3 steps on
         the card (kernels) and on the CPU (plain versions) from one init;
@@ -1769,6 +1837,8 @@ def phases(torch, pool, t_start) -> int:
     train_card_vs_cpu("deepseek-v3-671b", "deepseek-v3-671b (reduced: 1 dense and 1 moe "
                       "layer, MLA 16 + 8 / 16, 8 experts top-2 and a shared one, MTP, "
                       "Adafactor)")
+    for aid, kw in FEATURE_CUTS.items():
+        train_card_vs_cpu(aid, f"{aid} (reduced: 2 layers, {kw})", **kw)
     M._route = route
 
     # 5. serve: the main paths ------------------------------------------------
@@ -1908,6 +1978,9 @@ def phases(torch, pool, t_start) -> int:
         "deepseek-v3-671b", SERVE_PROMPT, {"flash_attention": 2 + 1, "rmsnorm": 4 * 2 + 1 + 5},
         decode_rmsnorm=4 * 2 + 1, label="deepseek-v3-671b (2-layer cut, MTP)",
         cut=DEEPSEEK_CUT_TEXT, **DEEPSEEK_CUT)
+    for aid in FEATURE_CUTS:
+        n = get_arch(aid).model.num_layers
+        main_paths[aid] = serve(aid, SERVE_PROMPT, {"flash_attention": n, "rmsnorm": 2 * n + 1})
 
     # 6. train: the training paths -------------------------------------------
     def roofline_line(aid, cfg, shape, step_s, n_params):
@@ -2061,7 +2134,12 @@ def phases(torch, pool, t_start) -> int:
                          "src/repro/models/ssm.py:67 (jax.grad of ssd_chunked)"),
     }
     # the wider train paths' cases beside the main one
-    wider = {"flash_attention_bwd": ("paligemma_train_bwd", "mla_train_bwd")}
+    wider = {"flash_attention": ("starcoder2_train_forward", "mistral_nemo_serve_forward"),
+             "flash_attention_bwd": ("paligemma_train_bwd", "mla_train_bwd",
+                                     "starcoder2_train_bwd"),
+             "rmsnorm": ("starcoder2_d4608", "mistral_nemo_d5120", "nanogpt_d768"),
+             "rmsnorm_bwd": ("starcoder2_train_bwd", "mistral_nemo_train_bwd",
+                             "nanogpt_train_bwd")}
     summary = []
     for name, (source, replaces) in meta.items():
         rec = results[(name, main_case[name])]

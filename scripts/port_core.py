@@ -29,13 +29,14 @@ PORT = ROOT / "src" / "repro_torch" / "core"
 # The torch seams, by file under core/ and qualified name: content hashing of
 # tensors, content keys of a step's function and literal arguments, the
 # port's checkpoint session, the profiled call without an AOT phase, the
-# CUDA fence, the CUDA memory reading; and the port's payload of the Fig. 8
-# tuner.
+# CUDA fence, the CUDA memory reading; the port's payload of the Fig. 8
+# tuner; and the nondeterminism pass's view of torch's global generator.
 DIVERGENT: Dict[str, Tuple[str, ...]] = {
     "engines/local.py": ("_hash_value", "cache_key", "LocalEngine._ckpt_session",
                          "LocalEngine._profiled_invoke", "_block_until_ready",
                          "_device_memory_bytes"),
     "autotune.py": ("train_real_model",),
+    "analysis/ndet.py": ("_is_rng_module_call", "_scan"),
 }
 
 _PREFIX = re.compile(r"\brepro\.core\b")

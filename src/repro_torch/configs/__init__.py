@@ -75,6 +75,26 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     return cfg.replace(**kw)
 
 
-__all__ = ["ARCHS", "ARCH_IDS", "ArchSpec", "BONUS_ARCHS", "LM_SHAPES", "ModelConfig",
-           "PORTED_FAMILIES", "ShapeConfig", "TrainConfig", "get_arch",
+# Fields replaced in ``reduced()``'s config of the dense archs whose reduced
+# config would lose what sets them apart: ``reduced()`` (the JAX package's
+# cut) gives 4 heads of 16 on at most 4 KV heads over d_model 64.
+FEATURE_CUTS: Dict[str, dict] = {
+    # 18 query heads on 2 KV heads: the group of 9 (36 on 4 at full width),
+    # H*hd = d_model as in the arch; the config's non-gated gelu MLP
+    "starcoder2-7b": dict(num_heads=18, num_kv_heads=2, head_dim=16, d_model=288),
+    # 8 on 2: the group of 4; the config's tied head over a vocab of 499
+    # padded to 512 (49,155 padded to 49,408 at full width)
+    "granite-3-8b": dict(num_heads=8, num_kv_heads=2, head_dim=16, d_model=128,
+                         vocab_size=499),
+    # H*hd 64 against d_model 80 (4096 against 5120), 4 heads on 2; the
+    # config's rope_theta 1e6
+    "mistral-nemo-12b": dict(num_heads=4, num_kv_heads=2, head_dim=16, d_model=80),
+    # the config's tied head and gelu MLP over a padded vocab (50,304 padded
+    # to 50,432 at full width)
+    "nanogpt-124m": dict(vocab_size=499),
+}
+
+
+__all__ = ["ARCHS", "ARCH_IDS", "ArchSpec", "BONUS_ARCHS", "FEATURE_CUTS", "LM_SHAPES",
+           "ModelConfig", "PORTED_FAMILIES", "ShapeConfig", "TrainConfig", "get_arch",
            "reduced"]

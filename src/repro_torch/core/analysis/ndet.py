@@ -54,27 +54,63 @@ def _dotted(node: ast.AST) -> Optional[str]:
 
 def _is_rng_module_call(dotted: str) -> bool:
     """True for draws straight off a random *module* (random.random,
-    np.random.rand, numpy.random.choice, …). ``jax.random`` is excluded:
-    its functions are pure given an explicit key."""
+    np.random.rand, numpy.random.choice, …) and for draws from torch's
+    global generator made through the torch module: ``torch.rand*``,
+    ``torch.randint*``, ``torch.randn*``, ``torch.randperm``,
+    ``torch.normal``, ``torch.bernoulli``, ``torch.multinomial``,
+    ``torch.poisson``, ``torch.seed`` and the ``torch.nn.init.*_``
+    initialisers that draw (not ``zeros_``, ``ones_``, ``constant_``,
+    ``eye_``, ``dirac_``). ``jax.random`` is excluded: its functions are
+    pure given an explicit key. ``_scan`` excuses a draw given an explicit
+    ``generator=``."""
     parts = dotted.split(".")
     if parts[0] == "jax":
         return False
+    if parts[0] == "torch":
+        if parts[1:-1] == ["nn", "init"]:
+            return parts[-1].endswith("_") and parts[-1] not in (
+                "zeros_", "ones_", "constant_", "eye_", "dirac_")
+        if len(parts) == 2 and parts[1] in (
+                "rand", "rand_like", "randint", "randint_like", "randn", "randn_like",
+                "randperm", "normal", "bernoulli", "multinomial", "poisson", "seed"):
+            return True
     # "random" must appear as a module segment, not as the final call name
     # (rng.random() on a seeded generator is fine and unresolvable anyway)
     return "random" in parts[:-1] or (parts[0] == "random" and len(parts) > 1)
 
 
 def _scan(tree: ast.AST) -> Tuple[str, ...]:
+    """As the JAX package's pass, and also: a tensor's in-place draws
+    (``x.uniform_()``, ``.normal_()``, ``.random_()``, ``.bernoulli_()``,
+    ``.exponential_()``, ``.geometric_()``, ``.log_normal_()``,
+    ``.cauchy_()``) come from torch's global generator; ``manual_seed(x)``
+    and ``manual_seed_all(x)`` (on the torch module, ``torch.cuda`` or a
+    generator) seed; a draw given ``generator=`` (not None) is not
+    flagged."""
     findings = []
     seeded = False
     for node in ast.walk(tree):
         if not isinstance(node, ast.Call):
             continue
         dotted = _dotted(node.func)
+        method = node.func.attr if isinstance(node.func, ast.Attribute) else None
+        given = node.args or node.keywords
+        if method in ("manual_seed", "manual_seed_all") and given:
+            seeded = True                        # torch.manual_seed(x), g.manual_seed(x)
+            continue
+        if any(k.arg == "generator" and not (isinstance(k.value, ast.Constant)
+                                             and k.value.value is None)
+               for k in node.keywords):
+            continue                             # a draw from its own generator
+        if method in ("uniform_", "normal_", "random_", "bernoulli_", "exponential_",
+                      "geometric_", "log_normal_", "cauchy_") and not (
+                dotted and dotted.startswith("torch.nn.init.")):
+            findings.append((dotted or f"(...).{method}", True))   # a tensor's draw
+            continue
         if not dotted:
             continue
         last = dotted.split(".")[-1]
-        if last in _SEED_SUFFIXES and (node.args or node.keywords):
+        if last in _SEED_SUFFIXES and given:
             seeded = True
             continue
         if any(dotted == s or dotted.endswith("." + s)

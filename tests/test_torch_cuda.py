@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch import bridge
-from repro_torch.configs import get_arch, reduced
+from repro_torch.configs import FEATURE_CUTS, get_arch, reduced
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rn
@@ -85,7 +85,9 @@ def test_rmsnorm_kernel_paths(cuda, R, D, x_dtype, s_dtype, path):
     (2, 4, 2, 64, 1000, 128, 128, True),
     (1, 4, 4, 1000, 1000, 64, 64, True),      # ragged at 64 and at 128
     (1, 32, 8, 256, 256, 128, 128, True),     # GQA 32/8 at hd 128
-    (1, 8, 2, 200, 330, 128, 128, False)])
+    (1, 8, 2, 200, 330, 128, 128, False),
+    (1, 18, 2, 1000, 1000, 128, 128, True),   # starcoder2's group of 9, ragged
+    (4, 32, 8, 128, 128, 128, 128, True)])    # mistral-nemo's serve forward
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(cuda, B, H, KH, Sq, Sk, D, Dv, causal, dtype):
     gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
@@ -432,7 +434,10 @@ FLASH_BWD_CASES = [
     # MLA's 192/128 on the width-256 tile, Q/K and V/dO zero-padded
     (1, 8, 8, 300, 300, 192, 128, True),      # ragged, causal
     (1, 2, 2, 129, 200, 192, 128, False),     # Sk > Sq, non-causal
-    (2, 4, 4, 65, 65, 192, 128, True)]        # one key past a 64-key block
+    (2, 4, 4, 65, 65, 192, 128, True),        # one key past a 64-key block
+    # starcoder2's group of 9 at hd 128: each dK/dV block over 9 query heads
+    (1, 18, 2, 1000, 1000, 128, 128, True),   # ragged at 128
+    (2, 36, 4, 256, 256, 128, 128, True)]
 
 
 @pytest.mark.parametrize("B,H,KH,Sq,Sk,D,Dv,causal", FLASH_BWD_CASES)
@@ -502,9 +507,10 @@ def test_autograd_on_card_matches_cpu(cuda, dtype):
     ("mamba2-370m", {"num_layers": 3}, 64),
     ("zamba2-1.2b", {"num_layers": 5}, 64),
     ("paligemma-3b", {}, 64), ("whisper-large-v3", {}, 64), ("vit-base-16", {}, 64),
-    ("olmoe-1b-7b", {}, 64), ("deepseek-v3-671b", {}, 64)],
+    ("olmoe-1b-7b", {}, 64), ("deepseek-v3-671b", {}, 64)] + [
+    (aid, kw, 64) for aid, kw in FEATURE_CUTS.items()],
     ids=["stablelm", "mamba2", "zamba2", "paligemma", "whisper", "vit", "olmoe",
-         "deepseek"])
+         "deepseek"] + list(FEATURE_CUTS))
 def test_train_steps_on_card_match_cpu(cuda, remat, aid, kw, S):
     """Reduced models in fp32: two steps on the card through the kernels
     and on the CPU through the plain versions, from the same init; the
@@ -780,6 +786,53 @@ def test_rmsnorm_at_the_moe_widths(cuda, R, D):
     torch.testing.assert_close(y.float(), ref.reference_rmsnorm(x.detach(), s.detach()).float(),
                                atol=2e-2, rtol=2e-2)
     dx, ds = torch.autograd.grad(y, (x, s), dy)
+    wdx, wds = ref.reference_rmsnorm_bwd(x.detach(), s.detach(), dy)
+    torch.testing.assert_close(dx.float(), wdx.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(ds.float(), wds.float(), atol=2e-2 * R ** 0.5, rtol=2e-2)
+
+
+def test_flash_at_starcoder2_train_shape(cuda):
+    """36 heads of 128 on 4 KV heads at (2, 4096), causal, bf16, through
+    the autograd Function as starcoder2's layers hand them over: the
+    forward and the gradients against the plain versions, by norm."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    B, S, H, KH, D = 2, 4096, 36, 4, 128
+    q = _randn(gen, (B, S, H, D), torch.bfloat16, cuda).transpose(1, 2).requires_grad_(True)
+    k, v = (_randn(gen, (B, S, KH, D), torch.bfloat16, cuda).transpose(1, 2)
+            .requires_grad_(True) for _ in range(2))
+    do = _randn(gen, (B, H, S, D), torch.bfloat16, cuda)
+    before = dict(ops.LAUNCHES)
+    o = ops.flash_attention(q, k, v)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert fa.BWD_ROUTE == ("tensor_cores", (128, 32))
+    o_p, lse = ops.flash_attention_plain(q.detach(), k.detach(), v.detach(), return_lse=True)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=2e-2, rtol=2e-2)
+    want = ref.reference_attention_bwd(q.detach(), k.detach(), v.detach(), o_p, lse, do)
+    for g, w in zip(grads, want):
+        assert ((g.float() - w.float()).norm() / w.float().norm()).item() < 1e-2
+
+
+@pytest.mark.parametrize("D,path", [(4608, "block_per_row"), (5120, "block_per_row"),
+                                    (768, "warp_per_row")])
+@pytest.mark.parametrize("R", [4, 512, 8192])
+def test_rmsnorm_at_the_dense_widths(cuda, R, D, path):
+    """starcoder2's d_model 4608 and mistral-nemo's 5120 (bf16 rows past
+    8 KB) and nanogpt's 768: decode, serve and train rows, bf16, forward
+    and backward, each on the path its plan names."""
+    gen = torch.Generator(device=cuda).manual_seed(R + D)
+    x = _randn(gen, (R, D), torch.bfloat16, cuda).requires_grad_(True)
+    s = (1.0 + 0.1 * _randn(gen, (D,), torch.float32, cuda)).bfloat16().requires_grad_(True)
+    dy = _randn(gen, (R, D), torch.bfloat16, cuda)
+    y = ops.rmsnorm(x, s)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert rn.PLAN == rn.plan(R, D, torch.bfloat16, torch.bfloat16, sms=sms)
+    assert rn.PLAN.path == (path if R > 4 else "block_per_row")
+    torch.testing.assert_close(y.float(), ref.reference_rmsnorm(x.detach(), s.detach()).float(),
+                               atol=2e-2, rtol=2e-2)
+    dx, ds = torch.autograd.grad(y, (x, s), dy)
+    assert rn.PLAN_BWD == rn.plan_bwd(R, D, torch.bfloat16, torch.bfloat16, sms=sms)
     wdx, wds = ref.reference_rmsnorm_bwd(x.detach(), s.detach(), dy)
     torch.testing.assert_close(dx.float(), wdx.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(ds.float(), wds.float(), atol=2e-2 * R ** 0.5, rtol=2e-2)

@@ -22,23 +22,31 @@ between them, on leaves of the 2-layer cut that ``chip_smoke.py`` trains:
 The port keeps one tensor a layer and stacks them for the update, keying
 ``vr``/``vc``/``v`` by JAX path. New params, ``vr``, ``vc`` and ``v`` must
 agree within 2e-5 of each leaf's largest magnitude. Each leaf runs alone,
-JAX then the port (JAX's new params kept on disk meanwhile), so the test's
-peak holds one leaf's params and gradient and the update's buffers: at the
-MLP leaf (1.06 GB in fp32) the params and gradient, 2.1 GB, and the port's
+JAX then the port (JAX's new params kept on disk meanwhile), so a leaf's
+peak holds its params and gradient and the update's buffers: at the MLP
+leaf (1.06 GB in fp32) the params and gradient, 2.1 GB, and the port's
 out-of-place update, which holds up to four buffers of the leaf's size (the
 stacked gradient and the update's temporaries), 6.7 GB in all.
+
+Each leaf runs in a process of its own, which writes what the test reads
+(shapes and errors) to a JSON file and exits: a test process's allocator
+keeps the pages it once held, so the test's worker would otherwise keep
+its 6.7 GB for the rest of the suite. The file is that process's program:
+``python tests/test_torch_fullwidth.py PATH OUT_DIR``.
 """
 import functools
+import json
+import os
+import subprocess
+import sys
 import zlib
 
-import jax
-import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
-from repro.training import optimizer as JO
-from repro_torch.training import optimizer as O
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "..", "src")
+# one leaf's process alone takes 10-25 s on 8 cores
+LEAF_TIMEOUT_S = 600
 
 # the configuration's Adafactor: lr 3e-4, weight decay 0.1
 LR, WD, STEPS, TOL = 3e-4, 0.1, 3, 2e-5
@@ -84,6 +92,9 @@ def _grad(path, shape, step):
 def _jax(path, shape, out):
     """3 JAX updates; the new params saved to ``out`` (read back mapped),
     the moments returned."""
+    import jax
+    import jax.numpy as jnp
+    from repro.training import optimizer as JO
     step = jax.jit(functools.partial(JO.adafactor_update, lr=LR, weight_decay=WD),
                    donate_argnums=(0, 1, 2))
     params = {path: jnp.asarray(_param(path, shape))}
@@ -96,6 +107,8 @@ def _jax(path, shape, out):
 
 def _port(path, shape):
     """3 port updates on the leaf's layers; (the layers' params, moments)."""
+    import torch
+    from repro_torch.training import optimizer as O
     pattern, _ = LEAVES[path]
     names = [pattern.format(i) for i in range(shape[0])] if "{}" in pattern else [pattern]
     whole = torch.from_numpy(_param(path, shape))
@@ -121,24 +134,56 @@ def _rel(got, want, rows=1 << 22):
     return err / (top + 1e-30)
 
 
-@pytest.mark.filterwarnings("ignore:Some donated buffers were not usable")
-@pytest.mark.parametrize("path", list(LEAVES))
-def test_adafactor_matches_jax_at_full_width(path, tmp_path):
+def leaf_main(path, out_dir):
+    """One leaf, JAX then the port: the moments' shapes and errors, and each
+    layer's param error and how far the update moved it, to
+    ``out_dir/result.json``."""
+    import warnings
+    warnings.filterwarnings("ignore", "Some donated buffers were not usable")
     shape = LEAVES[path][1]
-    want = _jax(path, shape, tmp_path / "p.npy")
+    want = _jax(path, shape, os.path.join(out_dir, "p.npy"))
     layers, got = _port(path, shape)
-    factored = len(shape) >= 2
-    assert want["vr"].shape == (shape[:-1] if factored else (1,))
-    assert want["vc"].shape == (shape[:-2] + shape[-1:] if factored else (1,))
-    assert want["v"].shape == ((1,) if factored else shape)
-    for m in ("vr", "vc", "v"):
-        assert got[m].shape == want[m].shape, m
-        assert _rel(got[m], want[m]) < TOL, (m, _rel(got[m], want[m]))
-    want_p = np.load(tmp_path / "p.npy", mmap_mode="r")
+    res = {"jax_shapes": {m: list(want[m].shape) for m in want},
+           "port_shapes": {m: list(got[m].shape) for m in got},
+           "moment_err": {m: _rel(got[m], want[m]) for m in want}}
+    want_p = np.load(os.path.join(out_dir, "p.npy"), mmap_mode="r")
     want_layers = list(want_p) if len(layers) > 1 else [want_p]
     start = _param(path, shape)
-    for i, (p, w) in enumerate(zip(layers, want_layers)):
-        assert p.shape == w.shape
-        assert _rel(p, w) < TOL, (i, _rel(p, w))
+    res["layers"] = [{"shapes": [list(p.shape), list(w.shape)], "err": _rel(p, w),
+                      "moved": _rel(w, start[i] if len(layers) > 1 else start)}
+                     for i, (p, w) in enumerate(zip(layers, want_layers))]
+    with open(os.path.join(out_dir, "result.json"), "w") as f:
+        json.dump(res, f)
+
+
+import pytest  # noqa: E402  (the leaf's process needs no pytest)
+
+
+@pytest.mark.parametrize("path", list(LEAVES))
+def test_adafactor_matches_jax_at_full_width(path, tmp_path):
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    run = subprocess.run([sys.executable, __file__, path, str(tmp_path)], env=env,
+                         capture_output=True, text=True, timeout=LEAF_TIMEOUT_S)
+    assert run.returncode == 0, (run.stdout + run.stderr)[-6000:]
+    with open(tmp_path / "result.json") as f:
+        res = json.load(f)
+    shape = LEAVES[path][1]
+    want, got = res["jax_shapes"], res["port_shapes"]
+    factored = len(shape) >= 2
+    assert tuple(want["vr"]) == (shape[:-1] if factored else (1,))
+    assert tuple(want["vc"]) == (shape[:-2] + shape[-1:] if factored else (1,))
+    assert tuple(want["v"]) == ((1,) if factored else shape)
+    for m in ("vr", "vc", "v"):
+        assert got[m] == want[m], m
+        assert res["moment_err"][m] < TOL, (m, res["moment_err"][m])
+    assert len(res["layers"]) == (shape[0] if "{}" in LEAVES[path][0] else 1)
+    for i, layer in enumerate(res["layers"]):
+        assert layer["shapes"][0] == layer["shapes"][1]
+        assert layer["err"] < TOL, (i, layer["err"])
         # the update moved the params by more than the tolerance
-        assert _rel(w, start[i] if len(layers) > 1 else start) > 10 * TOL
+        assert layer["moved"] > 10 * TOL
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, SRC)
+    leaf_main(sys.argv[1], sys.argv[2])

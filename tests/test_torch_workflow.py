@@ -3,11 +3,15 @@ package's (``repro.core``), on the CPU at a small size.
 
 ``repro_torch.core`` is a scripted copy of ``repro.core`` with the package
 prefix rewritten (``scripts/port_core.py``); the copy differs only in the
-torch seams of ``engines/local.py`` and in ``autotune.train_real_model``.
+torch seams of ``engines/local.py``, in ``autotune.train_real_model`` and
+in the nondeterminism pass's view of torch's global generator
+(``analysis/ndet.py``).
 Workflows of both packages run here with their own payloads, the port's
 started from JAX's init, bridged."""
 import dataclasses
 import importlib.util
+import random
+import time
 import tempfile
 import threading
 from pathlib import Path
@@ -21,6 +25,7 @@ import torch
 from repro.configs import get_arch as jget_arch, reduced as jreduced
 from repro.core import autotune as JA
 from repro.core import couler as jcouler
+from repro.core.analysis import lint as jlint, nondeterminism_findings as jfindings
 from repro.core.caching import CacheStore as JCacheStore, CoulerPolicy as JCoulerPolicy
 from repro.core.engines import local as JL
 from repro.core.engines.base import StepStatus as JStepStatus
@@ -30,10 +35,12 @@ from repro_torch import bridge
 from repro_torch.configs import get_arch, reduced
 from repro_torch.core import autotune as A
 from repro_torch.core import couler
+from repro_torch.core.analysis import lint, nondeterminism_findings as findings
 from repro_torch.core.caching import CacheStore, CoulerPolicy
 from repro_torch.core.engines import local as L
 from repro_torch.core.engines.base import StepStatus
 from repro_torch.core.faults import FaultPlan
+from repro_torch.core.ir import Job, WorkflowIR
 from repro_torch.data import pipeline
 from repro_torch.training import train as TR
 
@@ -78,7 +85,8 @@ def test_only_the_named_seams_diverge():
         "engines/local.py": ("_hash_value", "cache_key", "LocalEngine._ckpt_session",
                              "LocalEngine._profiled_invoke", "_block_until_ready",
                              "_device_memory_bytes"),
-        "autotune.py": ("train_real_model",)}
+        "autotune.py": ("train_real_model",),
+        "analysis/ndet.py": ("_is_rng_module_call", "_scan")}
     for rel, names in port_core.DIVERGENT.items():
         original = port_core.rewrite((port_core.ORIGINAL / rel).read_text())
         port = (port_core.PORT / rel).read_text()
@@ -727,6 +735,155 @@ def test_the_fence_and_the_memory_reading_wait_for_cuda():
         pytest.skip("a CUDA device is present")
     L._block_until_ready(torch.ones(2))
     assert L._device_memory_bytes() is None
+
+
+# ---------------------------------------------------------------------------
+# (h) CLR007: the nondeterminism pass sees torch's global generator
+# ---------------------------------------------------------------------------
+
+# the JAX linter's own cases (tests/test_analysis.py), and more of its kinds
+def _noisy_fn():
+    return random.random()
+
+
+def _seeded_fn():
+    rng = random.Random(0)
+    return rng.normalvariate(0, 1)
+
+
+def _clocky_fn():
+    return time.time()
+
+
+def _np_draw_fn():
+    return np.random.rand(3)
+
+
+def _np_unseeded_rng_fn():
+    return np.random.default_rng().normal()
+
+
+def _np_seeded_rng_fn():
+    return np.random.default_rng(0).normal()
+
+
+def _jax_key_fn():
+    return jax.random.normal(jax.random.PRNGKey(0), (3,))
+
+
+def _seeded_then_clock_fn():
+    random.seed(1)
+    return random.random(), time.perf_counter()
+
+
+# draws from torch's global generator, through the torch module
+def _torch_randn_fn(x):
+    return x + torch.randn(4)
+
+
+def _torch_draws_fn():
+    return torch.rand(3), torch.randint(0, 4, (2,)), torch.randperm(5)
+
+
+def _torch_init_fn(w):
+    torch.nn.init.normal_(w)
+    return w.uniform_()
+
+
+def _torch_more_draws_fn(p):
+    return (torch.normal(0.0, 1.0, (3,)), torch.bernoulli(p), torch.multinomial(p, 1),
+            torch.poisson(p), torch.randn_like(p), torch.empty(3).normal_())
+
+
+def _torch_seeded_fn(x):
+    torch.manual_seed(0)
+    return x + torch.randn(4)
+
+
+def _torch_generator_fn(x):
+    g = torch.Generator().manual_seed(0)
+    return x + torch.randn(4, generator=g), torch.empty(3).uniform_(generator=g)
+
+
+def _torch_explicit_generator_fn(x, g):
+    return x + torch.randint(0, 9, (4,), generator=g)
+
+
+def _torch_fill_fn(w):
+    torch.nn.init.zeros_(w)
+    torch.nn.init.ones_(w)
+    return torch.nn.init.constant_(w, 2.0)
+
+
+JAX_LINTER_CASES = [_noisy_fn, _seeded_fn, _clocky_fn, len, _np_draw_fn,
+                    _np_unseeded_rng_fn, _np_seeded_rng_fn, _jax_key_fn,
+                    _seeded_then_clock_fn]
+
+
+@pytest.mark.parametrize("fn", JAX_LINTER_CASES, ids=lambda f: f.__name__)
+def test_clr007_gives_the_jax_linters_findings(fn):
+    """Every kind of call the JAX package's pass judges is judged the same."""
+    assert findings(fn) == jfindings(fn)
+    assert bool(findings(fn)) == (fn in (_noisy_fn, _clocky_fn, _np_draw_fn,
+                                         _np_unseeded_rng_fn, _seeded_then_clock_fn))
+
+
+@pytest.mark.parametrize("fn,want", [
+    (_torch_randn_fn, ("torch.randn()",)),
+    (_torch_draws_fn, ("torch.rand()", "torch.randint()", "torch.randperm()")),
+    (_torch_init_fn, ("torch.nn.init.normal_()", "w.uniform_()")),
+    (_torch_more_draws_fn, ("torch.normal()", "torch.bernoulli()", "torch.multinomial()",
+                            "torch.poisson()", "torch.randn_like()", "(...).normal_()"))],
+    ids=lambda v: getattr(v, "__name__", ""))
+def test_clr007_flags_torchs_global_generator(fn, want):
+    assert sorted(findings(fn)) == sorted(want)
+    assert jfindings(fn) == ()           # the JAX pass knows no torch
+
+
+@pytest.mark.parametrize("fn", [_torch_seeded_fn, _torch_generator_fn,
+                                _torch_explicit_generator_fn, _torch_fill_fn],
+                         ids=lambda f: f.__name__)
+def test_clr007_excuses_seeded_and_generator_draws(fn):
+    assert findings(fn) == ()
+
+
+def _torch_draw_step():
+    return torch.randn(2)
+
+
+def _one_step_workflow(ir_cls, job_cls, fn, cacheable=True):
+    """The JAX linter tests' chain of two steps, the second running ``fn``."""
+    wf = ir_cls("ndet")
+    wf.add_job(job_cls(name="a", fn=_seeded_fn, outputs=["a:out"]))
+    wf.add_job(job_cls(name="b", fn=fn, outputs=["b:out"], cacheable=cacheable))
+    wf.add_edge("a", "b")
+    return wf
+
+
+@pytest.mark.parametrize("fn", [_noisy_fn, _seeded_fn, _clocky_fn],
+                         ids=lambda f: f.__name__)
+def test_clr007_lints_a_workflow_as_the_jax_linter(fn):
+    """The JAX linter's mutation case: the same warnings in both packages,
+    never an error, and none for a step that is not cacheable."""
+    from repro.core.ir import Job as JJob, WorkflowIR as JWorkflowIR
+    for cacheable in (True, False):
+        res = lint(_one_step_workflow(WorkflowIR, Job, fn, cacheable))
+        jres = jlint(_one_step_workflow(JWorkflowIR, JJob, fn, cacheable))
+        assert res.codes() == jres.codes() and res.ok()
+        assert [d.message for d in res.warnings] == [d.message for d in jres.warnings]
+
+
+def test_a_cacheable_torch_draw_step_is_warned_at_submit():
+    """On the port's engine the warning is recorded, the step runs."""
+    wf = _one_step_workflow(WorkflowIR, Job, _torch_draw_step)
+    eng = L.LocalEngine(max_workers=2, enable_speculation=False, promote_interval_s=0.0)
+    try:
+        run = eng.submit(wf)
+    finally:
+        eng.close()
+    assert run.status == "Succeeded"
+    assert any(d["code"] == "CLR007" and "torch.randn" in d["message"]
+               for d in wf.configs["lint_warnings"])
 
 
 # ---------------------------------------------------------------------------
