@@ -1,0 +1,11 @@
+"""The least time of the ssd_scan calls, forward and backward, their work from
+each call's shapes, over the device time of the kernels those calls
+launched, in percent. The least time of a call is the larger of its bytes at
+the HBM rate and its operations at the peak (``work``)."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or not t.device_s.get("ssd_scan") or not t.bound_s.get("ssd_scan"):
+        return None
+    return 100.0 * t.bound_s["ssd_scan"] / t.device_s["ssd_scan"]
