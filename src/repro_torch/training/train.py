@@ -13,6 +13,11 @@ positions' logits only. The moe family's loss adds ``moe_aux`` and, with
 the MTP head, 0.3 times the cross entropy of ``mtp_logits`` against the
 targets rolled one to the left. The entry points default to the card.
 
+While a ``torch.profiler`` records, the step opens the ranges of
+``repro_torch.ranges``: the whole step, each micro-batch's forward and
+backward, and the clip with the update; ``make_train_step`` installs the
+collector's range once per process.
+
 Under a device mesh (``sharding.ctx.use_mesh``), ``place_train_state``
 places the params and moments as ``DTensor``s by ``param_specs`` and
 ``opt_state_specs`` and ``place_batch`` the batch by ``batch_specs``; the
@@ -33,6 +38,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import device as dev
+from repro_torch import ranges
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.sharding import ctx
@@ -181,47 +187,57 @@ def make_train_step(cfg, tcfg):
     loss_fn = make_loss_fn(cfg, tcfg)
     update = O.opt_update(tcfg.optimizer)
 
+    def forward(params, batch):
+        with ranges.span("step.forward"):
+            return loss_fn(params, batch)[0]
+
+    def backward(loss, leaves):
+        with ranges.span("step.backward"):
+            return torch.autograd.grad(loss, leaves)
+
     def compute_grads(params, batch):
         names, leaves = zip(*params.named_parameters())
         n = tcfg.accum_steps
         if n <= 1:
-            loss, _ = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
-            return loss.detach(), dict(zip(names, grads))
+            loss = forward(params, batch)
+            return loss.detach(), dict(zip(names, backward(loss, leaves)))
         micro = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
                  for k, v in batch.items()}
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in leaves]
         lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for i in range(n):
-            loss, _ = loss_fn(params, {k: v[i] for k, v in micro.items()})
-            for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
+            loss = forward(params, {k: v[i] for k, v in micro.items()})
+            for a, g in zip(acc, backward(loss, leaves)):
                 a += g.float()
             lsum = lsum + loss.detach()
         return lsum / n, {k: a / n for k, a in zip(names, acc)}
 
     def train_step(state, batch):
-        params = state["params"]
-        if ctx.axis_ctx()[0] is None:
-            loss, grads = compute_grads(params, batch)
-        else:
-            from torch.distributed.tensor.experimental import implicit_replication
-            if tcfg.accum_steps > 1:
-                raise NotImplementedError("accum_steps > 1 under a mesh")
-            with implicit_replication():
+        with ranges.span("step"):
+            params = state["params"]
+            if ctx.axis_ctx()[0] is None:
                 loss, grads = compute_grads(params, batch)
-            named = dict(params.named_parameters())
-            # reduce over the data axes to each parameter's own placement
-            grads = {k: g.redistribute(named[k].device_mesh, named[k].placements)
-                     for k, g in grads.items()}
-            loss = loss.full_tensor()
-        grads, gnorm = O.clip_by_global_norm(grads, tcfg.grad_clip)
-        _, state["opt"] = update(grads, state["opt"], dict(params.named_parameters()),
-                                 lr=tcfg.learning_rate,
-                                 weight_decay=tcfg.weight_decay)
-        state["step"] = state["step"] + 1
-        return state, {"loss": loss, "grad_norm": gnorm}
+            else:
+                from torch.distributed.tensor.experimental import implicit_replication
+                if tcfg.accum_steps > 1:
+                    raise NotImplementedError("accum_steps > 1 under a mesh")
+                with implicit_replication():
+                    loss, grads = compute_grads(params, batch)
+                named = dict(params.named_parameters())
+                # reduce over the data axes to each parameter's own placement
+                grads = {k: g.redistribute(named[k].device_mesh, named[k].placements)
+                         for k, g in grads.items()}
+                loss = loss.full_tensor()
+            with ranges.span("step.optimizer"):
+                grads, gnorm = O.clip_by_global_norm(grads, tcfg.grad_clip)
+                _, state["opt"] = update(grads, state["opt"], dict(params.named_parameters()),
+                                         lr=tcfg.learning_rate,
+                                         weight_decay=tcfg.weight_decay)
+            state["step"] = state["step"] + 1
+            return state, {"loss": loss, "grad_norm": gnorm}
 
+    ranges.install_gc_range()
     return train_step
 
 
